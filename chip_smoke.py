@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch port's main path (libmultiviewnative_torch).
+
+Run from the repository root on a host with one NVIDIA GPU (H100):
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure (there is no CPU fallback):
+
+1. device: the card's name and power limit from nvidia-smi, versions;
+2. build: nvcc builds the hand-written kernels from ops/csrc/;
+3. kernels: each kernel (K1 rl_update, K2 quotient, K3 spectral_multiply)
+   against its plain PyTorch version on the card, at the main path's shapes,
+   with the error and the CUDA-event times (median) of both;
+4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
+   iterations under the gates of tests/test_golden_regression.py;
+5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``,
+   with the launch counts of one call (40/40/80), it/s and the slope;
+6. prepared: the same data through prepare_workspace + deconvolve_prepared;
+7. 512³: 4 views with adjoint_kernel2 and scalar weights;
+8. cross-check: CUDA against the port's CPU path at 4 views × 64³.
+
+The line before the last is one JSON object with every kernel's record; the
+last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+V = 4
+LAM = 0.006
+MIN_VALUE = 1e-4
+ITERS = 10
+HEADLINE_N = 256  # bench.py's config 1
+BIG_N = 512  # bench.py's config 2
+CROSS_N = 64
+TIMED_LAUNCHES = 10  # per turn; two turns each of kernel and plain version
+
+SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
+REPLACES = {
+    "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
+    "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
+    "spectral_multiply": "libmultiviewnative_tpu/ops/pallas/elementwise.py:130",
+}
+# a kernel agrees with its plain version when max|kernel - plain| is within
+# this share of max|plain|: -fmad=false gives the plain versions' rounding,
+# so K1 and K2 are expected bitwise; PyTorch's own complex multiply may
+# contract to FMA, an ulp of |x||k| at most
+TOLERANCE = 1e-6
+
+
+def tikhonov_atol(lam):
+    """Extra absolute slack for K1 with λ > 0: one ulp of sqrt(1 + 2λv) near
+    1 becomes ulp(1)/λ after the "- 1" and the "/ λ"; four are allowed, for
+    a plain version whose sqrt is not correctly rounded."""
+    return 4 * float(np.finfo(np.float32).eps) / lam if lam > 0 else 0.0
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this check runs only on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    log("# phase 1: device")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}"
+        f" device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return torch.device("cuda", 0)
+
+
+def phase_build():
+    from libmultiviewnative_torch.ops import _build
+
+    log("# phase 2: build")
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    log(f"built {path} in {time.perf_counter() - t0:.2f} s")
+    report = path.parent / "nvcc.log"
+    if report.exists():
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+
+
+def event_times_ms(torch, fn):
+    """CUDA-event times (ms) of TIMED_LAUNCHES calls, after one warm-up."""
+    fn()
+    events = [
+        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for _ in range(TIMED_LAUNCHES)
+    ]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def compare(torch, name, got, ref):
+    """(max|got - ref|, max|ref|) over the finite values of a kernel's output
+    and its plain version; non-finite values must sit at the same places."""
+    torch.cuda.synchronize()
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    for pred in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(pred(got), pred(ref)):
+            raise AssertionError(f"{name}: non-finite values differ from the plain version")
+    fin = torch.isfinite(ref)
+    abs_err = float((got[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    scale = float(ref[fin].abs().max()) if bool(fin.any()) else 1.0
+    return abs_err, max(scale, 1e-30)
+
+
+def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0):
+    """Hold one kernel call against its plain version, time both (median
+    CUDA-event ms, in turns plain, kernel, kernel, plain) and log GB/s of
+    ``nbytes``; fold the error into ``records[name]``."""
+    got, ref = kernel(), plain()
+    abs_err, scale = compare(torch, f"{name} {label}", got, ref)
+    ok = abs_err <= TOLERANCE * scale + atol
+    samples = {plain: [], kernel: []}
+    for fn in (plain, kernel, kernel, plain):
+        samples[fn] += event_times_ms(torch, fn)
+    ms, plain_ms = statistics.median(samples[kernel]), statistics.median(samples[plain])
+    log(f"{name:17s} {label:34s} max_abs_err {abs_err:.3e} rel {abs_err / scale:.3e}"
+        f" (tol {TOLERANCE:g} of max|plain| + {atol:.2e})"
+        f" kernel {ms:.4f} ms {nbytes / ms / 1e6:8.1f} GB/s"
+        f" | plain {plain_ms:.4f} ms {nbytes / plain_ms / 1e6:8.1f} GB/s")
+    if not ok:
+        raise AssertionError(f"{name} {label}: error {abs_err:.3e} beyond tolerance")
+    rec = records.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    return ms, plain_ms
+
+
+def phase_kernels(torch, dev):
+    from libmultiviewnative_torch.ops import elementwise as ew
+
+    log("# phase 3: kernels vs plain versions on the card")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    records = {}
+    main_ms = {}
+
+    def rand(shape, lo, hi, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * (hi - lo) + lo
+
+    for n in (HEADLINE_N, BIG_N):
+        shape = (n, n, n)
+        psi = rand(shape, 1.0, 100.0)
+        integral = rand(shape, -0.2, 2.0)  # some <= 0: the clamp path
+        w = rand(shape, 0.0, 0.5)
+        vox = psi.numel() * 4
+        for lam in (0.0, LAM):
+            for weights, wlabel, nbytes in ((w, "voxel-w", 4 * vox), (0.25, "scalar-w", 3 * vox)):
+                out = torch.empty_like(psi)
+                t = check_kernel(
+                    torch, records, "rl_update", f"{n}^3 {wlabel} lam={lam}",
+                    lambda: ew.rl_update(psi, integral, weights, lam, MIN_VALUE, out=out),
+                    lambda: ew.rl_update_plain(psi, integral, weights, lam, MIN_VALUE),
+                    nbytes, atol=tikhonov_atol(lam),
+                )
+                if n == HEADLINE_N and wlabel == "voxel-w" and lam == LAM:
+                    main_ms["rl_update"] = t
+        view = rand(shape, 0.0, 200.0)
+        denom = rand(shape, 0.5, 1.5)
+        out = torch.empty_like(view)
+        t = check_kernel(
+            torch, records, "quotient", f"{n}^3",
+            lambda: ew.quotient(view, denom, out=out),
+            lambda: ew.quotient_plain(view, denom),
+            3 * vox,
+        )
+        if n == HEADLINE_N:
+            main_ms["quotient"] = t
+        del psi, integral, w, view, denom, out
+
+        spec = (n, n, n // 2 + 1)
+        x = torch.complex(rand(spec, -1.0, 1.0), rand(spec, -1.0, 1.0))
+        k = torch.complex(rand(spec, -1.0, 1.0), rand(spec, -1.0, 1.0))
+        out = torch.empty_like(x)
+        for conj in (False, True):
+            t = check_kernel(
+                torch, records, "spectral_multiply", f"{spec} conj={conj}",
+                lambda: ew.spectral_multiply(x, k, conj_k=conj, out=out),
+                lambda: ew.spectral_multiply_plain(x, k, conj),
+                24 * k.numel(),
+            )
+            if n == HEADLINE_N and not conj:
+                main_ms["spectral_multiply"] = t
+        del x, k, out
+        torch.cuda.empty_cache()
+
+    # the batch broadcast of the simultaneous view order, and odd sizes that
+    # take the scalar (unaligned-tail) loops
+    xb = torch.complex(rand((V, 64, 64, 33), -1, 1), rand((V, 64, 64, 33), -1, 1))
+    kb = torch.complex(rand((64, 64, 33), -1, 1), rand((64, 64, 33), -1, 1))
+    check_kernel(torch, records, "spectral_multiply", f"batch {tuple(xb.shape)}",
+                 lambda: ew.spectral_multiply(xb, kb), lambda: ew.spectral_multiply_plain(xb, kb),
+                 8 * (2 * xb.numel() + kb.numel()))
+    xo = torch.complex(rand((7, 9, 7), -1, 1), rand((7, 9, 7), -1, 1))
+    check_kernel(torch, records, "spectral_multiply", "odd (7, 9, 7) conj",
+                 lambda: ew.spectral_multiply(xo, xo, conj_k=True),
+                 lambda: ew.spectral_multiply_plain(xo, xo, True), 24 * xo.numel())
+    a, b = rand((7, 9, 13), 0.5, 2.0), rand((7, 9, 13), -1.0, 2.0)
+    check_kernel(torch, records, "quotient", "odd (7, 9, 13)",
+                 lambda: ew.quotient(a, b), lambda: ew.quotient_plain(a, b), 12 * a.numel())
+    for lam in (0.0, LAM):
+        check_kernel(torch, records, "rl_update", f"odd (7, 9, 13) lam={lam}",
+                     lambda: ew.rl_update(a, b, b.abs(), lam, MIN_VALUE),
+                     lambda: ew.rl_update_plain(a, b, b.abs(), lam, MIN_VALUE), 16 * a.numel(),
+                     atol=tikhonov_atol(lam))
+        edge_psi = torch.tensor([[1.0, 1.0, 1.0, 0.0]], device=dev)
+        edge_int = torch.tensor([[float("nan"), float("inf"), -2.0, 3.0]], device=dev)
+        check_kernel(torch, records, "rl_update", f"edge values lam={lam}",
+                     lambda: ew.rl_update(edge_psi, edge_int, 1.0, lam, MIN_VALUE),
+                     lambda: ew.rl_update_plain(edge_psi, edge_int, 1.0, lam, MIN_VALUE), 48)
+    for name, (ms, plain_ms) in main_ms.items():
+        records[name].update(ms=ms, plain_ms=plain_ms)
+    return records
+
+
+def phase_golden(torch, dev):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData, View
+    from libmultiviewnative_torch.reference.oracle import (
+        l2norm, l2norm_within_limits, rms_within_limits,
+    )
+
+    log("# phase 4: golden pack on the card")
+    pack_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "golden_mv6.npz")
+    with np.load(pack_path) as z:
+        pack = {k: z[k] for k in z.files}
+    data = MultiViewData.from_views(
+        [View(pack[f"view_{v}"], pack[f"kernel1_{v}"], pack[f"kernel2_{v}"], pack[f"weights_{v}"])
+         for v in range(6)],
+        device=dev,
+    )
+    psi0 = torch.as_tensor(pack["psi_0_start"], device=dev)
+    for iters, key, gate in ((2, "psi_1", 1e-3), (5, "psi_4", 2e-3)):
+        out = deconvolve(psi0, data, iters, lam=float(pack["lambda"]),
+                         min_value=float(pack["min_value"])).cpu().numpy()
+        g = pack[key]
+        norms = (l2norm(out, g), l2norm_within_limits(out, g, 0.3, 0.7),
+                 rms_within_limits(out, g, 0.3, 0.7))
+        log(f"golden {iters} it vs {key}: l2norm {norms[0]:.3e} central {norms[1]:.3e}"
+            f" rms {norms[2]:.3e} (gates {gate:g}, {gate:g}, 5e-3)")
+        if not (norms[0] < gate and norms[1] < gate and norms[2] < 5e-3):
+            raise AssertionError(f"golden pack at {iters} iterations fails its gates: {norms}")
+
+
+def bench_kernels():
+    """bench.py's kernels: Gaussian 21³ kernel1 (σ = 2 + 0.5 v) and the
+    flipped kernel padded to 25³ as kernel2."""
+    from libmultiviewnative_torch.deconv.workspace import pad_kernel_to
+    from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
+
+    k1 = np.stack([gaussian_kernel((21,) * 3, 2.0 + 0.5 * v) for v in range(V)])
+    k2 = np.stack([pad_kernel_to(np.flip(k).copy(), (25,) * 3) for k in k1])
+    return k1, k2
+
+
+def rate(torch, run_n, reps):
+    """bench.py's two numbers: ITERS over the best of ``reps`` timed calls,
+    and the slope (ITERS - ITERS//3) / (t_ITERS - t_{ITERS//3}), best of 2
+    each, with the per-call constants cancelled."""
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_n(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(ITERS)
+    value = ITERS / min(timed(ITERS) for _ in range(reps))
+    lo = max(1, ITERS // 3)
+    t = {}
+    for n in (lo, ITERS):
+        timed(n)
+        t[n] = min(timed(n) for _ in range(2))
+    slope = (ITERS - lo) / (t[ITERS] - t[lo])
+    return value, slope
+
+
+def check_output(torch, out, shape, what):
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: output is not a finite {shape} volume")
+
+
+def phase_headline(torch, dev, rng, launches_out):
+    from libmultiviewnative_torch.deconv.rl import (
+        deconvolve, deconvolve_prepared, prepare_workspace, resolve_algorithm,
+    )
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.ops import elementwise as ew
+
+    log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='auto'"
+        f" (runs {resolve_algorithm('auto')!r})")
+    shape = (HEADLINE_N,) * 3
+    k1, k2 = bench_kernels()
+    views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)).to(dev)
+    data = MultiViewData(
+        views=views,
+        kernel1=torch.from_numpy(k1).to(dev),
+        kernel2=torch.from_numpy(k2).to(dev),
+        weights=torch.full((V,) + shape, 1.0 / V, device=dev),
+    )
+    psi0 = torch.full(shape, float(views.mean()), device=dev)
+
+    def run_n(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
+
+    torch.cuda.synchronize()
+    ew.reset_launches()
+    out = run_n(ITERS)
+    torch.cuda.synchronize()
+    launches_out.update(ew.launches)
+    want = {"rl_update": V * ITERS, "quotient": V * ITERS, "spectral_multiply": 2 * V * ITERS}
+    log(f"launches in one call: {dict(launches_out)} (expected {want})")
+    if launches_out != want:
+        raise AssertionError(f"the main path did not run through the kernels: {launches_out}")
+    check_output(torch, out, shape, "headline")
+    value, slope = rate(torch, run_n, reps=4)
+    log(f"headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
+
+    log("# phase 6: prepared, the same data through prepare_workspace + deconvolve_prepared")
+    prepared = prepare_workspace(data, shape, algorithm="auto")
+
+    def run_prepared_n(n):
+        return deconvolve_prepared(psi0, data, prepared, n, lam=LAM, min_value=MIN_VALUE)
+
+    out_p = run_prepared_n(ITERS)
+    diff = float((out_p - out).abs().max()) / float(out.abs().max())
+    log(f"prepared vs headline: max|diff|/max|psi| = {diff:.3e} (tol 1e-6)")
+    if diff > 1e-6:
+        raise AssertionError(f"prepared path disagrees with the headline: {diff:.3e}")
+    value_p, slope_p = rate(torch, run_prepared_n, reps=4)
+    log(f"prepared 4view {HEADLINE_N}^3: {value_p!r} it/s, slope {slope_p!r} it/s")
+    return {"headline": (value, slope), "prepared": (value_p, slope_p)}
+
+
+def phase_512(torch, dev, rng):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+
+    log(f"# phase 7: 4 views at {BIG_N}^3, adjoint_kernel2, scalar weights, 10 iterations")
+    shape = (BIG_N,) * 3
+    k1, _ = bench_kernels()
+    views = torch.empty((V,) + shape, device=dev)
+    for v in range(V):  # one view at a time bounds the host's float64 draw
+        views[v] = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32))
+    k1_t = torch.from_numpy(k1).to(dev)
+    data = MultiViewData(views, k1_t, k1_t, torch.full((V,), 1.0 / V, device=dev))
+    psi0 = torch.full(shape, float(views.mean()), device=dev)
+
+    def run_n(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto",
+                          adjoint_kernel2=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    check_output(torch, run_n(ITERS), shape, f"{BIG_N}^3")
+    value, slope = rate(torch, run_n, reps=2)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"4view {BIG_N}^3 adjoint: {value!r} it/s, slope {slope!r} it/s, peak {peak:.2f} GiB")
+    return {"big": (value, slope)}
+
+
+def phase_cross_check(torch, dev):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import Workspace, initial_psi
+    from libmultiviewnative_torch.utils.synthetic import multiview_data
+
+    log(f"# phase 8: CUDA vs the port's CPU path, 4 views at {CROSS_N}^3, 2 iterations")
+    ws = Workspace.from_views(
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1)
+    )
+    psi0 = initial_psi(ws.data)
+    cpu = deconvolve(psi0, ws.data, 2, lam=LAM, min_value=MIN_VALUE)
+    gpu = deconvolve(psi0.to(dev), ws.data.to(dev), 2, lam=LAM, min_value=MIN_VALUE).cpu()
+    err = float((gpu - cpu).abs().max()) / float(cpu.abs().max())
+    log(f"cuda vs cpu: max|diff|/max|psi| = {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"CUDA and CPU paths disagree: {err:.3e}")
+
+
+def main():
+    import torch
+
+    dev = phase_device(torch)
+    phase_build()
+    records = phase_kernels(torch, dev)
+    torch.cuda.empty_cache()
+    phase_golden(torch, dev)
+    rng = np.random.default_rng(0)
+    launches = {}
+    rates = phase_headline(torch, dev, rng, launches)
+    torch.cuda.empty_cache()
+    rates.update(phase_512(torch, dev, rng))
+    torch.cuda.empty_cache()
+    phase_cross_check(torch, dev)
+
+    log("rates (it/s, slope): " + json.dumps(rates))
+    kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": records[name]["max_abs_err"],
+            "ms": records[name]["ms"],
+            "plain_ms": records[name]["plain_ms"],
+        }
+        for name in ("rl_update", "quotient", "spectral_multiply")
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,46 @@
+"""libmultiviewnative_torch — multi-view Richardson-Lucy deconvolution in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+The port of ``libmultiviewnative_tpu`` (JAX), which stays the reference;
+this package mirrors its layout and its public names.  It imports torch and
+numpy, never jax.  Tensors on the CPU run the plain PyTorch versions of the
+kernels; tensors on a CUDA device run the kernels of ``ops/csrc/``, built
+with nvcc at first use.
+
+Ported so far: the fft engine's main path (``deconvolve`` in both view
+orders, prepared spectra, convergence history) with the elementwise kernels
+K1-K3.  ``algorithm="auto"`` means ``"fft"`` until the fused engine is
+ported.
+"""
+
+from .core.convolve import convolve_spectrum, fft_convolve3d
+from .core.fft import irfft3, rfft3
+from .core.kernels import (
+    compute_quotient,
+    final_values,
+    regularized_final_values,
+    rl_update,
+)
+from .core.wrap import wrap_kernel
+from .deconv.rl import deconvolve, rl_view_step
+from .deconv.workspace import MultiViewData, View, Workspace, initial_psi
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "View",
+    "MultiViewData",
+    "Workspace",
+    "initial_psi",
+    "deconvolve",
+    "rl_view_step",
+    "wrap_kernel",
+    "rfft3",
+    "irfft3",
+    "convolve_spectrum",
+    "fft_convolve3d",
+    "compute_quotient",
+    "final_values",
+    "regularized_final_values",
+    "rl_update",
+]

@@ -1,0 +1,127 @@
+"""Build and bind the hand-written CUDA kernels.
+
+At first use, ``nvcc`` compiles the sources under ``ops/csrc/`` into one
+shared library with a plain C interface, in ``build/torch_kernels/<hash>/``
+beside the package (a directory ``.gitignore`` lists), keyed by a hash of
+the sources and the flags.  The library is loaded with ``ctypes``: every
+pointer and the stream go in as ``c_void_p``, and every entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+No PyTorch headers are compiled (that costs minutes per build), and no
+``--use_fast_math``: it would change ``1/x`` and ``sqrtf``.  ``-fmad=false``
+keeps every multiply and add rounded on its own, as in the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("elementwise.cu",)
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # device, out, psi, integral, w, w_scalar, lam, min_value, n, stream
+    "lmvn_rl_update": (
+        ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_longlong, _P,
+    ),
+    # device, out, view, integral, n, stream
+    "lmvn_quotient": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
+    # device, out, x, k, batch, nk, conj_k, stream
+    "lmvn_spectral_multiply": (
+        ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, _P,
+    ),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default location."""
+    home = os.environ.get("CUDA_HOME")
+    if home:
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path.  nvcc's report (``-Xptxas -v``: registers, spills)
+    is kept beside it as ``nvcc.log``.  Raises with nvcc's stderr on a
+    failed build."""
+    out_dir = _BUILD_ROOT / _digest()
+    lib_path = out_dir / "liblmvn_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = nvcc_path()
+    if not Path(nvcc).exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}: cannot build the CUDA kernels")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".liblmvn_kernels.{os.getpid()}.so"
+    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use.  Raises when CUDA is
+    not available: there is nothing to launch on."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CUDA is not available: the hand-written kernels need an "
+                    "NVIDIA GPU (CPU tensors use the plain versions)"
+                )
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.lmvn_error_string.argtypes = [ctypes.c_int]
+            lib.lmvn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise when a kernel entry point reported a CUDA error."""
+    if err != 0:
+        what = library().lmvn_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({what}) at launch")

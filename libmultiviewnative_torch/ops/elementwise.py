@@ -1,0 +1,239 @@
+"""Wrappers of the hand-written CUDA kernels for the RL elementwise steps.
+
+Counterpart of ``libmultiviewnative_tpu/ops/pallas/elementwise.py``; the
+kernels are in ``ops/csrc/elementwise.cu``:
+
+* K1 :func:`rl_update` replaces ``rl_update_pallas``
+  (``ops/pallas/elementwise.py:68``): psi' = w·(clamp(f(psi·integral)) − psi)
+  + psi.  16 bytes per voxel with a weight volume, 12 with a scalar weight.
+* K2 :func:`quotient` replaces ``quotient_pallas`` (:101): view · (1/integral),
+  12 bytes per voxel.
+* K3 :func:`spectral_multiply` replaces ``spectral_multiply_pallas`` (:130):
+  x̂·k̂ (or x̂·conj(k̂)) on interleaved complex64, the kernel spectrum
+  broadcast over x̂'s leading axes; 24 bytes per complex value, the kernel
+  spectrum read once for the whole batch.  It walks memory in order, so it
+  takes any dense layout that x̂ and k̂ share: cuFFT's 3D rfftn returns a
+  permuted one ((X//2+1, Z, Y) in memory), which is used as it comes.
+
+Every one of them is bound by HBM bandwidth on the H100, so each is a single
+pass that reads every input once and writes its output once, with 16-byte
+vector accesses, and may write in place (``out=`` aliasing an input): the
+driver updates psi and the quotient without extra volumes.
+
+Dispatch: a tensor on the CPU goes to the plain PyTorch version (the
+``*_plain`` functions, which the card's kernels are held against).  A CUDA
+tensor launches the kernel, or raises; it never falls back.  Each launch
+adds one to :data:`launches`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.kernels import compute_quotient, rl_update as _rl_update_plain
+from . import _build
+
+# launch counts of the three kernels; a plain-version call never counts
+launches = {"rl_update": 0, "quotient": 0, "spectral_multiply": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+rl_update_plain = _rl_update_plain
+quotient_plain = compute_quotient
+
+
+def spectral_multiply_plain(x_hat, k_hat, conj_k: bool = False) -> torch.Tensor:
+    return x_hat * (k_hat.conj() if conj_k else k_hat)
+
+
+def _device(*tensors: torch.Tensor) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands are on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    return dev
+
+
+def _check(name: str, t, dtype: torch.dtype, shape=None, contiguous=True) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.is_conj():
+        # the data under a lazy conj view holds the UNconjugated numbers
+        raise ValueError(f"{name} is a lazy conj() view; call resolve_conj() first")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s elements fill one gap-free span, in any axis order."""
+    expect = 1
+    for stride, size in sorted((st, sz) for st, sz in zip(t.stride(), t.shape) if sz != 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _batched_strides(k: torch.Tensor, batch_shape) -> tuple:
+    """Strides of ``batch_shape`` copies of ``k``'s layout, batch outermost."""
+    n, outer = k.numel(), []
+    for b in reversed(tuple(batch_shape)):
+        outer.append(n)
+        n *= b
+    return tuple(reversed(outer)) + tuple(k.stride())
+
+
+def _same_order(x: torch.Tensor, k: torch.Tensor) -> bool:
+    want = _batched_strides(k, x.shape[: x.ndim - k.ndim])
+    return all(a == b for a, b, n in zip(x.stride(), want, x.shape) if n != 1)
+
+
+def layout_like(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x`` in the memory order K3 needs against ``k``: ``k``'s layout over
+    the trailing axes, leading axes outermost.  ``x`` itself when it already
+    is, else a copy."""
+    if _same_order(x, k):
+        return x
+    out = torch.empty_strided(
+        x.shape, _batched_strides(k, x.shape[: x.ndim - k.ndim]), dtype=x.dtype, device=x.device
+    )
+    return out.copy_(x)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def rl_update(
+    psi: torch.Tensor,
+    integral: torch.Tensor,
+    weights,
+    lam,
+    min_value: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1: the weighted, clamped RL update; ``out`` may be ``psi``.
+
+    ``weights`` is a tensor of psi's shape or a scalar.  On the card ``lam``,
+    ``min_value`` and a scalar weight are runtime float arguments (a 0-dim
+    tensor is read back to the host first), so a λ sweep builds nothing new.
+    """
+    shape = tuple(psi.shape)
+    _check("psi", psi, torch.float32)
+    _check("integral", integral, torch.float32, shape)
+    per_voxel = isinstance(weights, torch.Tensor) and weights.ndim > 0
+    operands = [psi, integral]
+    if per_voxel:
+        _check("weights", weights, torch.float32, shape)
+        operands.append(weights)
+    if out is not None:
+        _check("out", out, torch.float32, shape)
+        operands.append(out)
+    dev = _device(*operands)
+    if dev.type == "cpu":
+        res = rl_update_plain(psi, integral, weights, lam, min_value)
+        return res if out is None else out.copy_(res)
+    lib = _build.library()
+    if out is None:
+        out = torch.empty_like(psi)
+    err = lib.lmvn_rl_update(
+        dev.index,
+        out.data_ptr(),
+        psi.data_ptr(),
+        integral.data_ptr(),
+        weights.data_ptr() if per_voxel else None,
+        0.0 if per_voxel else float(weights),
+        float(lam),
+        float(min_value),
+        psi.numel(),
+        _stream(dev),
+    )
+    _build.check("rl_update", err)
+    launches["rl_update"] += 1
+    return out
+
+
+def quotient(
+    view: torch.Tensor, integral: torch.Tensor, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K2: view · (1/integral); ``out`` may be ``integral``."""
+    shape = tuple(view.shape)
+    _check("view", view, torch.float32)
+    _check("integral", integral, torch.float32, shape)
+    operands = [view, integral]
+    if out is not None:
+        _check("out", out, torch.float32, shape)
+        operands.append(out)
+    dev = _device(*operands)
+    if dev.type == "cpu":
+        res = quotient_plain(view, integral)
+        return res if out is None else out.copy_(res)
+    lib = _build.library()
+    if out is None:
+        out = torch.empty_like(view)
+    err = lib.lmvn_quotient(
+        dev.index, out.data_ptr(), view.data_ptr(), integral.data_ptr(),
+        view.numel(), _stream(dev),
+    )
+    _build.check("quotient", err)
+    launches["quotient"] += 1
+    return out
+
+
+def spectral_multiply(
+    x_hat: torch.Tensor,
+    k_hat: torch.Tensor,
+    conj_k: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3: x̂·k̂, or x̂·conj(k̂) with ``conj_k``; ``out`` may be ``x_hat``.
+
+    ``k_hat``'s shape must be a suffix of ``x_hat``'s: it is applied to every
+    leading (batch) entry of ``x_hat`` without being materialised.  ``k_hat``
+    may have any dense layout; ``x_hat`` and ``out`` must repeat it over the
+    leading axes (:func:`layout_like` makes such a copy).
+    """
+    _check("x_hat", x_hat, torch.complex64, contiguous=False)
+    _check("k_hat", k_hat, torch.complex64, contiguous=False)
+    kshape = tuple(k_hat.shape)
+    if k_hat.ndim > x_hat.ndim or tuple(x_hat.shape[x_hat.ndim - k_hat.ndim:]) != kshape:
+        raise ValueError(
+            f"k_hat {kshape} must match the trailing axes of x_hat {tuple(x_hat.shape)}"
+        )
+    if not _dense(k_hat):
+        raise ValueError("k_hat must be dense (no gaps between its elements)")
+    operands = [x_hat, k_hat]
+    if out is not None:
+        _check("out", out, torch.complex64, x_hat.shape, contiguous=False)
+        operands.append(out)
+    for name, t in (("x_hat", x_hat), ("out", out)):
+        if t is not None and not _same_order(t, k_hat):
+            raise ValueError(f"{name} does not hold k_hat's memory order; see layout_like()")
+    dev = _device(*operands)
+    if dev.type == "cpu":
+        res = spectral_multiply_plain(x_hat, k_hat, conj_k)
+        return res if out is None else out.copy_(res)
+    lib = _build.library()
+    if out is None:
+        out = torch.empty_like(x_hat)
+    nk = k_hat.numel()
+    err = lib.lmvn_spectral_multiply(
+        dev.index, out.data_ptr(), x_hat.data_ptr(), k_hat.data_ptr(),
+        x_hat.numel() // max(nk, 1), nk, int(bool(conj_k)), _stream(dev),
+    )
+    _build.check("spectral_multiply", err)
+    launches["spectral_multiply"] += 1
+    return out
+
