@@ -18,7 +18,19 @@ Phases, each raising on failure (there is no CPU fallback):
    with the launch counts of one call (40/40/80), it/s and the slope;
 6. prepared: the same data through prepare_workspace + deconvolve_prepared;
 7. 512³: 4 views with adjoint_kernel2 and scalar weights;
-8. cross-check: CUDA against the port's CPU path at 4 views × 64³.
+8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
+9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
+   their plain versions on the card at the 256³ and 512³ main-path shapes;
+10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
+    with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
+    it/s and the slope, and held against the fft engine after 10 iterations;
+11. fused prepared: prepare_workspace(algorithm="fused") + deconvolve_prepared
+    (K4 40 per call);
+12. fused 512³: phase 7's configuration through the fused engine (K4 44);
+13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
+14. fused limits: the four passes against their plain versions at the edges
+    of ``ops.fused.fused_limit`` (small shapes), and shapes past them
+    refused before any launch.
 
 The line before the last is one JSON object with every kernel's record; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -43,16 +55,32 @@ CROSS_N = 64
 TIMED_LAUNCHES = 10  # per turn; two turns each of kernel and plain version
 
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
+FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
     "spectral_multiply": "libmultiviewnative_tpu/ops/pallas/elementwise.py:130",
+    "pass_a": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1703",
+    "pass_b": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1735",
+    "pass_cqa": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1854",
+    "pass_cu": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1909",
 }
+KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply", "pass_a", "pass_b", "pass_cqa",
+                "pass_cu")
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
 # so K1 and K2 are expected bitwise; PyTorch's own complex multiply may
 # contract to FMA, an ulp of |x||k| at most
 TOLERANCE = 1e-6
+# the fused passes against their plain versions (cuBLAS fp32 matmuls): sums
+# of up to 2·Kxp products taken in another order, ~1e-6 of max|plain| seen on
+# the CPU against the JAX package; the gate is 1e-5
+FUSED_TOLERANCE = 1e-5
+# (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at pass
+# B's shared-memory bound, a 5-way split z stage, an 8-way split y stage, X
+# at pass CQA's shared-memory bound; then one step past each bound
+EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832))
+OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840))
 
 
 def tikhonov_atol(lam):
@@ -112,8 +140,12 @@ def event_times_ms(torch, fn):
 
 def compare(torch, name, got, ref):
     """(max|got - ref|, max|ref|) over the finite values of a kernel's output
-    and its plain version; non-finite values must sit at the same places."""
+    and its plain version; non-finite values must sit at the same places.
+    A pair of outputs (a split re/im spectrum) is compared as one."""
     torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        got = torch.cat([g.flatten() for g in got])
+        ref = torch.cat([r.flatten() for r in ref])
     if got.is_complex():
         got, ref = torch.view_as_real(got), torch.view_as_real(ref)
     for pred in (torch.isnan, torch.isposinf, torch.isneginf):
@@ -125,19 +157,21 @@ def compare(torch, name, got, ref):
     return abs_err, max(scale, 1e-30)
 
 
-def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0):
+def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0,
+                 tol=TOLERANCE):
     """Hold one kernel call against its plain version, time both (median
     CUDA-event ms, in turns plain, kernel, kernel, plain) and log GB/s of
     ``nbytes``; fold the error into ``records[name]``."""
     got, ref = kernel(), plain()
     abs_err, scale = compare(torch, f"{name} {label}", got, ref)
-    ok = abs_err <= TOLERANCE * scale + atol
+    del got, ref
+    ok = abs_err <= tol * scale + atol
     samples = {plain: [], kernel: []}
     for fn in (plain, kernel, kernel, plain):
         samples[fn] += event_times_ms(torch, fn)
     ms, plain_ms = statistics.median(samples[kernel]), statistics.median(samples[plain])
     log(f"{name:17s} {label:34s} max_abs_err {abs_err:.3e} rel {abs_err / scale:.3e}"
-        f" (tol {TOLERANCE:g} of max|plain| + {atol:.2e})"
+        f" (tol {tol:g} of max|plain| + {atol:.2e})"
         f" kernel {ms:.4f} ms {nbytes / ms / 1e6:8.1f} GB/s"
         f" | plain {plain_ms:.4f} ms {nbytes / plain_ms / 1e6:8.1f} GB/s")
     if not ok:
@@ -301,15 +335,11 @@ def check_output(torch, out, shape, what):
         raise AssertionError(f"{what}: output is not a finite {shape} volume")
 
 
-def phase_headline(torch, dev, rng, launches_out):
-    from libmultiviewnative_torch.deconv.rl import (
-        deconvolve, deconvolve_prepared, prepare_workspace, resolve_algorithm,
-    )
+def headline_data(torch, dev, rng):
+    """bench.py's config 1: 4 views of gamma(2, 20) data at 256³, per-voxel
+    weights 1/V, psi0 the mean."""
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
-    from libmultiviewnative_torch.ops import elementwise as ew
 
-    log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='auto'"
-        f" (runs {resolve_algorithm('auto')!r})")
     shape = (HEADLINE_N,) * 3
     k1, k2 = bench_kernels()
     views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)).to(dev)
@@ -319,7 +349,19 @@ def phase_headline(torch, dev, rng, launches_out):
         kernel2=torch.from_numpy(k2).to(dev),
         weights=torch.full((V,) + shape, 1.0 / V, device=dev),
     )
-    psi0 = torch.full(shape, float(views.mean()), device=dev)
+    return data, torch.full(shape, float(views.mean()), device=dev)
+
+
+def phase_headline(torch, dev, rng, launches_out):
+    from libmultiviewnative_torch.deconv.rl import (
+        deconvolve, deconvolve_prepared, prepare_workspace, resolve_algorithm,
+    )
+    from libmultiviewnative_torch.ops import elementwise as ew
+
+    log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='auto'"
+        f" (runs {resolve_algorithm('auto')!r})")
+    shape = (HEADLINE_N,) * 3
+    data, psi0 = headline_data(torch, dev, rng)
 
     def run_n(n):
         return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
@@ -397,6 +439,253 @@ def phase_cross_check(torch, dev):
         raise AssertionError(f"CUDA and CPU paths disagree: {err:.3e}")
 
 
+def fused_flops(plan):
+    """Real FLOPs one call of each fused pass executes (x stages as packed
+    real products, split stages as R Karatsuba (M, M) products per row)."""
+    Z, Y, X = plan.shape
+    kxp = plan.kxp
+    x = 4 * kxp * X * Y * Z
+    y = 6 * kxp * Z * Y * plan.sy.M
+    z = 6 * kxp * Y * Z * plan.sz.M
+    return {"pass_a": x + y, "pass_b": 2 * z, "pass_cqa": 2 * (x + y), "pass_cu": x + y}
+
+
+def check_fp32_matmuls(torch):
+    """The plain versions are cuBLAS matmuls: held and timed in full fp32."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("torch.get_float32_matmul_precision() must be 'highest'")
+
+
+def phase_fused_kernels(torch, dev, records):
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    log("# phase 9: fused kernels vs plain versions on the card")
+    check_fp32_matmuls(torch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k1, _ = bench_kernels()
+    kernel = torch.from_numpy(k1[0]).to(dev)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    for size in (HEADLINE_N, BIG_N):
+        shape = (size,) * 3
+        Z, Y, X = shape
+        label = "x".join(map(str, shape))
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        psi = rand((Z, X, Y), 1.0, 100.0)
+        view = rand((Z, X, Y), 1.0, 200.0)
+        kre, kim = fu.kernel_spectrum_fused(kernel[: min(21, Z // 2)], shape)
+        u = fu.pass_a_plain(psi, c)
+        v = fu.pass_b_plain(*u, kre, kim, c)
+        buf = (torch.empty_like(u[0]), torch.empty_like(u[1]))
+        out = torch.empty_like(psi)
+        conj = size == BIG_N
+        weights = 0.25 if size == BIG_N else rand((Z, X, Y), 0.0, 0.5)
+        vol, spec = 4 * psi.numel(), 8 * u[0].numel()
+        flops = fused_flops(plan)
+        checks = (
+            ("pass_a", label, lambda: fu.pass_a(psi, plan, out=buf),
+             lambda: fu.pass_a_plain(psi, c), vol + spec, 0.0),
+            ("pass_b", f"{label} conj={conj}",
+             lambda: fu.pass_b(*u, kre, kim, plan, conj_k=conj, out=buf),
+             lambda: fu.pass_b_plain(*u, kre, kim, c, conj), 3 * spec, 0.0),
+            ("pass_cqa", label, lambda: fu.pass_cqa(*v, view, plan, out=buf),
+             lambda: fu.pass_cqa_plain(*v, view, c), 2 * spec + vol, 0.0),
+            ("pass_cu", f"{label} {'scalar' if conj else 'voxel'}-w lam={LAM}",
+             lambda: fu.pass_cu(*v, psi, weights, plan, LAM, MIN_VALUE, out=out),
+             lambda: fu.pass_cu_plain(*v, psi, weights, c, LAM, MIN_VALUE),
+             spec + (2 if conj else 3) * vol, tikhonov_atol(LAM)),
+        )
+        for name, what, kernel_fn, plain_fn, nbytes, atol in checks:
+            ms, plain_ms = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
+                                        atol=atol, tol=FUSED_TOLERANCE)
+            log(f"{name:17s} {what:34s} {flops[name] / ms / 1e9:8.2f} TFLOP/s kernel,"
+                f" {flops[name] / plain_ms / 1e9:8.2f} plain ({flops[name] / 1e9:.2f} GFLOP)")
+            if size == HEADLINE_N:
+                records[name].update(ms=ms, plain_ms=plain_ms)
+            else:
+                records[name].update(ms_512=ms, plain_ms_512=plain_ms)
+        del psi, view, u, v, buf, out, kre, kim
+        torch.cuda.empty_cache()
+
+
+def reset_counts():
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+
+    ew.reset_launches()
+    fu.reset_launches()
+
+
+def read_counts():
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+
+    return {**ew.launches, **fu.launches}
+
+
+def expect_counts(counts, want, what):
+    full = {name: 0 for name in KERNEL_NAMES}
+    full.update(want)
+    log(f"{what}: launches in one call {counts} (expected {full})")
+    if counts != full:
+        raise AssertionError(f"{what}: the main path did not run through the kernels: {counts}")
+
+
+def phase_fused_headline(torch, dev, rng, launches_out):
+    from libmultiviewnative_torch.deconv.rl import (
+        deconvolve, deconvolve_prepared, prepare_workspace,
+    )
+
+    log(f"# phase 10: fused headline, 4 views at {HEADLINE_N}^3, 10 iterations,"
+        " algorithm='fused'")
+    shape = (HEADLINE_N,) * 3
+    data, psi0 = headline_data(torch, dev, rng)
+
+    def run_n(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fused")
+
+    run_n(1)  # builds nothing new, but loads the plan constants
+    torch.cuda.synchronize()
+    reset_counts()
+    out = run_n(ITERS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
+                           "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, "fused headline")
+    launches_out.update({k: counts[k] for k in ("pass_a", "pass_b", "pass_cqa", "pass_cu")})
+    check_output(torch, out, shape, "fused headline")
+    value, slope = rate(torch, run_n, reps=4)
+    log(f"fused headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
+
+    fft = deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="fft")
+    diff = float((out - fft).abs().max()) / float(fft.abs().max())
+    log(f"fused vs fft after {ITERS} iterations: max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"fused and fft engines disagree: {diff:.3e}")
+    del fft
+
+    log("# phase 11: fused prepared, prepare_workspace(algorithm='fused') + deconvolve_prepared")
+    prepared = prepare_workspace(data, shape, algorithm="fused")
+
+    def run_prepared_n(n):
+        return deconvolve_prepared(psi0, data, prepared, n, lam=LAM, min_value=MIN_VALUE)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out_p = run_prepared_n(ITERS)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), {"pass_a": V * ITERS, "pass_b": 2 * V * ITERS,
+                                  "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, "fused prepared")
+    diff = float((out_p - out).abs().max()) / float(out.abs().max())
+    log(f"fused prepared vs fused headline: max|diff|/max|psi| = {diff:.3e} (tol 1e-6)")
+    if not diff <= 1e-6:
+        raise AssertionError(f"fused prepared path disagrees with the headline: {diff:.3e}")
+    value_p, slope_p = rate(torch, run_prepared_n, reps=4)
+    log(f"fused prepared 4view {HEADLINE_N}^3: {value_p!r} it/s, slope {slope_p!r} it/s")
+    return {"fused_headline": (value, slope), "fused_prepared": (value_p, slope_p)}
+
+
+def phase_fused_512(torch, dev, rng):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+
+    log(f"# phase 12: fused, 4 views at {BIG_N}^3, adjoint_kernel2, scalar weights,"
+        " 10 iterations")
+    shape = (BIG_N,) * 3
+    k1, _ = bench_kernels()
+    views = torch.empty((V,) + shape, device=dev)
+    for v in range(V):
+        views[v] = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32))
+    k1_t = torch.from_numpy(k1).to(dev)
+    data = MultiViewData(views, k1_t, k1_t, torch.full((V,), 1.0 / V, device=dev))
+    psi0 = torch.full(shape, float(views.mean()), device=dev)
+
+    def run_n(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fused",
+                          adjoint_kernel2=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out = run_n(ITERS)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), {"pass_a": V * ITERS + V, "pass_b": 2 * V * ITERS,
+                                  "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, "fused 512^3")
+    check_output(torch, out, shape, f"fused {BIG_N}^3")
+    value, slope = rate(torch, run_n, reps=2)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"fused 4view {BIG_N}^3 adjoint: {value!r} it/s, slope {slope!r} it/s,"
+        f" peak {peak:.2f} GiB")
+    return {"fused_big": (value, slope)}
+
+
+def phase_fused_cross_check(torch, dev):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import Workspace, initial_psi
+    from libmultiviewnative_torch.utils.synthetic import multiview_data
+
+    log(f"# phase 13: fused CUDA vs the fused CPU path, 4 views at {CROSS_N}^3, 2 iterations")
+    ws = Workspace.from_views(
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1)
+    )
+    psi0 = initial_psi(ws.data)
+    kw = dict(lam=LAM, min_value=MIN_VALUE, algorithm="fused")
+    cpu = deconvolve(psi0, ws.data, 2, **kw)
+    gpu = deconvolve(psi0.to(dev), ws.data.to(dev), 2, **kw).cpu()
+    err = float((gpu - cpu).abs().max()) / float(cpu.abs().max())
+    log(f"fused cuda vs cpu: max|diff|/max|psi| = {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"fused CUDA and CPU paths disagree: {err:.3e}")
+
+
+def phase_fused_limits(torch, dev):
+    """The kernels run at the edges of what ``fused_limit`` accepts, and a
+    shape past an edge is refused before any launch."""
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+    from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
+
+    log("# phase 14: fused kernels at the edges of their shape limits")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kernel = torch.from_numpy(gaussian_kernel((3, 3, 3), 1.0)).to(dev)
+    for shape in EDGE_SHAPES:
+        Z, Y, X = shape
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        psi = torch.rand((Z, X, Y), generator=gen, device=dev) * 99.0 + 1.0
+        view = torch.rand((Z, X, Y), generator=gen, device=dev) * 199.0 + 1.0
+        k = fu.kernel_spectrum_fused(kernel, shape)
+        u = fu.pass_a_plain(psi, c)
+        v = fu.pass_b_plain(*u, *k, c)
+        for name, got, want in (
+            ("pass_a", fu.pass_a(psi, plan), u),
+            ("pass_b", fu.pass_b(*u, *k, plan), v),
+            ("pass_cqa", fu.pass_cqa(*v, view, plan), fu.pass_cqa_plain(*v, view, c)),
+            ("pass_cu", fu.pass_cu(*v, psi, 0.25, plan, 0.0, MIN_VALUE),
+             fu.pass_cu_plain(*v, psi, 0.25, c, 0.0, MIN_VALUE)),
+        ):
+            err, scale = compare(torch, f"{name} {shape}", got, want)
+            log(f"{name:9s} ZYX={shape}: max_abs_err {err:.3e} rel {err / scale:.3e}"
+                f" (tol {FUSED_TOLERANCE:g})")
+            if not err <= FUSED_TOLERANCE * scale:
+                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
+    for shape in OVER_SHAPES:
+        Z, Y, X = shape
+        before = dict(fu.launches)
+        try:
+            fu.pass_a(torch.ones((Z, X, Y), device=dev))
+        except NotImplementedError as e:
+            log(f"ZYX={shape} refused: {e}")
+        else:
+            raise AssertionError(f"pass_a at ZYX={shape} was not refused")
+        if fu.launches != before:
+            raise AssertionError(f"pass_a at ZYX={shape} counted a launch")
+
+
 def main():
     import torch
 
@@ -413,19 +702,27 @@ def main():
     torch.cuda.empty_cache()
     phase_cross_check(torch, dev)
 
+    phase_fused_kernels(torch, dev, records)
+    rates.update(phase_fused_headline(torch, dev, rng, launches))
+    torch.cuda.empty_cache()
+    rates.update(phase_fused_512(torch, dev, rng))
+    torch.cuda.empty_cache()
+    phase_fused_cross_check(torch, dev)
+    phase_fused_limits(torch, dev)
+
     log("rates (it/s, slope): " + json.dumps(rates))
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": FUSED_SOURCE if name.startswith("pass_") else SOURCE,
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": records[name]["max_abs_err"],
             "ms": records[name]["ms"],
             "plain_ms": records[name]["plain_ms"],
         }
-        for name in ("rl_update", "quotient", "spectral_multiply")
+        for name in KERNEL_NAMES
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -7,10 +7,10 @@ numpy, never jax.  Tensors on the CPU run the plain PyTorch versions of the
 kernels; tensors on a CUDA device run the kernels of ``ops/csrc/``, built
 with nvcc at first use.
 
-Ported so far: the fft engine's main path (``deconvolve`` in both view
-orders, prepared spectra, convergence history) with the elementwise kernels
-K1-K3.  ``algorithm="auto"`` means ``"fft"`` until the fused engine is
-ported.
+Ported so far: ``deconvolve`` in both view orders, with prepared spectra and
+convergence history, on two engines: ``"fft"`` (cuFFT and the elementwise
+kernels K1-K3) and ``"fused"`` (the five-pass fused RL step, kernels K4, K6,
+K8 and K9).  ``algorithm="auto"`` means ``"fft"``.
 """
 
 from .core.convolve import convolve_spectrum, fft_convolve3d

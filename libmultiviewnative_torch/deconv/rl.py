@@ -1,4 +1,5 @@
-"""Richardson-Lucy deconvolution drivers (single device), fft engine.
+"""Richardson-Lucy deconvolution drivers (single device): the fft and fused
+engines.
 
 Counterpart of ``libmultiviewnative_tpu/deconv/rl.py``, and of the
 reference's CPU and GPU RL loops (``src/multiviewnative.cpp:101-240``,
@@ -13,13 +14,18 @@ This is the reference library's own GPU design: cuFFT plus three
 elementwise kernels.  On a CUDA device the three are the hand-written
 kernels of :mod:`..ops.elementwise`; on the CPU their plain versions.
 
+``algorithm="fused"`` runs the fused engine of :mod:`..ops.fused` instead:
+five passes per view step (K4, K6, K8, K6, K9) on (Z, X, Y)-transposed
+volumes, with the kernel spectra forwarded by the same passes.  The driver
+transposes views, weights and psi once per call, outside the iterations.
+
 PyTorch runs eagerly, so there is no ``deconvolve_jit``: :func:`deconvolve`
 takes its role, and λ/min_value are runtime values on every call.
 
-Engines: ``"fft"`` is the one engine ported.  ``"auto"`` resolves to
-``"fft"`` until the fused engine is ported (ROADMAP queue 2, K4-K10);
+Engines: ``"fft"`` and ``"fused"``.  ``"auto"`` resolves to ``"fft"``: which
+engine it should pick is for an H100 measurement to decide (ROADMAP slice 3).
 :func:`resolve_algorithm` says what a request runs, and the module logger
-records it at DEBUG.  ``"dft"``, ``"fused"`` and ``"direct"`` raise
+records it at DEBUG.  ``"dft"`` and ``"direct"`` raise
 :class:`NotImplementedError`.
 """
 
@@ -35,27 +41,46 @@ from ..core.fft import rfft3, stack_spectra
 from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
+from ..ops.fused import (
+    check_transposed_shape,
+    fused_limit,
+    fused_rl_step_transposed,
+    kernel_spectrum_fused,
+)
 from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 
 log = logging.getLogger(__name__)
 
 _NOT_PORTED = {
     "dft": "the matmul-DFT engine is not ported yet (ROADMAP P8)",
-    "fused": "the fused RL-step engine is not ported yet (ROADMAP P7, kernels K4-K10)",
     "direct": "the direct stencil engine is not ported yet (ROADMAP P4, direct_convolve3d)",
 }
 
 
 def resolve_algorithm(algorithm: str) -> str:
     """The engine a request runs: ``"auto"`` means ``"fft"`` in the port
-    until the fused engine exists; unported engines raise."""
+    until an H100 measurement decides otherwise; unported engines raise."""
     if algorithm == "auto":
         algorithm = "fft"
     if algorithm in _NOT_PORTED:
         raise NotImplementedError(f"algorithm={algorithm!r}: {_NOT_PORTED[algorithm]}")
-    if algorithm != "fft":
+    if algorithm not in ("fft", "fused"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     return algorithm
+
+
+def fused_eligible(spatial_shape, device=None) -> bool:
+    """Whether ``algorithm="fused"`` can serve this (Z, Y, X) shape on
+    ``device`` (:func:`..ops.fused.fused_limit`): every axis a multiple of 8,
+    and on a CUDA device within the kernels' limits."""
+    Z, Y, X = (int(s) for s in spatial_shape[-3:])
+    return fused_limit((Z, X, Y), device) is None
+
+
+# The x-row layout of fused spectra.  The port has one x mode, the dense
+# packed one, whose spectra are in the natural hermitian row order (the JAX
+# package's split-x mode, 'splitx', is not ported).
+FUSED_XMODE = "standard"
 
 
 def _check_adjoint(kernel1: torch.Tensor) -> None:
@@ -74,6 +99,20 @@ def prepare_spectra(kernels: torch.Tensor, spatial_shape: Sequence[int]) -> torc
     time so every slice has the memory order rfft3 gives a volume."""
     spatial = as_shape(spatial_shape)
     return stack_spectra([rfft3(wrap_kernel(k, spatial)) for k in kernels])
+
+
+def prepare_spectra_fused(kernels: torch.Tensor, spatial_shape: Sequence[int]):
+    """The (V, Kxp, Z, Y) re/im pair of a (V, kz, ky, kx) kernel stack's
+    fused spectra, forwarded one view at a time."""
+    spatial = as_shape(spatial_shape)
+    outs = [kernel_spectrum_fused(k, spatial) for k in kernels]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+# One view's update through the fused engine, in the (Z, X, Y) transposed
+# domain, with rl_view_step's arguments: psi, view and per-voxel weights
+# transposed, kernel spectra as fused (Kxp, Z, Y) (re, im) pairs.
+rl_view_step_fused = fused_rl_step_transposed
 
 
 def rl_view_step(
@@ -101,14 +140,32 @@ def rl_view_step(
 class PreparedSpectra:
     """Pre-forwarded kernel spectra bound to an (algorithm, shape) pair: the
     serving-path plan store.  ``conj_k2`` marks ``k2`` as kernel1's spectrum,
-    to be conjugated on the fly (``adjoint_kernel2``)."""
+    to be conjugated on the fly (``adjoint_kernel2``).  The fused engine's
+    spectra are (re, im) pairs, and ``xmode`` tags their x-row layout (see
+    :data:`FUSED_XMODE`); None for the fft engine."""
 
-    def __init__(self, algorithm: str, spatial, k1, k2, conj_k2: bool = False):
+    def __init__(self, algorithm: str, spatial, k1, k2, conj_k2: bool = False,
+                 xmode: Optional[str] = None):
         self.algorithm = algorithm
         self.spatial = as_shape(spatial)
         self.k1 = k1
         self.k2 = k2
         self.conj_k2 = bool(conj_k2)
+        self.xmode = xmode
+
+
+def _forward_spectra(engine: str, data: MultiViewData, spatial, adjoint_kernel2: bool):
+    """(k1, k2, conj_k2) of an engine: complex spectra for fft, (re, im)
+    pairs for fused.  With the adjoint, k2 is k1, conjugated on the fly."""
+    if engine == "fused":
+        check_transposed_shape((spatial[0], spatial[2], spatial[1]), data.views.device)
+        prepare = prepare_spectra_fused
+    else:
+        prepare = prepare_spectra
+    k1 = prepare(data.kernel1, spatial)
+    if adjoint_kernel2:
+        return k1, k1, True
+    return k1, prepare(data.kernel2, spatial), False
 
 
 def prepare_workspace(
@@ -123,10 +180,9 @@ def prepare_workspace(
     if adjoint_kernel2:
         _check_adjoint(data.kernel1)
     algorithm = resolve_algorithm(algorithm)
-    k1 = prepare_spectra(data.kernel1, spatial)
-    if adjoint_kernel2:
-        return PreparedSpectra(algorithm, spatial, k1, k1, conj_k2=True)
-    return PreparedSpectra(algorithm, spatial, k1, prepare_spectra(data.kernel2, spatial))
+    k1, k2, conj_k2 = _forward_spectra(algorithm, data, spatial, adjoint_kernel2)
+    xmode = FUSED_XMODE if algorithm == "fused" else None
+    return PreparedSpectra(algorithm, spatial, k1, k2, conj_k2=conj_k2, xmode=xmode)
 
 
 def _view_weights(weights: torch.Tensor) -> list:
@@ -152,18 +208,24 @@ def deconvolve(
     """Run ``num_iterations`` RL sweeps over all views; the role of the JAX
     package's ``deconvolve_jit`` as well (PyTorch runs eagerly).
 
-    The caller's ``psi`` is cloned once at entry and never written; the
-    clone is then updated in place by K1 every view step (the update is
+    The caller's ``psi`` is copied once at entry and never written; the copy
+    is then updated in place every view step (the update is
     elementwise-local).  Tensors run where ``psi`` and ``data`` live.
+
+    ``algorithm``: ``"fft"`` (cuFFT and K1-K3), ``"fused"`` (the five-pass
+    fused engine, K4/K6/K8/K9, shapes :func:`fused_eligible` accepts) or
+    ``"auto"``, which means ``"fft"``.  The fused engine works in the
+    (Z, X, Y) transposed domain: views, per-voxel weights and psi are
+    transposed once here, outside the iterations, and psi back at the end.
 
     ``view_order="sequential"`` reproduces the reference's view-by-view
     update; ``"simultaneous"`` computes every view's update from the same
     psi and blends them additively (psi' = psi + sum_v (new_v - psi)).
 
     ``adjoint_kernel2=True`` declares kernel2 == flip(kernel1): kernel2
-    spectra are the conjugate of kernel1's, applied by K3 without a second
-    spectrum stack; data.kernel2 is ignored.  Weights may be (V, Z, Y, X)
-    stacks or (V,) scalars.
+    spectra are the conjugate of kernel1's, applied on the fly (K3 or K6)
+    without a second spectrum stack; data.kernel2 is ignored.  Weights may
+    be (V, Z, Y, X) stacks or (V,) scalars.
 
     ``prepared`` (from :func:`prepare_workspace`) skips the per-call kernel
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
@@ -179,39 +241,58 @@ def deconvolve(
         if prepared.spatial != spatial:
             raise ValueError(f"prepared spectra are for {prepared.spatial}, psi is {spatial}")
         engine = prepared.algorithm
+        if engine == "fused" and prepared.xmode != FUSED_XMODE:
+            raise ValueError(
+                f"prepared fused spectra are in the {prepared.xmode!r} x-row layout, but "
+                f"this engine reads the {FUSED_XMODE!r} one: re-prepare the workspace"
+            )
         k1, k2, conj_k2 = prepared.k1, prepared.k2, prepared.conj_k2
     else:
         if adjoint_kernel2:
             _check_adjoint(data.kernel1)
         engine = resolve_algorithm(algorithm)
-        k1 = prepare_spectra(data.kernel1, spatial)
-        if adjoint_kernel2:
-            k2, conj_k2 = k1, True
-        else:
-            k2, conj_k2 = prepare_spectra(data.kernel2, spatial), False
+        k1, k2, conj_k2 = _forward_spectra(engine, data, spatial, adjoint_kernel2)
     log.debug("deconvolve: algorithm=%r runs engine %r", algorithm, engine)
 
     views = data.views
     weights = _view_weights(data.weights)
     num_views = int(views.shape[0])
-    psi = psi.clone(memory_format=torch.contiguous_format)
+    fused = engine == "fused"
+    if fused:
+        # the whole loop lives in the fused passes' (Z, X, Y) domain; the
+        # RL steps are layout-agnostic, so these are the only transposes
+        views = views.transpose(-1, -2).contiguous()
+        if data.weights.ndim > 1:
+            weights = list(data.weights.transpose(-1, -2).contiguous())
+        psi = psi.transpose(-1, -2).contiguous()
+        k1 = list(zip(*k1))
+        k2 = list(zip(*k2))
+        step = rl_view_step_fused
+    else:
+        psi = psi.clone(memory_format=torch.contiguous_format)
+        step = rl_view_step
 
     if view_order == "sequential":
 
         def sweep(p):
             for v in range(num_views):
-                rl_view_step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
-                             conj_k2=conj_k2, out=p)
+                step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
+                     conj_k2=conj_k2, out=p)
             return p
 
     elif view_order == "simultaneous":
         check_simultaneous_weights(data.weights)
 
         def sweep(p):
+            blend = torch.zeros_like(p)
+            if fused:
+                for v in range(num_views):
+                    blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
+                                  conj_k2=conj_k2) - p
+                return p.add_(blend)
             integral = convolve_spectrum(p, k1)
             integral = quotient(views, integral, out=integral)
             integral = convolve_spectrum(integral, k2, conj_k=conj_k2)
-            blend = torch.zeros_like(p)
             for v in range(num_views):
                 blend += rl_update(p, integral[v], weights[v], lam, min_value) - p
             return p.add_(blend)
@@ -219,16 +300,17 @@ def deconvolve(
     else:
         raise ValueError(f"unknown view_order {view_order!r}")
 
+    untranspose = (lambda p: p.transpose(-1, -2).contiguous()) if fused else (lambda p: p)
     if not track_convergence:
         for _ in range(num_iterations):
             psi = sweep(psi)
-        return psi
+        return untranspose(psi)
     deltas = []
     for _ in range(num_iterations):
         prev = psi.clone()
         psi = sweep(psi)
         deltas.append(torch.sqrt(torch.mean((psi - prev) ** 2)))
-    return psi, torch.stack(deltas) if deltas else psi.new_zeros((0,))
+    return untranspose(psi), torch.stack(deltas) if deltas else psi.new_zeros((0,))
 
 
 def deconvolve_with_history(

@@ -2,7 +2,7 @@
 
 The system has no model weights: its state is the multi-view data and the
 forwarded kernel spectra.  These functions take the numpy arrays of a JAX
-``MultiViewData`` or of a JAX fft-engine ``PreparedSpectra``
+``MultiViewData`` or of a JAX fft- or fused-engine ``PreparedSpectra``
 (``np.asarray`` of each field) and give the port's objects, so one set of
 inputs can run through both packages.
 """
@@ -14,7 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .deconv.rl import PreparedSpectra
+from .deconv.rl import FUSED_XMODE, PreparedSpectra
 from .deconv.workspace import MultiViewData
 
 
@@ -29,17 +29,32 @@ def multiview_data_from_numpy(views, kernel1, kernel2, weights, device="cpu") ->
 
 
 def prepared_from_jax(
-    algorithm: str, spatial: Sequence[int], k1, k2, device="cpu"
+    algorithm: str, spatial: Sequence[int], k1, k2, device="cpu", xmode: str = FUSED_XMODE
 ) -> PreparedSpectra:
-    """A :class:`PreparedSpectra` from the complex64 (V, Z, Y, X//2+1)
-    spectra of a JAX fft-engine ``PreparedSpectra``.  JAX materialises the
-    adjoint's conjugate spectrum, so ``k2`` is used as given."""
-    if algorithm != "fft":
-        raise NotImplementedError(
-            f"prepared spectra of the {algorithm!r} engine have no port yet; only 'fft'"
-        )
+    """A :class:`PreparedSpectra` from the spectra of a JAX ``PreparedSpectra``.
 
-    def tensor(a):
-        return torch.tensor(np.asarray(a, np.complex64), device=device)
+    ``"fft"``: complex64 (V, Z, Y, X//2+1) stacks.  ``"fused"``: (re, im)
+    pairs of float32 (V, Kxp, Z, Y) stacks, with the JAX object's ``xmode``;
+    only the dense 'standard' x-row layout is ported, so 'splitx' spectra are
+    refused.  JAX materialises the adjoint's conjugate spectrum, so ``k2`` is
+    used as given."""
+    if algorithm == "fft":
 
-    return PreparedSpectra(algorithm, spatial, tensor(k1), tensor(k2))
+        def tensor(a):
+            return torch.tensor(np.asarray(a, np.complex64), device=device)
+
+        return PreparedSpectra(algorithm, spatial, tensor(k1), tensor(k2))
+    if algorithm == "fused":
+        if xmode != FUSED_XMODE:
+            raise NotImplementedError(
+                f"fused spectra in the {xmode!r} x-row layout have no port yet "
+                f"(ROADMAP queue 1, P7); only {FUSED_XMODE!r}"
+            )
+
+        def pair(k):
+            return tuple(torch.tensor(np.asarray(a, np.float32), device=device) for a in k)
+
+        return PreparedSpectra(algorithm, spatial, pair(k1), pair(k2), xmode=xmode)
+    raise NotImplementedError(
+        f"prepared spectra of the {algorithm!r} engine have no port yet; only 'fft' and 'fused'"
+    )

@@ -1,0 +1,867 @@
+// The fused RL-step engine's passes for Hopper (sm_90a), fp32.
+//
+// Hand-written counterparts of the TPU kernels in
+// libmultiviewnative_tpu/ops/pallas/fused_dft2.py (dense packed x-mode,
+// twiddle-folded split stages, the 'highest' precision contract):
+//   K4 lmvn_fused_pass_a    <- _run_pass_a   / _pass_a_kernel
+//   K6 lmvn_fused_pass_b    <- _run_pass_b   / _pass_b_kernel
+//   K8 lmvn_fused_pass_cqa  <- _run_pass_cqa / _pass_cqa_kernel
+//   K9 lmvn_fused_pass_cu   <- _run_pass_cu  / _pass_cu_kernel
+//
+// Layouts are the JAX package's: volumes (Z, X, Y); spectra split re/im
+// (Kxp, Z, Y) float32, z and y in the interleaved split order, pad rows
+// k in [Kx, Kxp) written as zeros.  Plan constants come from ops/fused_plan.py.
+//
+// What bounds them: matrix-product FLOPs.  A view step at 256^3 is about
+// 90 GFLOP against about 1.3 GB of HBM traffic, so every pass is built from
+// two register-tiled fp32 GEMM cores on CUDA cores (no tensor cores: the
+// contract is full fp32):
+//   rgemm  real product, for the x stages (packed x-rfft and x-irfft);
+//   cgemm  complex product in the 3-multiplication Karatsuba form
+//          (re = m1 - m2, im = m3 - m1 - m2), for the split y and z stages.
+// Each block of 256 threads owns a BM x BN output tile; each thread a TM x TN
+// register tile; BK = 16 deep slices of both operands are staged in shared
+// memory by loader functors (double-buffered: the next slice is fetched into
+// registers while the current one is multiplied).  Dot products use
+// __fmaf_rn explicitly: the library is built with -fmad=false.
+//
+// How a Pallas pass maps onto blocks.  A TPU pass holds an 8-plane slab in
+// VMEM; a Hopper block has at most 227 KB of shared memory, so passes are
+// cut along what each stage needs:
+//   y stages are row-local (a row = the Y values of one (k, z)): one launch
+//     over all Kxp*Z rows (ystage_kernel);
+//   x stages are column-local within a plane: a block per (plane, y-column
+//     tile) (xfwd_kernel, xcqa_kernel, xcu_kernel);
+//   the z stage of pass B is column-local within an x-frequency slice: a
+//     block per (k, y-column tile) keeps the whole (Z, 32) product of the
+//     forward DFT and the kernel spectrum in shared memory for the inverse.
+// The omega_R halves of the split y stages run as an in-place R-point DFT
+// across column blocks (combine_kernel), skipped when R == 1.
+// Launches per pass call (R > 1 / R == 1): A 3/2 (x-forward into a scratch
+// spectrum, combine, y products), B 1, CQA 5/3 (y products into the scratch,
+// combine, x-inverse + quotient + x-forward in one block with the quotient in
+// shared memory, combine, y products), CU 3/2 (y products, combine,
+// x-inverse + RL update).  The scratch spectrum goes through HBM (a
+// (Kxp, Z, Y) pair, 71 MB at 256^3); the quotient and the integral volumes
+// never do.
+//
+// Plain C interface for ctypes: every entry returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "rl_update.cuh"
+
+extern "C" {
+
+// Mirrors ops/fused.py's _PlanArgs (ctypes.Structure), field by field.
+struct LmvnFusedPlan {
+  int Z, X, Y, Kx, Kxp, Ry, My, Rz, Mz, pad_;
+  const float* fxp;  // (2*Kxp, X)
+  const float* bxp;  // (X, 2*Kxp)
+  const float* wfy_re;  // (Ry*My, My) forward y stage, per-q folded
+  const float* wfy_im;
+  const float* wiy_re;  // inverse y stage (1/My folded)
+  const float* wiy_im;
+  const float* wfz_re;  // (Rz*Mz, Mz) forward z stage
+  const float* wfz_im;
+  const float* wiz_re;  // inverse z stage (1/Mz folded)
+  const float* wiz_im;
+  // the (q, r) complex omega tables, row stride R, re/im pairs, 128 floats
+  // each: omf y, omi y, omf z, omi z
+  const float* om;
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BK = 16;
+constexpr int kMaxR = 8;
+
+constexpr int kOmega = 2 * kMaxR * kMaxR;  // floats per omega table
+enum { kOmfY = 0, kOmiY = 1, kOmfZ = 2, kOmiZ = 3 };
+
+// copy one omega table (2*R*R floats) into shared memory; the caller syncs
+__device__ __forceinline__ void load_omega(float* dst, const float* src,
+                                           int R) {
+  for (int i = threadIdx.x; i < 2 * R * R; i += kThreads) dst[i] = src[i];
+}
+
+// complex scalar (q, r) of an omega table times (x + i y), the order of the
+// JAX package's _scalar_cmul general path
+__device__ __forceinline__ void om_mul(const float* om, int R, int q, int r,
+                                       float x, float y, float& re,
+                                       float& im) {
+  const float a = om[2 * (q * R + r)], b = om[2 * (q * R + r) + 1];
+  re = a * x - b * y;
+  im = b * x + a * y;
+}
+
+template <int T>
+__device__ __forceinline__ void lds(float (&dst)[T], const float* src) {
+  if constexpr (T % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < T; i += 4) {
+      float4 v = *reinterpret_cast<const float4*>(src + i);
+      dst[i] = v.x;
+      dst[i + 1] = v.y;
+      dst[i + 2] = v.z;
+      dst[i + 3] = v.w;
+    }
+  } else if constexpr (T % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < T; i += 2) {
+      float2 v = *reinterpret_cast<const float2*>(src + i);
+      dst[i] = v.x;
+      dst[i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < T; ++i) dst[i] = src[i];
+  }
+}
+
+// ------------------------------------------------------------ GEMM cores
+// Shared tiles are k-major ([BK][B* + 4]) so a thread reads its TM (TN)
+// consecutive rows (columns) as one vector; the +4 pad keeps 16-byte
+// alignment and spreads the transposing stores over the banks.
+
+template <int BM, int BN>
+struct RTile {
+  float a[BK][BM + 4];
+  float b[BK][BN + 4];
+};
+
+template <int BM, int BN>
+struct CTile {
+  float a_re[BK][BM + 4];
+  float a_im[BK][BM + 4];
+  float b_re[BK][BN + 4];
+  float b_im[BK][BN + 4];
+};
+
+// Element e of a BM x BK (or BK x BN) slice: KFAST walks the contraction
+// index fastest (coalesced when the source is contiguous along k).
+template <int ROWS, bool KFAST>
+__device__ __forceinline__ void slice_index(int e, int& r, int& kk) {
+  if (KFAST) {
+    kk = e % BK;
+    r = e / BK;
+  } else {
+    r = e % ROWS;
+    kk = e / ROWS;
+  }
+}
+
+// Software pipeline shared by both cores: the slice k0 + BK is fetched from
+// global memory into registers while the block computes on slice k0 from
+// shared buffer `cur`; it is then stored into the other buffer, and one
+// barrier per slice separates the two.
+//   fetch(k0)   global -> registers     stash(buf)   registers -> shared
+//   compute(buf)                        shared -> accumulators
+template <class Fetch, class Stash, class Compute>
+__device__ __forceinline__ void pipeline(int K, Fetch fetch, Stash stash,
+                                         Compute compute) {
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  int cur = 0;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const bool more = k0 + BK < K;
+    if (more) fetch(k0 + BK);
+    compute(cur);
+    if (more) stash(cur ^ 1);
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+// acc[i][j] = sum_k A(ty*TM + i, k) B(k, tx*TN + j) over k < K.
+// load_a(m, k) / load_b(k, n) take tile-local m / n and a global k < K, and
+// return 0 outside the operand (they do their own bounds checks).
+template <int BM, int BN, int TM, int TN, bool A_KFAST, bool B_KFAST,
+          class LoadA, class LoadB>
+__device__ __forceinline__ void rgemm(float (&acc)[TM][TN],
+                                      RTile<BM, BN> (&s)[2], int K,
+                                      LoadA load_a, LoadB load_b) {
+  constexpr int TX = BN / TN;
+  constexpr int NA = BM * BK / kThreads, NB = BN * BK / kThreads;
+  static_assert((BM / TM) * TX == kThreads, "tile does not match the block");
+  static_assert(NA * kThreads == BM * BK && NB * kThreads == BN * BK, "");
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float ra[NA], rb[NB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      int m, kk;
+      slice_index<BM, A_KFAST>(tid + e * kThreads, m, kk);
+      ra[e] = (k0 + kk < K) ? load_a(m, k0 + kk) : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      int n, kk;
+      slice_index<BN, B_KFAST>(tid + e * kThreads, n, kk);
+      rb[e] = (k0 + kk < K) ? load_b(k0 + kk, n) : 0.f;
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      int m, kk;
+      slice_index<BM, A_KFAST>(tid + e * kThreads, m, kk);
+      s[buf].a[kk][m] = ra[e];
+    }
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      int n, kk;
+      slice_index<BN, B_KFAST>(tid + e * kThreads, n, kk);
+      s[buf].b[kk][n] = rb[e];
+    }
+  };
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+      lds<TM>(a, &s[buf].a[kk][ty * TM]);
+      lds<TN>(b, &s[buf].b[kk][tx * TN]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+    }
+  };
+  pipeline(K, fetch, stash, compute);
+}
+
+// Complex product, Karatsuba: acc[0] = sum Are Bre, acc[1] = sum Aim Bim,
+// acc[2] = sum (Are + Aim)(Bre + Bim).  The loaders write (re, im).
+template <int BM, int BN, int TM, int TN, bool A_KFAST, bool B_KFAST,
+          class LoadA, class LoadB>
+__device__ __forceinline__ void cgemm(float (&acc)[3][TM][TN],
+                                      CTile<BM, BN> (&s)[2], int K,
+                                      LoadA load_a, LoadB load_b) {
+  constexpr int TX = BN / TN;
+  constexpr int NA = BM * BK / kThreads, NB = BN * BK / kThreads;
+  static_assert((BM / TM) * TX == kThreads, "tile does not match the block");
+  static_assert(NA * kThreads == BM * BK && NB * kThreads == BN * BK, "");
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[p][i][j] = 0.f;
+  float ra_re[NA], ra_im[NA], rb_re[NB], rb_im[NB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      int m, kk;
+      slice_index<BM, A_KFAST>(tid + e * kThreads, m, kk);
+      ra_re[e] = ra_im[e] = 0.f;
+      if (k0 + kk < K) load_a(m, k0 + kk, ra_re[e], ra_im[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      int n, kk;
+      slice_index<BN, B_KFAST>(tid + e * kThreads, n, kk);
+      rb_re[e] = rb_im[e] = 0.f;
+      if (k0 + kk < K) load_b(k0 + kk, n, rb_re[e], rb_im[e]);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) {
+      int m, kk;
+      slice_index<BM, A_KFAST>(tid + e * kThreads, m, kk);
+      s[buf].a_re[kk][m] = ra_re[e];
+      s[buf].a_im[kk][m] = ra_im[e];
+    }
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      int n, kk;
+      slice_index<BN, B_KFAST>(tid + e * kThreads, n, kk);
+      s[buf].b_re[kk][n] = rb_re[e];
+      s[buf].b_im[kk][n] = rb_im[e];
+    }
+  };
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float ar[TM], ai[TM], as[TM], br[TN], bi[TN], bs[TN];
+      lds<TM>(ar, &s[buf].a_re[kk][ty * TM]);
+      lds<TM>(ai, &s[buf].a_im[kk][ty * TM]);
+      lds<TN>(br, &s[buf].b_re[kk][tx * TN]);
+      lds<TN>(bi, &s[buf].b_im[kk][tx * TN]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) as[i] = ar[i] + ai[i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bs[j] = br[j] + bi[j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[0][i][j] = __fmaf_rn(ar[i], br[j], acc[0][i][j]);
+          acc[1][i][j] = __fmaf_rn(ai[i], bi[j], acc[1][i][j]);
+          acc[2][i][j] = __fmaf_rn(as[i], bs[j], acc[2][i][j]);
+        }
+    }
+  };
+  pipeline(K, fetch, stash, compute);
+}
+
+// Hand each output of a tile to store(m, n, value) (tile-local m, n).
+template <int BN, int TM, int TN, class Store>
+__device__ __forceinline__ void epilogue(const float (&acc)[TM][TN],
+                                         Store store) {
+  constexpr int TX = BN / TN;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) store(ty * TM + i, tx * TN + j, acc[i][j]);
+}
+
+template <int BN, int TM, int TN, class Store>
+__device__ __forceinline__ void cepilogue(const float (&acc)[3][TM][TN],
+                                          Store store) {
+  constexpr int TX = BN / TN;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float m1 = acc[0][i][j], m2 = acc[1][i][j], m3 = acc[2][i][j];
+      store(ty * TM + i, tx * TN + j, m1 - m2, m3 - m1 - m2);
+    }
+}
+
+// ------------------------------------------------------------ y stages
+// The omega_R half of a split stage (_fwd_split_* / _inv_split_*) is an
+// R-point DFT across the R column blocks of a row, in place, in the order
+// of the JAX package's accumulations:
+//   forward: y_q = sum_r omf[q,r] x_r      inverse: x_r = sum_q omi[q,r] z_q
+// It touches each value once (bound by HBM bytes), so it runs as its own
+// launch and leaves the matrix products plain.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    combine_kernel(float* re, float* im, const float* __restrict__ om_table,
+                   bool inverse, int rows, int Y, int M) {
+  __shared__ float om[kOmega];
+  load_omega(om, om_table, R);
+  __syncthreads();
+  const size_t n = static_cast<size_t>(rows) * M;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < n; e += static_cast<size_t>(gridDim.x) * kThreads) {
+    const size_t base = (e / M) * Y + e % M;
+    float xr[R], xi[R];
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      xr[b] = re[base + b * M];
+      xi[b] = im[base + b * M];
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+      float ar = 0.f, ai = 0.f;
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        float tr, ti;
+        if (inverse)
+          om_mul(om, R, b, a, xr[b], xi[b], tr, ti);
+        else
+          om_mul(om, R, a, b, xr[b], xi[b], tr, ti);
+        ar = (b == 0) ? tr : ar + tr;
+        ai = (b == 0) ? ti : ai + ti;
+      }
+      re[base + a * M] = ar;
+      im[base + a * M] = ai;
+    }
+  }
+}
+
+// The (M, M) products of a split y stage over rows g = k*Z + z of a
+// (Kxp, Z, Y) pair: out[g, q*M + p] = in[g, q*M + j] @ W_q[j, p], W_q the
+// rows [q*M, (q+1)*M) of the stacked (R*M, M) plan matrix (twiddles folded
+// in).  Rows of the pad x-frequencies (k >= Kx) are written as zeros.
+constexpr int YBM = 64, YBN = 64, YTM = 4, YTN = 4;
+
+__global__ void __launch_bounds__(kThreads)
+    ystage_kernel(float* __restrict__ out_re, float* __restrict__ out_im,
+                  const float* __restrict__ in_re,
+                  const float* __restrict__ in_im,
+                  const float* __restrict__ w_re,
+                  const float* __restrict__ w_im, int rows, int Y, int M,
+                  int Z, int Kx) {
+  __shared__ __align__(16) CTile<YBM, YBN> s[2];
+  const int m0 = blockIdx.x * YBM, n0 = blockIdx.y * YBN;
+  const int o = n0 / M;  // the block q of the output columns
+  const int c0 = n0 - o * M;
+  const float* a_re = in_re + o * M;
+  const float* a_im = in_im + o * M;
+  const float* b_re = w_re + static_cast<size_t>(o) * M * M;
+  const float* b_im = w_im + static_cast<size_t>(o) * M * M;
+  auto load_a = [&](int m, int k, float& re, float& im) {
+    const int g = m0 + m;
+    if (g >= rows) return;
+    const size_t i = static_cast<size_t>(g) * Y + k;
+    re = a_re[i];
+    im = a_im[i];
+  };
+  auto load_b = [&](int k, int n, float& re, float& im) {
+    const int c = c0 + n;
+    if (c >= M) return;
+    const size_t i = static_cast<size_t>(k) * M + c;
+    re = b_re[i];
+    im = b_im[i];
+  };
+  float acc[3][YTM][YTN];
+  cgemm<YBM, YBN, YTM, YTN, true, false>(acc, s, M, load_a, load_b);
+  cepilogue<YBN, YTM, YTN>(acc, [&](int m, int n, float re, float im) {
+    const int g = m0 + m, c = c0 + n;
+    if (g >= rows || c >= M) return;
+    const bool pad = g / Z >= Kx;
+    const size_t i = static_cast<size_t>(g) * Y + o * M + c;
+    out_re[i] = pad ? 0.f : re;
+    out_im[i] = pad ? 0.f : im;
+  });
+}
+
+// ------------------------------------------------------------ x stages
+// Packed x-rfft rows: T = fxp @ plane, row r of T is the real part of
+// x-frequency r (r < Kxp) or the imaginary part of r - Kxp.
+__device__ __forceinline__ void store_t(float* t_re, float* t_im, int row,
+                                        int z, int col, float v, int Z, int Y,
+                                        int Kx, int Kxp) {
+  const int k = row < Kxp ? row : row - Kxp;
+  float* dst = row < Kxp ? t_re : t_im;
+  dst[(static_cast<size_t>(k) * Z + z) * Y + col] = k < Kx ? v : 0.f;
+}
+
+constexpr int XBM = 64, XBN = 64, XTM = 4, XTN = 4;
+
+// K4 launch 1: T[:, z, cols] = fxp (2Kxp, X) @ xt[z] (X, cols)
+__global__ void __launch_bounds__(kThreads)
+    xfwd_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
+                const float* __restrict__ xt, const LmvnFusedPlan p) {
+  __shared__ __align__(16) RTile<XBM, XBN> s[2];
+  const int m0 = blockIdx.x * XBM, n0 = blockIdx.y * XBN, z = blockIdx.z;
+  const int X = p.X, Y = p.Y, rows = 2 * p.Kxp;
+  const float* fxp = p.fxp;
+  const float* plane = xt + static_cast<size_t>(z) * X * Y;
+  float acc[XTM][XTN];
+  rgemm<XBM, XBN, XTM, XTN, true, false>(
+      acc, s, X,
+      [&](int m, int k) {
+        const int r = m0 + m;
+        return r < rows ? fxp[static_cast<size_t>(r) * X + k] : 0.f;
+      },
+      [&](int k, int n) {
+        const int c = n0 + n;
+        return c < Y ? plane[static_cast<size_t>(k) * Y + c] : 0.f;
+      });
+  epilogue<XBN, XTM, XTN>(acc, [&](int m, int n, float v) {
+    const int r = m0 + m, c = n0 + n;
+    if (r < rows && c < Y) store_t(t_re, t_im, r, z, c, v, p.Z, Y, p.Kx, p.Kxp);
+  });
+}
+
+// The packed x-irfft operand: rows kk < Kxp of t_re, then Kxp rows of t_im.
+__device__ __forceinline__ float load_s(const float* t_re, const float* t_im,
+                                        int kk, int z, int col, int Z, int Y,
+                                        int Kxp) {
+  if (col >= Y) return 0.f;
+  const float* src = kk < Kxp ? t_re : t_im;
+  const int k = kk < Kxp ? kk : kk - Kxp;
+  return src[(static_cast<size_t>(k) * Z + z) * Y + col];
+}
+
+// K8 launch 2, a block per (y-column tile, plane z):
+//   blurred (X, cols) = bxp (X, 2Kxp) @ [t_re; t_im][:, z, cols]
+//   Q = view * (1 / blurred)                       (shared memory only)
+//   T[:, z, cols] = fxp (2Kxp, X) @ Q               (into t, in place)
+// The block reads all of its (z, cols) column of t before it writes it.
+constexpr int QBM = 64, QBN = 64, QTM = 4, QTN = 4;
+
+size_t xcqa_smem(int X) {
+  return 2 * sizeof(RTile<QBM, QBN>) + sizeof(float) * X * QBN;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    xcqa_kernel(float* t_re, float* t_im, const float* __restrict__ view,
+                const LmvnFusedPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<RTile<QBM, QBN>(*)[2]>(smem);
+  float* q = reinterpret_cast<float*>(smem + 2 * sizeof(RTile<QBM, QBN>));
+  const int n0 = blockIdx.x * QBN, z = blockIdx.y;
+  const int X = p.X, Y = p.Y, Z = p.Z, Kxp = p.Kxp, K2 = 2 * Kxp;
+  const float* bxp = p.bxp;
+  const float* fxp = p.fxp;
+  const float* vplane = view + static_cast<size_t>(z) * X * Y;
+  float acc[QTM][QTN];
+  for (int m0 = 0; m0 < X; m0 += QBM) {
+    rgemm<QBM, QBN, QTM, QTN, true, false>(
+        acc, s, K2,
+        [&](int m, int k) {
+          const int x = m0 + m;
+          return x < X ? bxp[static_cast<size_t>(x) * K2 + k] : 0.f;
+        },
+        [&](int k, int n) { return load_s(t_re, t_im, k, z, n0 + n, Z, Y, Kxp); });
+    epilogue<QBN, QTM, QTN>(acc, [&](int m, int n, float blurred) {
+      const int x = m0 + m, c = n0 + n;
+      if (x < X)
+        q[x * QBN + n] =
+            c < Y ? vplane[static_cast<size_t>(x) * Y + c] * (1.f / blurred)
+                  : 0.f;
+    });
+  }
+  __syncthreads();
+  for (int m0 = 0; m0 < K2; m0 += QBM) {
+    rgemm<QBM, QBN, QTM, QTN, true, false>(
+        acc, s, X,
+        [&](int m, int k) {
+          const int r = m0 + m;
+          return r < K2 ? fxp[static_cast<size_t>(r) * X + k] : 0.f;
+        },
+        [&](int k, int n) { return q[k * QBN + n]; });
+    epilogue<QBN, QTM, QTN>(acc, [&](int m, int n, float v) {
+      const int r = m0 + m, c = n0 + n;
+      if (r < K2 && c < Y) store_t(t_re, t_im, r, z, c, v, Z, Y, p.Kx, Kxp);
+    });
+  }
+}
+
+// K9 launch 2: integral (X, cols) = bxp @ [t_re; t_im][:, z, cols], then
+// the RL update of K1 (lmvn::rl_one).  out may alias psi.
+__global__ void __launch_bounds__(kThreads)
+    xcu_kernel(float* out, const float* __restrict__ t_re,
+               const float* __restrict__ t_im, const float* psi,
+               const float* __restrict__ w, lmvn::RlParams rp,
+               const LmvnFusedPlan p) {
+  __shared__ __align__(16) RTile<XBM, XBN> s[2];
+  const int m0 = blockIdx.x * XBM, n0 = blockIdx.y * XBN, z = blockIdx.z;
+  const int X = p.X, Y = p.Y, Z = p.Z, Kxp = p.Kxp, K2 = 2 * Kxp;
+  const float* bxp = p.bxp;
+  float acc[XTM][XTN];
+  rgemm<XBM, XBN, XTM, XTN, true, false>(
+      acc, s, K2,
+      [&](int m, int k) {
+        const int x = m0 + m;
+        return x < X ? bxp[static_cast<size_t>(x) * K2 + k] : 0.f;
+      },
+      [&](int k, int n) { return load_s(t_re, t_im, k, z, n0 + n, Z, Y, Kxp); });
+  epilogue<XBN, XTM, XTN>(acc, [&](int m, int n, float integral) {
+    const int x = m0 + m, c = n0 + n;
+    if (x >= X || c >= Y) return;
+    const size_t i = (static_cast<size_t>(z) * X + x) * Y + c;
+    out[i] = lmvn::rl_one(psi[i], integral, w ? w[i] : rp.w_scalar, rp);
+  });
+}
+
+// ------------------------------------------------------------ z stage (K6)
+// A block per (y-column tile, x-frequency k), on the (Z, Y) slice u[k]:
+//   forward (_fwd_split_left): P_q = Wf_q @ (sum_r omf[q,r] u[r*M + j, cols])
+//   times the kernel spectrum:  P[q*M + p] *= K[k, q*M + p, cols] (or conj)
+//   inverse (_inv_split_left):  W_q = Wi_q @ P_q, out_r = sum_q omi[q,r] W_q
+// P (Z, 32) complex stays in shared memory throughout.  out may alias u:
+// the block reads all of its (k, cols) column before it writes it.
+constexpr int ZBM = 128, ZBN = 32, ZTM = 4, ZTN = 4;
+
+size_t zstage_smem(int Z) {
+  return 2 * sizeof(CTile<ZBM, ZBN>) + 2 * sizeof(float) * Z * ZBN;
+}
+
+// MINB = 2 caps registers so that two blocks share an SM, where their shared
+// memory fits (Z <= 256: +22 % at 256^3 on the H100); at Z = 512 one block
+// fills the SM's shared memory and the cap would only spill (-7 %).
+template <int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    zstage_kernel(float* o_re, float* o_im, const float* u_re,
+                  const float* u_im, const float* __restrict__ k_re,
+                  const float* __restrict__ k_im, float ksign,
+                  const LmvnFusedPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<CTile<ZBM, ZBN>(*)[2]>(smem);
+  const int Z = p.Z, Y = p.Y, R = p.Rz, M = p.Mz;
+  __shared__ float omf[kOmega], omi[kOmega];
+  load_omega(omf, p.om + kOmfZ * kOmega, R);
+  load_omega(omi, p.om + kOmiZ * kOmega, R);
+  __syncthreads();
+  float* pr = reinterpret_cast<float*>(smem + 2 * sizeof(CTile<ZBM, ZBN>));
+  float* pi = pr + Z * ZBN;
+  const int n0 = blockIdx.x * ZBN, k = blockIdx.y;
+  const size_t base = static_cast<size_t>(k) * Z * Y;
+  if (k >= p.Kx) {  // pad x-frequency: the output slice is zero
+    for (int e = threadIdx.x; e < Z * ZBN; e += kThreads) {
+      const int z = e / ZBN, c = n0 + e % ZBN;
+      if (c < Y) {
+        o_re[base + static_cast<size_t>(z) * Y + c] = 0.f;
+        o_im[base + static_cast<size_t>(z) * Y + c] = 0.f;
+      }
+    }
+    return;
+  }
+  const float* wf_re = p.wfz_re;
+  const float* wf_im = p.wfz_im;
+  const float* wi_re = p.wiz_re;
+  const float* wi_im = p.wiz_im;
+  float acc[3][ZTM][ZTN];
+  for (int q = 0; q < R; ++q) {
+    for (int p0 = 0; p0 < M; p0 += ZBM) {
+      cgemm<ZBM, ZBN, ZTM, ZTN, true, false>(
+          acc, s, M,
+          [&](int m, int j, float& re, float& im) {
+            const int pp = p0 + m;
+            if (pp >= M) return;
+            const size_t i = static_cast<size_t>(q * M + pp) * M + j;
+            re = wf_re[i];
+            im = wf_im[i];
+          },
+          [&](int j, int n, float& re, float& im) {
+            const int c = n0 + n;
+            if (c >= Y) return;
+            for (int r = 0; r < R; ++r) {
+              const size_t i = base + static_cast<size_t>(j + r * M) * Y + c;
+              float tr, ti;
+              om_mul(omf, R, q, r, u_re[i], u_im[i], tr, ti);
+              re = (r == 0) ? tr : re + tr;
+              im = (r == 0) ? ti : im + ti;
+            }
+          });
+      cepilogue<ZBN, ZTM, ZTN>(acc, [&](int m, int n, float vr, float vi) {
+        const int pp = p0 + m, c = n0 + n;
+        if (pp >= M) return;
+        float kr = 0.f, ki = 0.f;
+        if (c < Y) {
+          const size_t i = base + static_cast<size_t>(q * M + pp) * Y + c;
+          kr = k_re[i];
+          ki = ksign * k_im[i];
+        }
+        pr[(q * M + pp) * ZBN + n] = vr * kr - vi * ki;
+        pi[(q * M + pp) * ZBN + n] = vr * ki + vi * kr;
+      });
+    }
+  }
+  __syncthreads();
+  // inverse, per q: W_q = Wi_q @ P_q, written over P_q (R > 1 needs M <=
+  // ZBM, one row tile, so every read of P_q precedes the write), or straight
+  // to the output when R == 1
+  for (int q = 0; q < R; ++q) {
+    for (int p0 = 0; p0 < M; p0 += ZBM) {
+      cgemm<ZBM, ZBN, ZTM, ZTN, true, false>(
+          acc, s, M,
+          [&](int m, int j, float& re, float& im) {
+            const int pp = p0 + m;
+            if (pp >= M) return;
+            const size_t i = static_cast<size_t>(q * M + pp) * M + j;
+            re = wi_re[i];
+            im = wi_im[i];
+          },
+          [&](int j, int n, float& re, float& im) {
+            re = pr[(q * M + j) * ZBN + n];
+            im = pi[(q * M + j) * ZBN + n];
+          });
+      cepilogue<ZBN, ZTM, ZTN>(acc, [&](int m, int n, float re, float im) {
+        const int pp = p0 + m, c = n0 + n;
+        if (pp >= M) return;
+        if (R > 1) {
+          pr[(q * M + pp) * ZBN + n] = re;
+          pi[(q * M + pp) * ZBN + n] = im;
+        } else if (c < Y) {
+          const size_t i = base + static_cast<size_t>(pp) * Y + c;
+          o_re[i] = re;
+          o_im[i] = im;
+        }
+      });
+    }
+  }
+  if (R == 1) return;
+  __syncthreads();
+  // the omega combination of _inv_split_left: out_r = sum_q omi[q,r] W_q
+  for (int e = threadIdx.x; e < M * ZBN; e += kThreads) {
+    const int pp = e / ZBN, n = e % ZBN, c = n0 + n;
+    if (c >= Y) continue;
+    for (int r = 0; r < R; ++r) {
+      float ar = 0.f, ai = 0.f;
+      for (int q = 0; q < R; ++q) {
+        float tr, ti;
+        om_mul(omi, R, q, r, pr[(q * M + pp) * ZBN + n],
+               pi[(q * M + pp) * ZBN + n], tr, ti);
+        ar = (q == 0) ? tr : ar + tr;
+        ai = (q == 0) ? ti : ai + ti;
+      }
+      const size_t i = base + static_cast<size_t>(r * M + pp) * Y + c;
+      o_re[i] = ar;
+      o_im[i] = ai;
+    }
+  }
+}
+
+unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
+
+// The omega half of a split y stage, in place; nothing to do at R == 1.
+int combine(bool inverse, float* re, float* im, const LmvnFusedPlan& p,
+            cudaStream_t s) {
+  const int rows = p.Kxp * p.Z;
+  const float* om = p.om + (inverse ? kOmiY : kOmfY) * kOmega;
+  const size_t n = static_cast<size_t>(rows) * p.My;
+  const unsigned grid = static_cast<unsigned>(
+      (n + kThreads - 1) / kThreads < 8192 ? (n + kThreads - 1) / kThreads
+                                           : 8192);
+  switch (p.Ry) {
+    case 1:
+      return 0;
+    case 2:
+      combine_kernel<2><<<grid, kThreads, 0, s>>>(re, im, om, inverse, rows,
+                                                  p.Y, p.My);
+      break;
+    case 4:
+      combine_kernel<4><<<grid, kThreads, 0, s>>>(re, im, om, inverse, rows,
+                                                  p.Y, p.My);
+      break;
+    case 8:
+      combine_kernel<8><<<grid, kThreads, 0, s>>>(re, im, om, inverse, rows,
+                                                  p.Y, p.My);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-q products of a split y stage, forward or inverse.
+int ystage(bool inv, float* out_re, float* out_im, const float* in_re,
+           const float* in_im, const LmvnFusedPlan& p, cudaStream_t s) {
+  const int rows = p.Kxp * p.Z;
+  dim3 grid(cdiv(rows, YBM), cdiv(p.Y, YBN));
+  ystage_kernel<<<grid, kThreads, 0, s>>>(
+      out_re, out_im, in_re, in_im, inv ? p.wiy_re : p.wfy_re,
+      inv ? p.wiy_im : p.wfy_im, rows, p.Y, p.My, p.Z, p.Kx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the checks the kernels rely on; cudaErrorInvalidValue otherwise
+bool plan_ok(const LmvnFusedPlan* p) {
+  if (p->Ry < 1 || p->Ry > kMaxR || p->Rz < 1 || p->Rz > kMaxR) return false;
+  if (p->Ry & (p->Ry - 1)) return false;  // combine_kernel: R in {1, 2, 4, 8}
+  if (p->Ry * p->My != p->Y || p->Rz * p->Mz != p->Z) return false;
+  // a y-column tile must not straddle two split blocks
+  if (p->Ry > 1 && p->My % YBN != 0) return false;
+  // pass B's inverse overwrites P_q in place: one row tile per q
+  if (p->Rz > 1 && p->Mz > ZBM) return false;
+  // dynamic shared memory, with room for the static omega tables
+  constexpr size_t kMaxDynamic = 232448 - 2 * sizeof(float) * kOmega;
+  return zstage_smem(p->Z) <= kMaxDynamic &&
+         xcqa_smem(p->X) <= kMaxDynamic;
+}
+
+int start_call(int device, const LmvnFusedPlan* p) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return plan_ok(p) ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4: u = pass A(xt).  t is a (Kxp, Z, Y) scratch pair.
+int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
+                      void* u_im, void* t_re, void* t_im, const void* xt,
+                      void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tr = static_cast<float*>(t_re);
+  float* ti = static_cast<float*>(t_im);
+  xfwd_kernel<<<dim3(cdiv(2 * p->Kxp, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0,
+                s>>>(tr, ti, static_cast<const float*>(xt), *p);
+  err = static_cast<int>(cudaGetLastError());
+  if (!err) err = combine(false, tr, ti, *p, s);
+  if (!err) err = ystage(false, static_cast<float*>(u_re),
+                         static_cast<float*>(u_im), tr, ti, *p, s);
+  return err;
+}
+
+// K6: out = pass B(u, K) (out may alias u); conj_k != 0 multiplies by conj(K).
+int lmvn_fused_pass_b(int device, const LmvnFusedPlan* p, void* o_re,
+                      void* o_im, const void* u_re, const void* u_im,
+                      const void* k_re, const void* k_im, int conj_k,
+                      void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  const size_t smem = zstage_smem(p->Z);
+  // two blocks per SM when 2 x (dynamic + static + the 1 KB the runtime
+  // reserves per block) fit the SM's 228 KB
+  const bool two = 2 * (smem + 2048) <= 233472;
+  auto kernel = two ? zstage_kernel<2> : zstage_kernel<1>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(cdiv(p->Y, ZBN), p->Kxp), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(o_re), static_cast<float*>(o_im),
+      static_cast<const float*>(u_re), static_cast<const float*>(u_im),
+      static_cast<const float*>(k_re), static_cast<const float*>(k_im),
+      conj_k ? -1.f : 1.f, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: u = pass A(view / pass C(v)).  t is a scratch pair distinct from v and
+// u; u may alias v.
+int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
+                        void* u_im, void* t_re, void* t_im, const void* v_re,
+                        const void* v_im, const void* view, void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tr = static_cast<float*>(t_re);
+  float* ti = static_cast<float*>(t_im);
+  const size_t smem = xcqa_smem(p->X);
+  cudaError_t e = cudaFuncSetAttribute(
+      xcqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
+               static_cast<const float*>(v_im), *p, s);
+  if (!err) err = combine(true, tr, ti, *p, s);
+  if (!err) {
+    xcqa_kernel<<<dim3(cdiv(p->Y, QBN), p->Z), kThreads, smem, s>>>(
+        tr, ti, static_cast<const float*>(view), *p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (!err) err = combine(false, tr, ti, *p, s);
+  if (!err) err = ystage(false, static_cast<float*>(u_re),
+                         static_cast<float*>(u_im), tr, ti, *p, s);
+  return err;
+}
+
+// K9: out = RL update of psi with integral pass C(v).  w == NULL selects the
+// scalar weight w_scalar.  t is a scratch pair; out may alias psi.
+int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
+                       void* t_re, void* t_im, const void* v_re,
+                       const void* v_im, const void* psi, const void* w,
+                       float w_scalar, float lam, float min_value,
+                       void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tr = static_cast<float*>(t_re);
+  float* ti = static_cast<float*>(t_im);
+  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
+               static_cast<const float*>(v_im), *p, s);
+  if (!err) err = combine(true, tr, ti, *p, s);
+  if (err) return err;
+  xcu_kernel<<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0, s>>>(
+      static_cast<float*>(out), tr, ti, static_cast<const float*>(psi),
+      static_cast<const float*>(w), lmvn::rl_params(w_scalar, lam, min_value),
+      *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

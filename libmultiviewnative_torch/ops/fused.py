@@ -1,0 +1,536 @@
+"""The fused RL-step engine: passes A, B, CQA and CU, and the view step.
+
+Counterpart of ``libmultiviewnative_tpu/ops/pallas/fused_dft2.py`` in its
+dense packed x-mode with twiddle-folded split stages, at fp32 (the JAX
+``precision="highest"`` contract).  One view step on (Z, X, Y)-transposed
+volumes is five passes:
+
+    A(psi) -> B(x K1) -> CQA (C of conv1, quotient, A of conv2) -> B(x K2) -> CU
+
+* K4 :func:`pass_a` replaces ``_run_pass_a`` (``fused_dft2.py:1703``): packed
+  x-rfft then split y-DFT, (Z, X, Y) -> u (Kxp, Z, Y) re/im.
+* K6 :func:`pass_b` replaces ``_run_pass_b`` (:1735): split z-DFT, times the
+  kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.
+* K8 :func:`pass_cqa` replaces ``_run_pass_cqa`` (:1854): y-inverse, x-irfft,
+  view · (1/blurred), x-rfft, y-DFT; the quotient volume is never stored.
+* K9 :func:`pass_cu` replaces ``_run_pass_cu`` (:1909): y-inverse, x-irfft
+  and the RL update of K1; the integral volume is never stored.
+
+Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
+the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
+k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu``.
+
+Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
+version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
+tensor launches the kernel or raises.  Each pass call on the card adds one to
+:data:`launches`; a pass call is 3 (A), 1 (B), 5 (CQA) or 3 (CU) CUDA
+launches when the y stage is split (R > 1), 2, 1, 3 and 2 when it is not,
+and all but B write one scratch spectrum pair from ``torch.empty``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.kernels import compute_quotient, rl_update as rl_update_plain
+from ..core.wrap import wrap_kernel
+from . import _build
+from .elementwise import _check, _device, _stream
+from .fused_plan import FusedPlan, make_fused_plan, pick_split, split_perm
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+# launch counts of the four passes; a plain-version call never counts
+launches = {"pass_a": 0, "pass_b": 0, "pass_cqa": 0, "pass_cu": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# Shared memory of the kernels in ops/csrc/fused.cu, in bytes (its
+# xcqa_smem, zstage_smem and plan_ok): the opt-in maximum per block less the
+# z stage's static omega tables (2 x 128 floats).
+_SMEM_MAX = 232448 - 2 * 4 * 128
+_CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
+
+
+def _xcqa_smem(X: int) -> int:
+    """Two RTile<64, 64> (16 x (68 + 68) floats), then the (X, 64) quotient."""
+    return 2 * 4 * 16 * (68 + 68) + 4 * X * 64
+
+
+def _zstage_smem(Z: int) -> int:
+    """Two CTile<128, 32> (re and im of 16 x (132 + 36) floats), then the
+    (Z, 32) complex product."""
+    return 2 * 2 * 4 * 16 * (132 + 36) + 2 * 4 * Z * 32
+
+
+def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
+    """Why the fused engine cannot serve a (Z, X, Y) transposed volume on
+    ``device``, or None when it can.
+
+    Every device: every axis a multiple of 8 (so X is even), as
+    ``fused_dft2._check_transposed``.  A CUDA device adds the limits of the
+    kernels (``plan_ok`` in ``ops/csrc/fused.cu``): a split y stage of
+    R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are not), X <= 832 and
+    Z <= 736 (shared memory).  :func:`.fused_plan.pick_split`'s M = 128 meets
+    the kernels' other conditions on M, and Z <= 736 keeps the z stage at
+    R <= 8."""
+    Z, X, Y = (int(s) for s in shape)
+    if Z % 8 or X % 8 or Y % 8:
+        return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    ry = pick_split(Y)[0]
+    if ry not in (1, 2, 4, 8):
+        return f"Y={Y} splits into R={ry} blocks of 128; the y stage takes R in 1, 2, 4, 8"
+    if _xcqa_smem(X) > _SMEM_MAX:
+        return f"X={X}: pass CQA needs {_xcqa_smem(X)} B of shared memory, over {_SMEM_MAX}"
+    if _zstage_smem(Z) > _SMEM_MAX:
+        return f"Z={Z}: pass B needs {_zstage_smem(Z)} B of shared memory, over {_SMEM_MAX}"
+    return None
+
+
+def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int, int]:
+    """(Z, X, Y) of a transposed volume the engine can serve on ``device``
+    (:func:`fused_limit`).  Raises ValueError for a shape the engine cannot
+    serve anywhere, NotImplementedError for one the CUDA passes cannot
+    serve yet."""
+    if len(shape) != 3:
+        raise ValueError("the fused engine operates on single volumes")
+    Z, X, Y = (int(s) for s in shape)
+    why = fused_limit((Z, X, Y))
+    if why:
+        raise ValueError(why)
+    why = fused_limit((Z, X, Y), device)
+    if why:
+        raise NotImplementedError(f"fused engine on the card, ZXY={(Z, X, Y)}: {why} ({_CARD_LATER})")
+    return Z, X, Y
+
+
+# ---------------------------------------------------------------- constants
+
+
+class _PlanArgs(ctypes.Structure):
+    """``LmvnFusedPlan`` of ``ops/csrc/fused.cu``, field by field."""
+
+    _fields_ = [
+        (n, ctypes.c_int) for n in ("Z", "X", "Y", "Kx", "Kxp", "Ry", "My", "Rz", "Mz", "pad_")
+    ] + [
+        (n, ctypes.c_void_p)
+        for n in (
+            "fxp", "bxp", "wfy_re", "wfy_im", "wiy_re", "wiy_im",
+            "wfz_re", "wfz_im", "wiz_re", "wiz_im", "om",
+        )
+    ]
+
+
+_OMEGA_FLOATS = 128  # per table: 2·R·R floats for R <= 8
+
+
+class PlanTensors:
+    """A plan's constants as float32 tensors on one device, and for a CUDA
+    device the kernel's argument struct pointing at them.  Every launch
+    reads a plan through this class, so this is where a shape outside the
+    CUDA passes' limits (:func:`fused_limit`) raises."""
+
+    def __init__(self, plan: FusedPlan, device: torch.device):
+        Z, Y, X = plan.shape
+        check_transposed_shape((Z, X, Y), device)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device).contiguous()
+
+        self.plan = plan
+        self.fxp, self.bxp = t(plan.fxp), t(plan.bxp)
+        self.wfy, self.wiy = tuple(map(t, plan.sy.wf)), tuple(map(t, plan.sy.wi))
+        self.wfz, self.wiz = tuple(map(t, plan.sz.wf)), tuple(map(t, plan.sz.wi))
+        self.args = None
+        if device.type != "cuda":
+            return
+        tables = []
+        for om in (plan.sy.omf, plan.sy.omi, plan.sz.omf, plan.sz.omi):
+            flat = np.stack([om.real, om.imag], axis=-1).astype(np.float32).reshape(-1)
+            tables.append(np.pad(flat, (0, _OMEGA_FLOATS - flat.size)))
+        self.om = t(np.concatenate(tables))
+        ptr = lambda x: x.data_ptr()
+        self.args = _PlanArgs(
+            Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, 0,
+            ptr(self.fxp), ptr(self.bxp),
+            ptr(self.wfy[0]), ptr(self.wfy[1]), ptr(self.wiy[0]), ptr(self.wiy[1]),
+            ptr(self.wfz[0]), ptr(self.wfz[1]), ptr(self.wiz[0]), ptr(self.wiz[1]),
+            ptr(self.om),
+        )
+
+
+_tensors = {}
+
+
+def plan_tensors(plan: FusedPlan, device) -> PlanTensors:
+    """The cached :class:`PlanTensors` of ``plan`` on ``device``."""
+    device = torch.device(device)
+    key = (plan.shape, str(device))
+    got = _tensors.get(key)
+    if got is None or got.plan is not plan:
+        got = _tensors[key] = PlanTensors(plan, device)
+    return got
+
+
+# ---------------------------------------------------------------- plain passes
+# The JAX package's split-stage helpers (fused_dft2.py:606-800, 949-983) on
+# whole tensors: "right" stages contract the last axis (y), "left" stages
+# the second to last (z).
+
+
+def _scalar_cmul(s, re, im):
+    """complex scalar · complex block, with the ±1/0 fast paths."""
+    a, b = float(s.real), float(s.imag)
+    if b == 0.0:
+        if a == 1.0:
+            return re, im
+        return a * re, a * im
+    if a == 0.0:
+        return -b * im, b * re
+    return a * re - b * im, b * re + a * im
+
+
+def _cmul(d_re, d_im, trip, right: bool):
+    """(d_re + i d_im) @ (A + iB) (right) or (A + iB) @ (d_re + i d_im)
+    (left) in the 3-product Karatsuba form; trip = (A, B, A+B)."""
+    a, b, ab = trip
+    mm = (lambda x, w: torch.matmul(x, w)) if right else (lambda x, w: torch.matmul(w, x))
+    m1 = mm(d_re, a)
+    m2 = mm(d_im, b)
+    m3 = mm(d_re + d_im, ab)
+    return m1 - m2, m3 - m1 - m2
+
+
+def _q_trip(trip, q: int, M: int):
+    """The per-q stage matrices of a folded (R·M, M) triple."""
+    return tuple(w[q * M : (q + 1) * M] for w in trip)
+
+
+def _blocks(x, R: int, dim: int):
+    return list(torch.chunk(x, R, dim=dim))
+
+
+def _fwd_split(b_re, b_im, trip, om, right: bool):
+    """R input blocks -> R output blocks; block q holds frequencies R·p+q."""
+    R, M = om.shape[0], trip[0].shape[1]
+    out_re, out_im = [], []
+    for q in range(R):
+        yr = yi = None
+        for r in range(R):
+            tr, ti = _scalar_cmul(om[q, r], b_re[r], b_im[r])
+            yr = tr if yr is None else yr + tr
+            yi = ti if yi is None else yi + ti
+        ur, ui = _cmul(yr, yi, _q_trip(trip, q, M), right)
+        out_re.append(ur)
+        out_im.append(ui)
+    return out_re, out_im
+
+
+def _inv_split(b_re, b_im, trip, om, right: bool):
+    """R frequency blocks (interleaved order) -> R spatial blocks."""
+    R, M = om.shape[0], trip[0].shape[1]
+    acc_re, acc_im = [None] * R, [None] * R
+    for q in range(R):
+        zr, zi = _cmul(b_re[q], b_im[q], _q_trip(trip, q, M), right)
+        for r in range(R):
+            tr, ti = _scalar_cmul(om[q, r], zr, zi)
+            acc_re[r] = tr if acc_re[r] is None else acc_re[r] + tr
+            acc_im[r] = ti if acc_im[r] is None else acc_im[r] + ti
+    return acc_re, acc_im
+
+
+def _zero_pad_rows(u_re, u_im, kx: int):
+    u_re[kx:] = 0.0
+    u_im[kx:] = 0.0
+    return u_re, u_im
+
+
+def pass_a_plain(xt: torch.Tensor, c: PlanTensors) -> Pair:
+    """Plain K4: t = fxp @ plane for every plane, then the split y-DFT."""
+    plan, R = c.plan, c.plan.sy.R
+    kxp = plan.kxp
+    t = torch.matmul(c.fxp, xt)  # (Z, 2Kxp, Y)
+    o_re, o_im = _fwd_split(
+        _blocks(t[:, :kxp], R, -1), _blocks(t[:, kxp:], R, -1), c.wfy, plan.sy.omf, True
+    )
+    u_re = torch.cat(o_re, dim=-1).transpose(0, 1).contiguous()
+    u_im = torch.cat(o_im, dim=-1).transpose(0, 1).contiguous()
+    return _zero_pad_rows(u_re, u_im, plan.kxh)
+
+
+def pass_b_plain(u_re, u_im, k_re, k_im, c: PlanTensors, conj_k: bool = False) -> Pair:
+    """Plain K6: split z-DFT, × K̂ (or conj K̂), split z-inverse, per slice."""
+    plan, R = c.plan, c.plan.sz.R
+    v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
+    kr, ki = _blocks(k_re, R, 1), _blocks(-k_im if conj_k else k_im, R, 1)
+    p_re = [v_re[q] * kr[q] - v_im[q] * ki[q] for q in range(R)]
+    p_im = [v_re[q] * ki[q] + v_im[q] * kr[q] for q in range(R)]
+    w_re, w_im = _inv_split(p_re, p_im, c.wiz, plan.sz.omi, False)
+    return _zero_pad_rows(torch.cat(w_re, dim=1), torch.cat(w_im, dim=1), plan.kxh)
+
+
+def pass_c_plain(v_re, v_im, c: PlanTensors) -> torch.Tensor:
+    """Split y-inverse and packed x-irfft: (Kxp, Z, Y) -> (Z, X, Y).  The C
+    half of K8 and K9 (K7 alone is not on the main path)."""
+    plan, R = c.plan, c.plan.sy.R
+    t_re, t_im = _inv_split(
+        _blocks(v_re.transpose(0, 1), R, -1), _blocks(v_im.transpose(0, 1), R, -1),
+        c.wiy, plan.sy.omi, True,
+    )
+    return torch.cat(
+        [torch.matmul(c.bxp, torch.cat([t_re[r], t_im[r]], dim=-2)) for r in range(R)], dim=-1
+    )
+
+
+def pass_cqa_plain(v_re, v_im, view_t, c: PlanTensors) -> Pair:
+    """Plain K8: pass A of view · (1/blurred), blurred = pass C of v."""
+    return pass_a_plain(compute_quotient(view_t, pass_c_plain(v_re, v_im, c)), c)
+
+
+def pass_cu_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value) -> torch.Tensor:
+    """Plain K9: the RL update of K1 with the integral pass C of v."""
+    return rl_update_plain(psi_t, pass_c_plain(v_re, v_im, c), weights, lam, min_value)
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _plan_for(xt_shape, plan: Optional[FusedPlan]) -> FusedPlan:
+    Z, X, Y = check_transposed_shape(xt_shape)
+    if plan is None:
+        return make_fused_plan((Z, Y, X))
+    if tuple(plan.shape) != (Z, Y, X):
+        raise ValueError(f"plan is for (Z, Y, X)={plan.shape}, the volume is ZXY={(Z, X, Y)}")
+    return plan
+
+
+def _check_f32(name, t, shape):
+    _check(name, t, torch.float32, shape)
+    if t.is_neg():
+        raise ValueError(f"{name} is a lazy negative view; call resolve_neg() first")
+
+
+def _spec_shape(plan: FusedPlan):
+    Z, Y, _ = plan.shape
+    return (plan.kxp, Z, Y)
+
+
+def _check_pair(name, pair, plan):
+    if len(pair) != 2:
+        raise ValueError(f"{name} must be an (re, im) pair")
+    for part, t in zip(("re", "im"), pair):
+        _check_f32(f"{name}_{part}", t, _spec_shape(plan))
+
+
+def _outputs(out, plan, like):
+    if out is not None:
+        _check_pair("out", out, plan)
+        return out
+    return torch.empty(_spec_shape(plan), device=like.device), torch.empty(
+        _spec_shape(plan), device=like.device
+    )
+
+
+def _finish(out, res):
+    """``res``, or ``out`` with ``res`` copied in (the CPU path's ``out=``)."""
+    if out is None:
+        return res
+    if isinstance(res, tuple):
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out
+    return out.copy_(res)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pair] = None) -> Pair:
+    """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum."""
+    plan = _plan_for(xt.shape, plan)
+    _check_f32("xt", xt, None)
+    dev = _device(xt, *(out or ()))
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        if out is not None:
+            _check_pair("out", out, plan)
+        return _finish(out, pass_a_plain(xt, c))
+    lib = _build.library()
+    u_re, u_im = _outputs(out, plan, xt)
+    t_re, t_im = torch.empty_like(u_re), torch.empty_like(u_im)
+    err = lib.lmvn_fused_pass_a(
+        dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),
+        _ptr(xt), _stream(dev),
+    )
+    _build.check("pass_a", err)
+    launches["pass_a"] += 1
+    return u_re, u_im
+
+
+def pass_b(
+    u_re, u_im, k_re, k_im, plan: FusedPlan, conj_k: bool = False, out: Optional[Pair] = None
+) -> Pair:
+    """K6: z-DFT · K̂ (or conj K̂ with ``conj_k``) · z-inverse on a (Kxp, Z, Y)
+    pair; ``out`` may be ``(u_re, u_im)``."""
+    _check_pair("u", (u_re, u_im), plan)
+    _check_pair("k", (k_re, k_im), plan)
+    dev = _device(u_re, u_im, k_re, k_im, *(out or ()))
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        if out is not None:
+            _check_pair("out", out, plan)
+        return _finish(out, pass_b_plain(u_re, u_im, k_re, k_im, c, conj_k))
+    lib = _build.library()
+    o_re, o_im = _outputs(out, plan, u_re)
+    err = lib.lmvn_fused_pass_b(
+        dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
+        _ptr(k_re), _ptr(k_im), int(bool(conj_k)), _stream(dev),
+    )
+    _build.check("pass_b", err)
+    launches["pass_b"] += 1
+    return o_re, o_im
+
+
+def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) -> Pair:
+    """K8: pass A of view · (1/blurred), blurred = pass C of v; ``out`` may
+    be ``(v_re, v_im)``."""
+    _check_pair("v", (v_re, v_im), plan)
+    Z, Y, X = plan.shape
+    _check_f32("view_t", view_t, (Z, X, Y))
+    dev = _device(v_re, v_im, view_t, *(out or ()))
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        if out is not None:
+            _check_pair("out", out, plan)
+        return _finish(out, pass_cqa_plain(v_re, v_im, view_t, c))
+    lib = _build.library()
+    u_re, u_im = _outputs(out, plan, v_re)
+    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
+    err = lib.lmvn_fused_pass_cqa(
+        dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),
+        _ptr(v_re), _ptr(v_im), _ptr(view_t), _stream(dev),
+    )
+    _build.check("pass_cqa", err)
+    launches["pass_cqa"] += 1
+    return u_re, u_im
+
+
+def pass_cu(
+    v_re, v_im, psi_t, weights, plan: FusedPlan, lam, min_value: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K9: the RL update of psi with the integral pass C of v.  ``weights``
+    is a (Z, X, Y) tensor or a scalar; ``out`` may be ``psi_t``."""
+    _check_pair("v", (v_re, v_im), plan)
+    Z, Y, X = plan.shape
+    _check_f32("psi_t", psi_t, (Z, X, Y))
+    per_voxel = isinstance(weights, torch.Tensor) and weights.ndim > 0
+    operands = [v_re, v_im, psi_t]
+    if per_voxel:
+        _check_f32("weights", weights, (Z, X, Y))
+        operands.append(weights)
+    if out is not None:
+        _check_f32("out", out, (Z, X, Y))
+        operands.append(out)
+    dev = _device(*operands)
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        return _finish(out, pass_cu_plain(v_re, v_im, psi_t, weights, c, lam, min_value))
+    lib = _build.library()
+    if out is None:
+        out = torch.empty_like(psi_t)
+    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
+    err = lib.lmvn_fused_pass_cu(
+        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(t_re), _ptr(t_im),
+        _ptr(v_re), _ptr(v_im), _ptr(psi_t), _ptr(weights) if per_voxel else None,
+        0.0 if per_voxel else float(weights), float(lam), float(min_value), _stream(dev),
+    )
+    _build.check("pass_cu", err)
+    launches["pass_cu"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- step, spectra
+
+
+def fused_rl_step_transposed(
+    psi_t: torch.Tensor,
+    view_t: torch.Tensor,
+    k1: Pair,
+    k2: Pair,
+    weights,
+    lam,
+    min_value: float,
+    conj_k2: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One RL view step on (Z, X, Y)-transposed volumes, five passes:
+
+        A(psi) -> B(x K1) -> CQA -> B(x K2, or conj K2 with ``conj_k2``) -> CU
+
+    (``fused_dft2.py:2051``; the reference step ``src/multiviewnative.cpp:
+    191-228``).  The arguments come in the order of
+    :func:`..deconv.rl.rl_view_step` (the JAX function takes the weights
+    before the spectra).  The passes after A reuse one spectrum pair in
+    place.  ``out=psi_t`` updates psi in place."""
+    plan = _plan_for(psi_t.shape, None)
+    u = pass_a(psi_t, plan)
+    v = pass_b(*u, *k1, plan, out=u)
+    u = pass_cqa(*v, view_t, plan, out=v)
+    v = pass_b(*u, *k2, plan, conj_k=conj_k2, out=u)
+    return pass_cu(*v, psi_t, weights, plan, lam, min_value, out=out)
+
+
+def sparse_prep_ok(kernel_z: int, Z: int) -> bool:
+    """Whether the z-sparse spectrum forwarding serves a kernel of z-extent
+    ``kernel_z`` at Z planes: twice its 8-aligned extent fits in Z."""
+    return 2 * (-(-int(kernel_z) // 8) * 8) <= int(Z)
+
+
+def kernel_spectrum_fused(kernel: torch.Tensor, shape: Sequence[int]) -> Pair:
+    """The wrapped kernel's spectrum in the fused (Kxp, Z, Y) layout, z and y
+    in the interleaved split order (``fused_dft2.py:1593``), z-sparse branch:
+    the wrapped kernel occupies only kz planes, so pass A runs on a gathered
+    stack of Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction
+    over them (``torch.einsum`` in fp32).  The dense branch needs pass BF
+    (K5), which is not ported: it raises."""
+    Z, Y, X = (int(s) for s in shape)
+    plan = make_fused_plan((Z, Y, X))
+    kernel = kernel.to(torch.float32)
+    kz = int(kernel.shape[0])
+    if not sparse_prep_ok(kz, Z):
+        raise NotImplementedError(
+            f"dense fused spectrum forwarding (kernel z-extent {kz} at Z={Z}) runs pass BF, "
+            "K5, which is not ported yet (ROADMAP queue 2, K5)"
+        )
+    zs = -(-kz // 8) * 8
+    cz = kz // 2  # kernel center, z axis
+    head = kz - cz
+    small = wrap_kernel(kernel, (zs, Y, X))
+    u_re, u_im = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
+    # original z index of each gathered plane (pad planes are zero in u)
+    zorig = np.zeros(zs, np.int64)
+    zorig[:head] = np.arange(head)
+    zorig[zs - cz :] = Z - cz + np.arange(cz)
+    freq = split_perm(Z, (plan.sz.R, plan.sz.M))
+    T = np.exp(-2j * np.pi * np.outer(freq, zorig) / Z)
+    tr = torch.as_tensor(np.asarray(T.real, np.float32), device=kernel.device)
+    ti = torch.as_tensor(np.asarray(T.imag, np.float32), device=kernel.device)
+    e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
+    # einsum may return a permuted layout (it does on CUDA); the passes
+    # take contiguous (Kxp, Z, Y) spectra
+    return (
+        (e(tr, u_re) - e(ti, u_im)).contiguous(),
+        (e(tr, u_im) + e(ti, u_re)).contiguous(),
+    )

@@ -130,7 +130,16 @@ def test_driver_under_the_cuda_fft_layout(monkeypatch, view_order):
 
 @pytest.mark.parametrize("algorithm", ["dft", "fused", "direct"])
 def test_unported_engines_raise(algorithm):
+    """dft and direct are not ported.  The fused engine is, except for its
+    dense spectrum forwarding (pass BF, K5), which a kernel z-extent of 9 at
+    Z = 16 needs."""
     args = _inputs()
+    if algorithm == "fused":
+        rng = np.random.default_rng(4)
+        views = rng.gamma(2.0, 20.0, (V, 16, 16, 16)).astype(np.float32)
+        k = np.stack([gaussian_kernel((9, 9, 9), 1.5)] * V)
+        args = (np.full((16, 16, 16), views.mean(), np.float32), views, k, k,
+                np.full((V,), 1.0 / V, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(*args, num_iterations=1, algorithm=algorithm)
 
@@ -184,7 +193,7 @@ def test_prepared_shape_guard_and_interop_engine_guard():
     with pytest.raises(ValueError, match="prepared spectra are for"):
         rl.deconvolve_prepared(torch.from_numpy(psi0), data, prepared, 1)
     with pytest.raises(NotImplementedError):
-        prepared_from_jax("fused", SHAPE, None, None)
+        prepared_from_jax("dft", SHAPE, None, None)
 
 
 def test_workspace_wrapper_and_float64_reference():
