@@ -28,9 +28,23 @@ Phases, each raising on failure (there is no CPU fallback):
     (K4 40 per call);
 12. fused 512³: phase 7's configuration through the fused engine (K4 44);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
-14. fused limits: the four passes against their plain versions at the edges
+14. fused limits: the seven passes against their plain versions at the edges
     of ``ops.fused.fused_limit`` (small shapes), and shapes past them
-    refused before any launch.
+    refused before any launch;
+15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
+    256³ and 512³, and the dense spectrum forwarding (pass A + BF) against
+    the z-sparse one for the bench kernels at 256³;
+16. carried chain: phases 10 and 12's configurations with
+    ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 9 per 256³
+    call), it/s, slope, and psi against the plain chain;
+17. dense forwarding on the main path: 4 views at (32, 512, 512) through
+    ``deconvolve(algorithm="fused")`` (K5 8 per call), against the fft
+    engine;
+18. the interleaved rung at full width (benchmarks/bench_streamed.py's
+    configuration: 4 views 512³, per-voxel weights, chunk_z 64) on both
+    engines: s/iteration, launch counts, the copy and compute of one view
+    step timed alone beside the measured step, peak memory, and psi against
+    the in-core ``deconvolve``.
 
 The line before the last is one JSON object with every kernel's record; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -53,6 +67,8 @@ HEADLINE_N = 256  # bench.py's config 1
 BIG_N = 512  # bench.py's config 2
 CROSS_N = 64
 TIMED_LAUNCHES = 10  # per turn; two turns each of kernel and plain version
+THIN_SHAPE = (32, 512, 512)  # both bench kernels take the dense forwarding
+CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
 FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
@@ -61,12 +77,15 @@ REPLACES = {
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
     "spectral_multiply": "libmultiviewnative_tpu/ops/pallas/elementwise.py:130",
     "pass_a": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1703",
+    "pass_bf": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1764",
     "pass_b": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1735",
+    "pass_c": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1825",
     "pass_cqa": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1854",
     "pass_cu": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1909",
+    "pass_cua": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1950",
 }
-KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply", "pass_a", "pass_b", "pass_cqa",
-                "pass_cu")
+KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply", "pass_a", "pass_bf", "pass_b",
+                "pass_c", "pass_cqa", "pass_cu", "pass_cua")
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
 # so K1 and K2 are expected bitwise; PyTorch's own complex multiply may
@@ -158,14 +177,17 @@ def compare(torch, name, got, ref):
 
 
 def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0,
-                 tol=TOLERANCE):
+                 tol=TOLERANCE, groups=lambda out: (out,)):
     """Hold one kernel call against its plain version, time both (median
     CUDA-event ms, in turns plain, kernel, kernel, plain) and log GB/s of
-    ``nbytes``; fold the error into ``records[name]``."""
+    ``nbytes``; fold the error into ``records[name]``.  ``groups`` splits an
+    output into parts held each against its own scale (K10's psi' and its
+    spectrum pair)."""
     got, ref = kernel(), plain()
-    abs_err, scale = compare(torch, f"{name} {label}", got, ref)
+    errs = [compare(torch, f"{name} {label}", g, r) for g, r in zip(groups(got), groups(ref))]
     del got, ref
-    ok = abs_err <= tol * scale + atol
+    ok = all(err <= tol * sc + atol for err, sc in errs)
+    abs_err, scale = max(errs, key=lambda e: e[0] / e[1])
     samples = {plain: [], kernel: []}
     for fn in (plain, kernel, kernel, plain):
         samples[fn] += event_times_ms(torch, fn)
@@ -395,11 +417,11 @@ def phase_headline(torch, dev, rng, launches_out):
     return {"headline": (value, slope), "prepared": (value_p, slope_p)}
 
 
-def phase_512(torch, dev, rng):
-    from libmultiviewnative_torch.deconv.rl import deconvolve
+def big_data(torch, dev, rng):
+    """Phase 7's 512³ data: 4 views of gamma(2, 20), bench kernel1 (used as
+    its own adjoint), scalar weights 1/V, psi0 the mean."""
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
-    log(f"# phase 7: 4 views at {BIG_N}^3, adjoint_kernel2, scalar weights, 10 iterations")
     shape = (BIG_N,) * 3
     k1, _ = bench_kernels()
     views = torch.empty((V,) + shape, device=dev)
@@ -407,7 +429,15 @@ def phase_512(torch, dev, rng):
         views[v] = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32))
     k1_t = torch.from_numpy(k1).to(dev)
     data = MultiViewData(views, k1_t, k1_t, torch.full((V,), 1.0 / V, device=dev))
-    psi0 = torch.full(shape, float(views.mean()), device=dev)
+    return data, torch.full(shape, float(views.mean()), device=dev)
+
+
+def phase_512(torch, dev, rng):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+
+    log(f"# phase 7: 4 views at {BIG_N}^3, adjoint_kernel2, scalar weights, 10 iterations")
+    shape = (BIG_N,) * 3
+    data, psi0 = big_data(torch, dev, rng)
 
     def run_n(n):
         return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto",
@@ -447,7 +477,8 @@ def fused_flops(plan):
     x = 4 * kxp * X * Y * Z
     y = 6 * kxp * Z * Y * plan.sy.M
     z = 6 * kxp * Y * Z * plan.sz.M
-    return {"pass_a": x + y, "pass_b": 2 * z, "pass_cqa": 2 * (x + y), "pass_cu": x + y}
+    return {"pass_a": x + y, "pass_bf": z, "pass_b": 2 * z, "pass_c": x + y,
+            "pass_cqa": 2 * (x + y), "pass_cu": x + y, "pass_cua": 2 * (x + y)}
 
 
 def check_fp32_matmuls(torch):
@@ -591,18 +622,11 @@ def phase_fused_headline(torch, dev, rng, launches_out):
 
 def phase_fused_512(torch, dev, rng):
     from libmultiviewnative_torch.deconv.rl import deconvolve
-    from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
     log(f"# phase 12: fused, 4 views at {BIG_N}^3, adjoint_kernel2, scalar weights,"
         " 10 iterations")
     shape = (BIG_N,) * 3
-    k1, _ = bench_kernels()
-    views = torch.empty((V,) + shape, device=dev)
-    for v in range(V):
-        views[v] = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32))
-    k1_t = torch.from_numpy(k1).to(dev)
-    data = MultiViewData(views, k1_t, k1_t, torch.full((V,), 1.0 / V, device=dev))
-    psi0 = torch.full(shape, float(views.mean()), device=dev)
+    data, psi0 = big_data(torch, dev, rng)
 
     def run_n(n):
         return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fused",
@@ -661,34 +685,313 @@ def phase_fused_limits(torch, dev):
         k = fu.kernel_spectrum_fused(kernel, shape)
         u = fu.pass_a_plain(psi, c)
         v = fu.pass_b_plain(*u, *k, c)
+        cua, cua_plain = (
+            fu.pass_cua(*v, psi, 0.25, plan, 0.0, MIN_VALUE),
+            fu.pass_cua_plain(*v, psi, 0.25, c, 0.0, MIN_VALUE),
+        )
         for name, got, want in (
             ("pass_a", fu.pass_a(psi, plan), u),
+            ("pass_bf", fu.pass_bf(*u, plan), fu.pass_bf_plain(*u, c)),
             ("pass_b", fu.pass_b(*u, *k, plan), v),
+            ("pass_c", fu.pass_c(*v, plan), fu.pass_c_plain(*v, c)),
             ("pass_cqa", fu.pass_cqa(*v, view, plan), fu.pass_cqa_plain(*v, view, c)),
             ("pass_cu", fu.pass_cu(*v, psi, 0.25, plan, 0.0, MIN_VALUE),
              fu.pass_cu_plain(*v, psi, 0.25, c, 0.0, MIN_VALUE)),
+            ("pass_cua psi'", cua[0], cua_plain[0]),
+            ("pass_cua u", cua[1], cua_plain[1]),
         ):
             err, scale = compare(torch, f"{name} {shape}", got, want)
-            log(f"{name:9s} ZYX={shape}: max_abs_err {err:.3e} rel {err / scale:.3e}"
+            log(f"{name:13s} ZYX={shape}: max_abs_err {err:.3e} rel {err / scale:.3e}"
                 f" (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
     for shape in OVER_SHAPES:
         Z, Y, X = shape
-        before = dict(fu.launches)
-        try:
-            fu.pass_a(torch.ones((Z, X, Y), device=dev))
-        except NotImplementedError as e:
-            log(f"ZYX={shape} refused: {e}")
+        plan = make_fused_plan(shape)
+        vol = torch.ones((Z, X, Y), device=dev)
+        spec = torch.ones((plan.kxp, Z, Y), device=dev)
+        for name, call in (
+            ("pass_a", lambda: fu.pass_a(vol)),
+            ("pass_bf", lambda: fu.pass_bf(spec, spec, plan)),
+            ("pass_c", lambda: fu.pass_c(spec, spec, plan)),
+            ("pass_cua", lambda: fu.pass_cua(spec, spec, vol, 0.25, plan, 0.0, MIN_VALUE)),
+        ):
+            before = dict(fu.launches)
+            try:
+                call()
+            except NotImplementedError as e:
+                log(f"{name} ZYX={shape} refused: {e}")
+            else:
+                raise AssertionError(f"{name} at ZYX={shape} was not refused")
+            if fu.launches != before:
+                raise AssertionError(f"{name} at ZYX={shape} counted a launch")
+
+
+def phase_rest_kernels(torch, dev, records):
+    """K5, K7 and K10 against their plain versions at the main-path shapes,
+    and the two spectrum forwardings against each other."""
+    from libmultiviewnative_torch.core.wrap import wrap_kernel
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    log("# phase 15: K5 pass BF, K7 pass C and K10 pass CUA vs plain versions on the card")
+    check_fp32_matmuls(torch)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k1, k2 = bench_kernels()
+    kernel = torch.from_numpy(k1[0]).to(dev)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    for size in (HEADLINE_N, BIG_N):
+        shape = (size,) * 3
+        Z, Y, X = shape
+        label = "x".join(map(str, shape))
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        psi = rand((Z, X, Y), 1.0, 100.0)
+        kre, kim = fu.kernel_spectrum_fused(kernel, shape)
+        v = fu.pass_b_plain(*fu.pass_a_plain(psi, c), kre, kim, c)
+        uk = fu.pass_a_plain(wrap_kernel(kernel, shape).transpose(1, 2).contiguous(), c)
+        scalar = size == BIG_N
+        weights, lam = (0.25, LAM) if scalar else (rand((Z, X, Y), 0.0, 0.5), 0.0)
+        out = torch.empty_like(psi)
+        buf = (torch.empty_like(v[0]), torch.empty_like(v[1]))
+        vol, spec = 4 * psi.numel(), 8 * v[0].numel()
+        flops = fused_flops(plan)
+        checks = (
+            ("pass_bf", f"{label} kernel1 21^3", lambda: fu.pass_bf(*uk, plan),
+             lambda: fu.pass_bf_plain(*uk, c), 2 * spec, 0.0, None),
+            ("pass_c", label, lambda: fu.pass_c(*v, plan),
+             lambda: fu.pass_c_plain(*v, c), spec + vol, 0.0, None),
+            ("pass_cua", f"{label} {'scalar' if scalar else 'voxel'}-w lam={lam}",
+             lambda: fu.pass_cua(*v, psi, weights, plan, lam, MIN_VALUE, out=out, u_out=buf),
+             lambda: fu.pass_cua_plain(*v, psi, weights, c, lam, MIN_VALUE),
+             2 * spec + (2 if scalar else 3) * vol, tikhonov_atol(lam), lambda o: o),
+        )
+        for name, what, kernel_fn, plain_fn, nbytes, atol, groups in checks:
+            ms, plain_ms = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
+                                        atol=atol, tol=FUSED_TOLERANCE,
+                                        groups=groups or (lambda o: (o,)))
+            log(f"{name:17s} {what:34s} {flops[name] / ms / 1e9:8.2f} TFLOP/s kernel,"
+                f" {flops[name] / plain_ms / 1e9:8.2f} plain ({flops[name] / 1e9:.2f} GFLOP)")
+            if size == HEADLINE_N:
+                records[name].update(ms=ms, plain_ms=plain_ms)
+            else:
+                records[name].update(ms_512=ms, plain_ms_512=plain_ms)
+        del psi, v, uk, out, buf, kre, kim, weights
+        torch.cuda.empty_cache()
+
+    shape = (HEADLINE_N,) * 3
+    for which, k in (("kernel1 21^3", k1[0]), ("kernel2 25^3", k2[0])):
+        k = torch.from_numpy(k).to(dev)
+        dense, sparse = fu._spectrum_dense(k, shape), fu._spectrum_sparse(k, shape)
+        err, scale = compare(torch, f"dense vs sparse {which}", dense, sparse)
+        log(f"spectrum forwarding {which} at {shape}: dense vs sparse max_abs_err {err:.3e}"
+            f" rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
+        if not err <= FUSED_TOLERANCE * scale:
+            raise AssertionError(f"dense and sparse forwarding disagree for {which}: {err:.3e}")
+
+
+def phase_carried(torch, dev, rng, launches_out):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+
+    log("# phase 16: carried chain (LMVN_FUSED_CARRY=1), phases 10 and 12's configurations")
+    rates = {}
+    saved = os.environ.get("LMVN_FUSED_CARRY")
+    try:
+        for label, make, kw, reps, want in (
+            (f"{HEADLINE_N}^3", headline_data, {}, 4,
+             {"pass_a": 2 * V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+              "pass_cua": V * ITERS}),
+            (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2,
+             {"pass_a": V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+              "pass_cua": V * ITERS}),
+        ):
+            data, psi0 = make(torch, dev, rng)
+
+            def run_n(n):
+                return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
+                                  algorithm="fused", **kw)
+
+            os.environ["LMVN_FUSED_CARRY"] = "1"
+            torch.cuda.synchronize()
+            reset_counts()
+            carried = run_n(ITERS)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect_counts(counts, want, f"carried {label}")
+            if label.startswith(str(HEADLINE_N)):
+                launches_out["pass_cua"] = counts["pass_cua"]
+            check_output(torch, carried, psi0.shape, f"carried {label}")
+            value, slope = rate(torch, run_n, reps=reps)
+            log(f"carried 4view {label}: {value!r} it/s, slope {slope!r} it/s")
+            rates[f"carried_{label.split('^')[0]}"] = (value, slope)
+            os.environ["LMVN_FUSED_CARRY"] = "0"
+            plain = run_n(ITERS)
+            diff = float((carried - plain).abs().max()) / float(plain.abs().max())
+            log(f"carried vs plain chain {label} after {ITERS} iterations: max|diff|/max|psi| ="
+                f" {diff:.3e} (tol 1e-5), bitwise equal: {bool(torch.equal(carried, plain))}")
+            if not diff <= 1e-5:
+                raise AssertionError(f"carried and plain chains disagree at {label}: {diff:.3e}")
+            del data, psi0, carried, plain
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("LMVN_FUSED_CARRY", None)
         else:
-            raise AssertionError(f"pass_a at ZYX={shape} was not refused")
-        if fu.launches != before:
-            raise AssertionError(f"pass_a at ZYX={shape} counted a launch")
+            os.environ["LMVN_FUSED_CARRY"] = saved
+    return rates
+
+
+def phase_thin(torch, dev, rng, launches_out):
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+
+    log(f"# phase 17: dense spectrum forwarding on the main path, 4 views at {THIN_SHAPE},"
+        " algorithm='fused'")
+    k1, k2 = bench_kernels()
+    views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + THIN_SHAPE).astype(np.float32)).to(dev)
+    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
+                         torch.full((V,) + THIN_SHAPE, 1.0 / V, device=dev))
+    psi0 = torch.full(THIN_SHAPE, float(views.mean()), device=dev)
+
+    def run(engine):
+        return deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
+
+    run("fused")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run("fused")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(counts, {"pass_a": V * ITERS + 2 * V, "pass_bf": 2 * V, "pass_b": 2 * V * ITERS,
+                           "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, f"fused {THIN_SHAPE}")
+    launches_out["pass_bf"] = counts["pass_bf"]
+    check_output(torch, out, THIN_SHAPE, f"fused {THIN_SHAPE}")
+    fft = run("fft")
+    diff = float((out - fft).abs().max()) / float(fft.abs().max())
+    log(f"fused {THIN_SHAPE}: {ITERS / seconds!r} it/s in one call; fused vs fft after {ITERS}"
+        f" iterations: max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"fused (dense forwarding) and fft engines disagree: {diff:.3e}")
+
+
+def phase_interleaved(torch, dev, launches_out):
+    """benchmarks/bench_streamed.py's interleaved configuration on both
+    engines; the data is drawn on the card from a seed and kept on the host."""
+    from libmultiviewnative_torch.deconv.interleaved import (
+        chunk_bounds, deconvolve_interleaved, engine_spectra, view_step,
+    )
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
+
+    shape = (BIG_N,) * 3
+    log(f"# phase 18: interleaved rung, 4 views at {BIG_N}^3, per-voxel weights 1/V,"
+        f" chunk_z {CHUNK_Z}, lam {LAM}")
+    torch.manual_seed(18)
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev), torch.tensor(1 / 20, device=dev))
+    views = [gamma.sample(shape).cpu().numpy() for _ in range(V)]
+    k1 = [gaussian_kernel((21,) * 3, 2.0 + 0.5 * v) for v in range(V)]
+    k2 = [np.flip(k).copy() for k in k1]
+    weights = [np.full(shape, 1.0 / V, np.float32) for _ in range(V)]
+    psi0 = np.full(shape, float(np.mean(views[0])), np.float32)
+    bounds = chunk_bounds(BIG_N, CHUNK_Z)
+    # pinned once here, as a caller streaming many stacks keeps them; the
+    # rung pins numpy input itself, once per call (timed below as well)
+    pinned_views = [torch.from_numpy(a).pin_memory() for a in views]
+    pinned_weights = [torch.from_numpy(a).pin_memory() for a in weights]
+    results = {}
+    for engine in ("fft", "fused"):
+        def timed(n, host_views=pinned_views, host_weights=pinned_weights):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = deconvolve_interleaved(psi0, host_views, k1, k2, host_weights, n, lam=LAM,
+                                         min_value=MIN_VALUE, chunk_z=CHUNK_Z,
+                                         algorithm=engine, device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        timed(1)  # warm-up
+        _, t1 = timed(1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        got, t3 = timed(3)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        _, t2_numpy = timed(2, views, weights)
+        n_chunks = len(bounds)
+        want = {"quotient": 3 * V * n_chunks, "rl_update": 3 * V * n_chunks}
+        if engine == "fft":
+            want["spectral_multiply"] = 2 * 3 * V
+        else:
+            want.update(pass_a=2 * 3 * V + 2 * V, pass_b=2 * 3 * V, pass_c=2 * 3 * V)
+            launches_out["pass_c"] = counts["pass_c"]
+        expect_counts(counts, want, f"interleaved {engine} 3 iterations")
+        step_s = (t3 - t1) / 2
+        log(f"interleaved {engine}: {step_s!r} s/iteration (2 timed iterations after one"
+            f" warm-up: t3 {t3!r} s - t1 {t1!r} s, pinned input); a 2-iteration call on numpy"
+            f" input, pinning included, {t2_numpy!r} s; peak device memory {peak:.2f} GiB")
+
+        # the in-core reference on the same engine and data
+        data = MultiViewData(
+            torch.from_numpy(np.stack(views)).to(dev),
+            torch.from_numpy(np.stack(k1)).to(dev),
+            torch.from_numpy(np.stack(k2)).to(dev),
+            torch.from_numpy(np.stack(weights)).to(dev),
+        )
+        incore = deconvolve(torch.from_numpy(psi0).to(dev), data, 3, lam=LAM,
+                            min_value=MIN_VALUE, algorithm=engine)
+        got_t = torch.from_numpy(got).to(dev)
+        excess = float(((got_t - incore).abs() - (2e-4 + 2e-5 * incore.abs())).max())
+        rel = float((got_t - incore).abs().max()) / float(incore.abs().max())
+        log(f"interleaved {engine} vs in-core after 3 iterations: max|diff|/max|psi| {rel:.3e};"
+            f" within rtol 2e-5, atol 2e-4: {excess <= 0}")
+        if not excess <= 0:
+            raise AssertionError(f"interleaved {engine} disagrees with the in-core engine")
+
+        # one view step's copies alone (pinned host -> device), and its
+        # compute alone with the chunks already on the card
+        pinned = (pinned_views[0], pinned_weights[0])
+        dst = [torch.empty(shape, device=dev) for _ in pinned]
+
+        def copies():
+            for z0, z1 in bounds:
+                for d, h in zip(dst, pinned):
+                    d[z0:z1].copy_(h[z0:z1], non_blocking=True)
+
+        ops1, ops2, convolve = engine_spectra(engine, k1[:1], k2[:1], shape, dev)
+        psi = torch.from_numpy(psi0).to(dev)
+
+        def compute():
+            view_step(psi, ops1[0], ops2[0], convolve, bounds,
+                      lambda i: (dst[0][bounds[i][0]:bounds[i][1]],
+                                 dst[1][bounds[i][0]:bounds[i][1]]),
+                      dst[1], LAM, MIN_VALUE)
+
+        copy_ms = statistics.median(event_times_ms(torch, copies))
+        compute_ms = statistics.median(event_times_ms(torch, compute))
+        step_ms = 1e3 * step_s / V
+        gbs = 2 * psi.numel() * 4 / copy_ms / 1e6
+        log(f"interleaved {engine} overlap: one view's copies alone {copy_ms:.3f} ms ({gbs:.2f} GB/s),"
+            f" one view step's compute alone {compute_ms:.3f} ms, sum {copy_ms + compute_ms:.3f} ms,"
+            f" max {max(copy_ms, compute_ms):.3f} ms; measured view step {step_ms:.3f} ms")
+        results[engine] = {"s_per_iteration": step_s, "call_2_iterations_numpy_s": t2_numpy,
+                           "peak_gib": peak, "copy_ms": copy_ms, "compute_ms": compute_ms,
+                           "step_ms": step_ms}
+        del data, incore, got_t, pinned, dst, ops1, ops2, psi
+        torch.cuda.empty_cache()
+    del pinned_views, pinned_weights
+    log("interleaved: " + json.dumps(results))
 
 
 def main():
     import torch
 
+    t_start = time.perf_counter()
     dev = phase_device(torch)
     phase_build()
     records = phase_kernels(torch, dev)
@@ -710,7 +1013,15 @@ def main():
     phase_fused_cross_check(torch, dev)
     phase_fused_limits(torch, dev)
 
+    phase_rest_kernels(torch, dev, records)
+    torch.cuda.empty_cache()
+    rates.update(phase_carried(torch, dev, rng, launches))
+    phase_thin(torch, dev, rng, launches)
+    torch.cuda.empty_cache()
+    phase_interleaved(torch, dev, launches)
+
     log("rates (it/s, slope): " + json.dumps(rates))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {
             "name": name,

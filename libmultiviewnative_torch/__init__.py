@@ -9,8 +9,11 @@ with nvcc at first use.
 
 Ported so far: ``deconvolve`` in both view orders, with prepared spectra and
 convergence history, on two engines: ``"fft"`` (cuFFT and the elementwise
-kernels K1-K3) and ``"fused"`` (the five-pass fused RL step, kernels K4, K6,
-K8 and K9).  ``algorithm="auto"`` means ``"fft"``.
+kernels K1-K3) and ``"fused"`` (the fused RL step at fp32, kernels K4-K10:
+the five-pass chain, the carried four-pass chain with ``LMVN_FUSED_CARRY=1``
+and the dense spectrum forwarding); and the interleaved out-of-core rung,
+``deconv.interleaved.deconvolve_interleaved``, on both engines.
+``algorithm="auto"`` means ``"fft"``.
 """
 
 from .core.convolve import convolve_spectrum, fft_convolve3d

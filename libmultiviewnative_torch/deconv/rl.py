@@ -16,8 +16,12 @@ kernels of :mod:`..ops.elementwise`; on the CPU their plain versions.
 
 ``algorithm="fused"`` runs the fused engine of :mod:`..ops.fused` instead:
 five passes per view step (K4, K6, K8, K6, K9) on (Z, X, Y)-transposed
-volumes, with the kernel spectra forwarded by the same passes.  The driver
-transposes views, weights and psi once per call, outside the iterations.
+volumes, with the kernel spectra forwarded by the same passes (K4, and K5
+where the kernel is long in z).  The driver transposes views, weights and
+psi once per call, outside the iterations.  ``LMVN_FUSED_CARRY=1`` runs the
+sequential order as the carried chain instead: four passes per view step
+(K6, K8, K6, K10), pass A of psi carried from one step to the next and
+seeded once per call (:func:`_carry_enabled`).
 
 PyTorch runs eagerly, so there is no ``deconvolve_jit``: :func:`deconvolve`
 takes its role, and λ/min_value are runtime values on every call.
@@ -32,6 +36,7 @@ records it at DEBUG.  ``"dft"`` and ``"direct"`` raise
 from __future__ import annotations
 
 import logging
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +48,9 @@ from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
 from ..ops.fused import (
     check_transposed_shape,
+    fused_forward_transposed,
     fused_limit,
+    fused_rl_step_carried,
     fused_rl_step_transposed,
     kernel_spectrum_fused,
 )
@@ -75,6 +82,16 @@ def fused_eligible(spatial_shape, device=None) -> bool:
     and on a CUDA device within the kernels' limits."""
     Z, Y, X = (int(s) for s in spatial_shape[-3:])
     return fused_limit((Z, X, Y), device) is None
+
+
+def _carry_enabled() -> bool:
+    """Whether the fused engine's sequential order runs the carried chain
+    (``fused_rl_step_carried``, K10) in place of the plain one: the JAX
+    package's choice at its fp32 ``"highest"`` precision (``rl.py:156-204``).
+    ``LMVN_FUSED_CARRY=1`` selects it; ``0``, unset or any other value gives
+    the plain chain, which is the JAX default at that precision.  Read on
+    each :func:`deconvolve` call.  Both chains give the same values."""
+    return os.environ.get("LMVN_FUSED_CARRY") == "1"
 
 
 # The x-row layout of fused spectra.  The port has one x mode, the dense
@@ -221,6 +238,8 @@ def deconvolve(
     ``view_order="sequential"`` reproduces the reference's view-by-view
     update; ``"simultaneous"`` computes every view's update from the same
     psi and blends them additively (psi' = psi + sum_v (new_v - psi)).
+    On the fused engine, the sequential order runs the carried chain when
+    :func:`_carry_enabled` says so (``LMVN_FUSED_CARRY=1``).
 
     ``adjoint_kernel2=True`` declares kernel2 == flip(kernel1): kernel2
     spectra are the conjugate of kernel1's, applied on the fly (K3 or K6)
@@ -272,7 +291,18 @@ def deconvolve(
         psi = psi.clone(memory_format=torch.contiguous_format)
         step = rl_view_step
 
-    if view_order == "sequential":
+    carried = fused and view_order == "sequential" and _carry_enabled()
+    log.debug("deconvolve: carried fused chain %s", carried)
+    if carried:
+
+        def sweep(c):
+            p, u = c
+            for v in range(num_views):
+                p, u = fused_rl_step_carried(p, u, views[v], k1[v], k2[v], weights[v], lam,
+                                             min_value, conj_k2=conj_k2, out=p)
+            return p, u
+
+    elif view_order == "sequential":
 
         def sweep(p):
             for v in range(num_views):
@@ -301,15 +331,19 @@ def deconvolve(
         raise ValueError(f"unknown view_order {view_order!r}")
 
     untranspose = (lambda p: p.transpose(-1, -2).contiguous()) if fused else (lambda p: p)
+    # the carried chain's state is (psi, pass A of psi); deltas are on psi
+    state = (psi, fused_forward_transposed(psi)) if carried else psi
+    get_psi = (lambda c: c[0]) if carried else (lambda c: c)
     if not track_convergence:
         for _ in range(num_iterations):
-            psi = sweep(psi)
-        return untranspose(psi)
+            state = sweep(state)
+        return untranspose(get_psi(state))
     deltas = []
     for _ in range(num_iterations):
-        prev = psi.clone()
-        psi = sweep(psi)
-        deltas.append(torch.sqrt(torch.mean((psi - prev) ** 2)))
+        prev = get_psi(state).clone()
+        state = sweep(state)
+        deltas.append(torch.sqrt(torch.mean((get_psi(state) - prev) ** 2)))
+    psi = get_psi(state)
     return untranspose(psi), torch.stack(deltas) if deltas else psi.new_zeros((0,))
 
 

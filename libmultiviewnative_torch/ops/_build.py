@@ -65,6 +65,16 @@ _SIGNATURES = {
         ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, _P,
     ),
+    # device, plan, o_re, o_im, u_re, u_im, stream
+    "lmvn_fused_pass_bf": (ctypes.c_int, _P, _P, _P, _P, _P, _P),
+    # device, plan, out, t_re, t_im, v_re, v_im, stream
+    "lmvn_fused_pass_c": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
+    # device, plan, out, u_re, u_im, t_re, t_im, v_re, v_im, psi, w, w_scalar,
+    # lam, min_value, stream
+    "lmvn_fused_pass_cua": (
+        ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, _P,
+    ),
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,13 @@
 // Hand-written counterparts of the TPU kernels in
 // libmultiviewnative_tpu/ops/pallas/fused_dft2.py (dense packed x-mode,
 // twiddle-folded split stages, the 'highest' precision contract):
-//   K4 lmvn_fused_pass_a    <- _run_pass_a   / _pass_a_kernel
-//   K6 lmvn_fused_pass_b    <- _run_pass_b   / _pass_b_kernel
-//   K8 lmvn_fused_pass_cqa  <- _run_pass_cqa / _pass_cqa_kernel
-//   K9 lmvn_fused_pass_cu   <- _run_pass_cu  / _pass_cu_kernel
+//   K4  lmvn_fused_pass_a    <- _run_pass_a   / _pass_a_kernel
+//   K5  lmvn_fused_pass_bf   <- _run_pass_bf  / _pass_bf_kernel
+//   K6  lmvn_fused_pass_b    <- _run_pass_b   / _pass_b_kernel
+//   K7  lmvn_fused_pass_c    <- _run_pass_c   / _pass_c_kernel
+//   K8  lmvn_fused_pass_cqa  <- _run_pass_cqa / _pass_cqa_kernel
+//   K9  lmvn_fused_pass_cu   <- _run_pass_cu  / _pass_cu_kernel
+//   K10 lmvn_fused_pass_cua  <- _run_pass_cua / _pass_cua_kernel
 //
 // Layouts are the JAX package's: volumes (Z, X, Y); spectra split re/im
 // (Kxp, Z, Y) float32, z and y in the interleaved split order, pad rows
@@ -34,16 +37,19 @@
 //     tile) (xfwd_kernel, xcqa_kernel, xcu_kernel);
 //   the z stage of pass B is column-local within an x-frequency slice: a
 //     block per (k, y-column tile) keeps the whole (Z, 32) product of the
-//     forward DFT and the kernel spectrum in shared memory for the inverse.
+//     forward DFT and the kernel spectrum in shared memory for the inverse;
+//     pass BF is its forward half alone, written straight to the output.
 // The omega_R halves of the split y stages run as an in-place R-point DFT
 // across column blocks (combine_kernel), skipped when R == 1.
 // Launches per pass call (R > 1 / R == 1): A 3/2 (x-forward into a scratch
-// spectrum, combine, y products), B 1, CQA 5/3 (y products into the scratch,
+// spectrum, combine, y products), BF 1, B 1, C 3/2 (y products into the
+// scratch, combine, x-inverse), CQA 5/3 (y products into the scratch,
 // combine, x-inverse + quotient + x-forward in one block with the quotient in
 // shared memory, combine, y products), CU 3/2 (y products, combine,
-// x-inverse + RL update).  The scratch spectrum goes through HBM (a
-// (Kxp, Z, Y) pair, 71 MB at 256^3); the quotient and the integral volumes
-// never do.
+// x-inverse + RL update), CUA 5/3 (CQA's sequence with the RL update in
+// place of the quotient: psi' is stored and also kept in shared memory for
+// the x-forward).  The scratch spectrum goes through HBM (a (Kxp, Z, Y)
+// pair, 71 MB at 256^3); the quotient and the integral volumes never do.
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError().
 
@@ -480,19 +486,27 @@ __device__ __forceinline__ float load_s(const float* t_re, const float* t_im,
   return src[(static_cast<size_t>(k) * Z + z) * Y + col];
 }
 
-// K8 launch 2, a block per (y-column tile, plane z):
+// K8 launch 2 (UPDATE false), a block per (y-column tile, plane z):
 //   blurred (X, cols) = bxp (X, 2Kxp) @ [t_re; t_im][:, z, cols]
-//   Q = view * (1 / blurred)                       (shared memory only)
+//   Q = src * (1 / blurred), src the view          (shared memory only)
 //   T[:, z, cols] = fxp (2Kxp, X) @ Q               (into t, in place)
-// The block reads all of its (z, cols) column of t before it writes it.
+// K10 launch 3 (UPDATE true) is the same block with the RL update of K1 in
+// place of the quotient: Q = psi' = rl_one(src, integral, w), src psi; psi'
+// is stored to out and its (X, cols) column stays in shared memory for the
+// x-forward of the next view step's pass A.
+// The block reads all of its (z, cols) column of t before it writes it, and
+// each element of src before it writes that element of out, so t may be
+// written in place and out may alias src.
 constexpr int QBM = 64, QBN = 64, QTM = 4, QTN = 4;
 
 size_t xcqa_smem(int X) {
   return 2 * sizeof(RTile<QBM, QBN>) + sizeof(float) * X * QBN;
 }
 
+template <bool UPDATE>
 __global__ void __launch_bounds__(kThreads)
-    xcqa_kernel(float* t_re, float* t_im, const float* __restrict__ view,
+    xcqa_kernel(float* t_re, float* t_im, const float* src, float* out,
+                const float* __restrict__ w, lmvn::RlParams rp,
                 const LmvnFusedPlan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& s = *reinterpret_cast<RTile<QBM, QBN>(*)[2]>(smem);
@@ -501,7 +515,7 @@ __global__ void __launch_bounds__(kThreads)
   const int X = p.X, Y = p.Y, Z = p.Z, Kxp = p.Kxp, K2 = 2 * Kxp;
   const float* bxp = p.bxp;
   const float* fxp = p.fxp;
-  const float* vplane = view + static_cast<size_t>(z) * X * Y;
+  const size_t plane = static_cast<size_t>(z) * X * Y;
   float acc[QTM][QTN];
   for (int m0 = 0; m0 < X; m0 += QBM) {
     rgemm<QBM, QBN, QTM, QTN, true, false>(
@@ -511,12 +525,20 @@ __global__ void __launch_bounds__(kThreads)
           return x < X ? bxp[static_cast<size_t>(x) * K2 + k] : 0.f;
         },
         [&](int k, int n) { return load_s(t_re, t_im, k, z, n0 + n, Z, Y, Kxp); });
-    epilogue<QBN, QTM, QTN>(acc, [&](int m, int n, float blurred) {
+    epilogue<QBN, QTM, QTN>(acc, [&](int m, int n, float v) {
       const int x = m0 + m, c = n0 + n;
-      if (x < X)
-        q[x * QBN + n] =
-            c < Y ? vplane[static_cast<size_t>(x) * Y + c] * (1.f / blurred)
-                  : 0.f;
+      if (x >= X) return;
+      float qv = 0.f;
+      if (c < Y) {
+        const size_t i = plane + static_cast<size_t>(x) * Y + c;
+        if constexpr (UPDATE) {
+          qv = lmvn::rl_one(src[i], v, w ? w[i] : rp.w_scalar, rp);
+          out[i] = qv;
+        } else {
+          qv = src[i] * (1.f / v);
+        }
+      }
+      q[x * QBN + n] = qv;
     });
   }
   __syncthreads();
@@ -535,8 +557,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K9 launch 2: integral (X, cols) = bxp @ [t_re; t_im][:, z, cols], then
-// the RL update of K1 (lmvn::rl_one).  out may alias psi.
+// K9 launch 2 (UPDATE true): integral (X, cols) = bxp @ [t_re; t_im][:, z,
+// cols], then the RL update of K1 (lmvn::rl_one); out may alias psi.
+// K7 launch 2 (UPDATE false): the x-irfft alone, out = the integral.
+template <bool UPDATE>
 __global__ void __launch_bounds__(kThreads)
     xcu_kernel(float* out, const float* __restrict__ t_re,
                const float* __restrict__ t_im, const float* psi,
@@ -558,7 +582,10 @@ __global__ void __launch_bounds__(kThreads)
     const int x = m0 + m, c = n0 + n;
     if (x >= X || c >= Y) return;
     const size_t i = (static_cast<size_t>(z) * X + x) * Y + c;
-    out[i] = lmvn::rl_one(psi[i], integral, w ? w[i] : rp.w_scalar, rp);
+    if constexpr (UPDATE)
+      out[i] = lmvn::rl_one(psi[i], integral, w ? w[i] : rp.w_scalar, rp);
+    else
+      out[i] = integral;
   });
 }
 
@@ -569,16 +596,22 @@ __global__ void __launch_bounds__(kThreads)
 //   inverse (_inv_split_left):  W_q = Wi_q @ P_q, out_r = sum_q omi[q,r] W_q
 // P (Z, 32) complex stays in shared memory throughout.  out may alias u:
 // the block reads all of its (k, cols) column before it writes it.
+// FWD_ONLY (K5, pass BF, the kernel-spectrum forwarding): the forward half
+// alone, each P_q written straight to the output in the interleaved order
+// (frequency R*p + q at row q*M + p) and no kernel spectrum read.  There a
+// block writes its column while it still reads it, so out must not alias u.
 constexpr int ZBM = 128, ZBN = 32, ZTM = 4, ZTN = 4;
 
 size_t zstage_smem(int Z) {
   return 2 * sizeof(CTile<ZBM, ZBN>) + 2 * sizeof(float) * Z * ZBN;
 }
 
+constexpr size_t kBfSmem = 2 * sizeof(CTile<ZBM, ZBN>);
+
 // MINB = 2 caps registers so that two blocks share an SM, where their shared
 // memory fits (Z <= 256: +22 % at 256^3 on the H100); at Z = 512 one block
 // fills the SM's shared memory and the cap would only spill (-7 %).
-template <int MINB>
+template <int MINB, bool FWD_ONLY>
 __global__ void __launch_bounds__(kThreads, MINB)
     zstage_kernel(float* o_re, float* o_im, const float* u_re,
                   const float* u_im, const float* __restrict__ k_re,
@@ -635,6 +668,14 @@ __global__ void __launch_bounds__(kThreads, MINB)
       cepilogue<ZBN, ZTM, ZTN>(acc, [&](int m, int n, float vr, float vi) {
         const int pp = p0 + m, c = n0 + n;
         if (pp >= M) return;
+        if constexpr (FWD_ONLY) {
+          if (c < Y) {
+            const size_t i = base + static_cast<size_t>(q * M + pp) * Y + c;
+            o_re[i] = vr;
+            o_im[i] = vi;
+          }
+          return;
+        }
         float kr = 0.f, ki = 0.f;
         if (c < Y) {
           const size_t i = base + static_cast<size_t>(q * M + pp) * Y + c;
@@ -646,6 +687,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
       });
     }
   }
+  if constexpr (FWD_ONLY) return;
   __syncthreads();
   // inverse, per q: W_q = Wi_q @ P_q, written over P_q (R > 1 needs M <=
   // ZBM, one row tile, so every read of P_q precedes the write), or straight
@@ -744,6 +786,21 @@ int ystage(bool inv, float* out_re, float* out_im, const float* in_re,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The x stage of pass CQA (UPDATE false) or CUA (UPDATE true), in place on
+// the scratch pair t.
+template <bool UPDATE>
+int xcqa(float* tr, float* ti, const float* src, float* out, const float* w,
+         lmvn::RlParams rp, const LmvnFusedPlan& p, cudaStream_t s) {
+  const size_t smem = xcqa_smem(p.X);
+  cudaError_t e = cudaFuncSetAttribute(
+      xcqa_kernel<UPDATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  xcqa_kernel<UPDATE><<<dim3(cdiv(p.Y, QBN), p.Z), kThreads, smem, s>>>(
+      tr, ti, src, out, w, rp, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the checks the kernels rely on; cudaErrorInvalidValue otherwise
 bool plan_ok(const LmvnFusedPlan* p) {
   if (p->Ry < 1 || p->Ry > kMaxR || p->Rz < 1 || p->Rz > kMaxR) return false;
@@ -798,7 +855,7 @@ int lmvn_fused_pass_b(int device, const LmvnFusedPlan* p, void* o_re,
   // two blocks per SM when 2 x (dynamic + static + the 1 KB the runtime
   // reserves per block) fit the SM's 228 KB
   const bool two = 2 * (smem + 2048) <= 233472;
-  auto kernel = two ? zstage_kernel<2> : zstage_kernel<1>;
+  auto kernel = two ? zstage_kernel<2, false> : zstage_kernel<1, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -822,19 +879,12 @@ int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  const size_t smem = xcqa_smem(p->X);
-  cudaError_t e = cudaFuncSetAttribute(
-      xcqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   err = ystage(true, tr, ti, static_cast<const float*>(v_re),
                static_cast<const float*>(v_im), *p, s);
   if (!err) err = combine(true, tr, ti, *p, s);
-  if (!err) {
-    xcqa_kernel<<<dim3(cdiv(p->Y, QBN), p->Z), kThreads, smem, s>>>(
-        tr, ti, static_cast<const float*>(view), *p);
-    err = static_cast<int>(cudaGetLastError());
-  }
+  if (!err)
+    err = xcqa<false>(tr, ti, static_cast<const float*>(view), nullptr,
+                      nullptr, lmvn::RlParams{}, *p, s);
   if (!err) err = combine(false, tr, ti, *p, s);
   if (!err) err = ystage(false, static_cast<float*>(u_re),
                          static_cast<float*>(u_im), tr, ti, *p, s);
@@ -857,11 +907,75 @@ int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
                static_cast<const float*>(v_im), *p, s);
   if (!err) err = combine(true, tr, ti, *p, s);
   if (err) return err;
-  xcu_kernel<<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0, s>>>(
+  xcu_kernel<true><<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0,
+                     s>>>(
       static_cast<float*>(out), tr, ti, static_cast<const float*>(psi),
       static_cast<const float*>(w), lmvn::rl_params(w_scalar, lam, min_value),
       *p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5: o = pass BF(u), the forward split z-DFT alone.  o must not alias u.
+int lmvn_fused_pass_bf(int device, const LmvnFusedPlan* p, void* o_re,
+                       void* o_im, const void* u_re, const void* u_im,
+                       void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      zstage_kernel<2, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBfSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  zstage_kernel<2, true><<<dim3(cdiv(p->Y, ZBN), p->Kxp), kThreads, kBfSmem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(o_re), static_cast<float*>(o_im),
+      static_cast<const float*>(u_re), static_cast<const float*>(u_im),
+      nullptr, nullptr, 1.f, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: out = pass C(v), the real (Z, X, Y) volume.  t is a scratch pair.
+int lmvn_fused_pass_c(int device, const LmvnFusedPlan* p, void* out,
+                      void* t_re, void* t_im, const void* v_re,
+                      const void* v_im, void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tr = static_cast<float*>(t_re);
+  float* ti = static_cast<float*>(t_im);
+  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
+               static_cast<const float*>(v_im), *p, s);
+  if (!err) err = combine(true, tr, ti, *p, s);
+  if (err) return err;
+  xcu_kernel<false><<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads,
+                      0, s>>>(static_cast<float*>(out), tr, ti, nullptr,
+                              nullptr, lmvn::RlParams{}, *p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: out = RL update of psi with integral pass C(v), and u = pass A(out).
+// w == NULL selects the scalar weight w_scalar.  t is a scratch pair distinct
+// from v and u; u may alias v, out may alias psi.
+int lmvn_fused_pass_cua(int device, const LmvnFusedPlan* p, void* out,
+                        void* u_re, void* u_im, void* t_re, void* t_im,
+                        const void* v_re, const void* v_im, const void* psi,
+                        const void* w, float w_scalar, float lam,
+                        float min_value, void* stream) {
+  int err = start_call(device, p);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* tr = static_cast<float*>(t_re);
+  float* ti = static_cast<float*>(t_im);
+  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
+               static_cast<const float*>(v_im), *p, s);
+  if (!err) err = combine(true, tr, ti, *p, s);
+  if (!err)
+    err = xcqa<true>(tr, ti, static_cast<const float*>(psi),
+                     static_cast<float*>(out), static_cast<const float*>(w),
+                     lmvn::rl_params(w_scalar, lam, min_value), *p, s);
+  if (!err) err = combine(false, tr, ti, *p, s);
+  if (!err) err = ystage(false, static_cast<float*>(u_re),
+                         static_cast<float*>(u_im), tr, ti, *p, s);
+  return err;
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""The fused RL-step engine: passes A, B, CQA and CU, and the view step.
+"""The fused RL-step engine: its seven passes, the view steps, the
+standalone convolve and the kernel-spectrum forwarding.
 
 Counterpart of ``libmultiviewnative_tpu/ops/pallas/fused_dft2.py`` in its
 dense packed x-mode with twiddle-folded split stages, at fp32 (the JAX
@@ -7,14 +8,26 @@ volumes is five passes:
 
     A(psi) -> B(x K1) -> CQA (C of conv1, quotient, A of conv2) -> B(x K2) -> CU
 
+or four in the carried chain, where pass A of psi travels from one step to
+the next (:func:`fused_rl_step_carried`):
+
+    B(x K1) -> CQA -> B(x K2) -> CUA (CU, then A of psi')
+
 * K4 :func:`pass_a` replaces ``_run_pass_a`` (``fused_dft2.py:1703``): packed
   x-rfft then split y-DFT, (Z, X, Y) -> u (Kxp, Z, Y) re/im.
+* K5 :func:`pass_bf` replaces ``_run_pass_bf`` (:1764): the split z-DFT
+  alone, which forwards a kernel spectrum (:func:`kernel_spectrum_fused`).
 * K6 :func:`pass_b` replaces ``_run_pass_b`` (:1735): split z-DFT, times the
   kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.
+* K7 :func:`pass_c` replaces ``_run_pass_c`` (:1825): split y-inverse and
+  packed x-irfft, u -> the real (Z, X, Y) volume
+  (:func:`fused_convolve_transposed` is A, B, C).
 * K8 :func:`pass_cqa` replaces ``_run_pass_cqa`` (:1854): y-inverse, x-irfft,
   view · (1/blurred), x-rfft, y-DFT; the quotient volume is never stored.
 * K9 :func:`pass_cu` replaces ``_run_pass_cu`` (:1909): y-inverse, x-irfft
   and the RL update of K1; the integral volume is never stored.
+* K10 :func:`pass_cua` replaces ``_run_pass_cua`` (:1950): K9, then pass A
+  of psi' from the same block, which keeps psi''s column in shared memory.
 
 Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
 the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
@@ -23,9 +36,10 @@ k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu``.
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
 tensor launches the kernel or raises.  Each pass call on the card adds one to
-:data:`launches`; a pass call is 3 (A), 1 (B), 5 (CQA) or 3 (CU) CUDA
-launches when the y stage is split (R > 1), 2, 1, 3 and 2 when it is not,
-and all but B write one scratch spectrum pair from ``torch.empty``.
+:data:`launches`; a pass call is 3 (A), 1 (BF, B), 3 (C and CU) or 5 (CQA
+and CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 2 and 3
+when it is not.  All but BF and B write one scratch spectrum pair from
+``torch.empty``.
 """
 
 from __future__ import annotations
@@ -44,8 +58,11 @@ from .fused_plan import FusedPlan, make_fused_plan, pick_split, split_perm
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
-# launch counts of the four passes; a plain-version call never counts
-launches = {"pass_a": 0, "pass_b": 0, "pass_cqa": 0, "pass_cu": 0}
+# launch counts of the seven passes; a plain-version call never counts
+launches = {
+    "pass_a": 0, "pass_bf": 0, "pass_b": 0, "pass_c": 0, "pass_cqa": 0, "pass_cu": 0,
+    "pass_cua": 0,
+}
 
 
 def reset_launches() -> None:
@@ -61,7 +78,8 @@ _CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
 
 
 def _xcqa_smem(X: int) -> int:
-    """Two RTile<64, 64> (16 x (68 + 68) floats), then the (X, 64) quotient."""
+    """Two RTile<64, 64> (16 x (68 + 68) floats), then the (X, 64) quotient
+    (pass CQA) or psi' (pass CUA) column."""
     return 2 * 4 * 16 * (68 + 68) + 4 * X * 64
 
 
@@ -77,11 +95,18 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
 
     Every device: every axis a multiple of 8 (so X is even), as
     ``fused_dft2._check_transposed``.  A CUDA device adds the limits of the
-    kernels (``plan_ok`` in ``ops/csrc/fused.cu``): a split y stage of
-    R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are not), X <= 832 and
-    Z <= 736 (shared memory).  :func:`.fused_plan.pick_split`'s M = 128 meets
-    the kernels' other conditions on M, and Z <= 736 keeps the z stage at
-    R <= 8."""
+    kernels (``plan_ok`` in ``ops/csrc/fused.cu``), which hold for every
+    pass, since one plan serves them all:
+
+    * a split y stage of R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are
+      not): the y stages of passes A, C, CQA, CU and CUA;
+    * X <= 832: the (X, 64) column in shared memory of passes CQA and CUA;
+    * Z <= 736: the (Z, 32) complex product in shared memory of pass B.
+      Pass BF holds no column (43 KB), but shares pass B's z stage, whose
+      R <= 8 this bound keeps.
+
+    :func:`.fused_plan.pick_split`'s M = 128 meets the kernels' other
+    conditions on M."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
@@ -91,7 +116,10 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     if ry not in (1, 2, 4, 8):
         return f"Y={Y} splits into R={ry} blocks of 128; the y stage takes R in 1, 2, 4, 8"
     if _xcqa_smem(X) > _SMEM_MAX:
-        return f"X={X}: pass CQA needs {_xcqa_smem(X)} B of shared memory, over {_SMEM_MAX}"
+        return (
+            f"X={X}: passes CQA and CUA need {_xcqa_smem(X)} B of shared memory, "
+            f"over {_SMEM_MAX}"
+        )
     if _zstage_smem(Z) > _SMEM_MAX:
         return f"Z={Z}: pass B needs {_zstage_smem(Z)} B of shared memory, over {_SMEM_MAX}"
     return None
@@ -279,9 +307,16 @@ def pass_b_plain(u_re, u_im, k_re, k_im, c: PlanTensors, conj_k: bool = False) -
     return _zero_pad_rows(torch.cat(w_re, dim=1), torch.cat(w_im, dim=1), plan.kxh)
 
 
+def pass_bf_plain(u_re, u_im, c: PlanTensors) -> Pair:
+    """Plain K5: the split z-DFT of pass B alone, per x-frequency slice."""
+    plan, R = c.plan, c.plan.sz.R
+    v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
+    return _zero_pad_rows(torch.cat(v_re, dim=1), torch.cat(v_im, dim=1), plan.kxh)
+
+
 def pass_c_plain(v_re, v_im, c: PlanTensors) -> torch.Tensor:
-    """Split y-inverse and packed x-irfft: (Kxp, Z, Y) -> (Z, X, Y).  The C
-    half of K8 and K9 (K7 alone is not on the main path)."""
+    """Plain K7: split y-inverse and packed x-irfft, (Kxp, Z, Y) -> (Z, X, Y).
+    Also the C half of K8, K9 and K10."""
     plan, R = c.plan, c.plan.sy.R
     t_re, t_im = _inv_split(
         _blocks(v_re.transpose(0, 1), R, -1), _blocks(v_im.transpose(0, 1), R, -1),
@@ -300,6 +335,12 @@ def pass_cqa_plain(v_re, v_im, view_t, c: PlanTensors) -> Pair:
 def pass_cu_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value) -> torch.Tensor:
     """Plain K9: the RL update of K1 with the integral pass C of v."""
     return rl_update_plain(psi_t, pass_c_plain(v_re, v_im, c), weights, lam, min_value)
+
+
+def pass_cua_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value):
+    """Plain K10: plain K9, then plain K4 of its psi'; (psi', (u_re, u_im))."""
+    new = pass_cu_plain(v_re, v_im, psi_t, weights, c, lam, min_value)
+    return new, pass_a_plain(new, c)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -402,6 +443,46 @@ def pass_b(
     return o_re, o_im
 
 
+def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
+    """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair (a block
+    writes its column while it still reads it, so never in place)."""
+    _check_pair("u", (u_re, u_im), plan)
+    dev = _device(u_re, u_im)
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        return pass_bf_plain(u_re, u_im, c)
+    lib = _build.library()
+    o_re, o_im = _outputs(None, plan, u_re)
+    err = lib.lmvn_fused_pass_bf(
+        dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
+        _stream(dev),
+    )
+    _build.check("pass_bf", err)
+    launches["pass_bf"] += 1
+    return o_re, o_im
+
+
+def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
+    """K7: split y-inverse and packed x-irfft of a (Kxp, Z, Y) pair, the
+    real (Z, X, Y) volume."""
+    _check_pair("v", (v_re, v_im), plan)
+    Z, Y, X = plan.shape
+    dev = _device(v_re, v_im)
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        return pass_c_plain(v_re, v_im, c)
+    lib = _build.library()
+    out = torch.empty((Z, X, Y), device=dev)
+    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
+    err = lib.lmvn_fused_pass_c(
+        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(t_re), _ptr(t_im),
+        _ptr(v_re), _ptr(v_im), _stream(dev),
+    )
+    _build.check("pass_c", err)
+    launches["pass_c"] += 1
+    return out
+
+
 def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) -> Pair:
     """K8: pass A of view · (1/blurred), blurred = pass C of v; ``out`` may
     be ``(v_re, v_im)``."""
@@ -461,7 +542,66 @@ def pass_cu(
     return out
 
 
-# ---------------------------------------------------------------- step, spectra
+def pass_cua(
+    v_re, v_im, psi_t, weights, plan: FusedPlan, lam, min_value: float,
+    out: Optional[torch.Tensor] = None, u_out: Optional[Pair] = None,
+) -> Tuple[torch.Tensor, Pair]:
+    """K10: pass CU, then pass A of its psi' (the next view step's first
+    pass): (psi', (u_re, u_im)).  ``out`` may be ``psi_t``, ``u_out`` may be
+    ``(v_re, v_im)``."""
+    _check_pair("v", (v_re, v_im), plan)
+    Z, Y, X = plan.shape
+    _check_f32("psi_t", psi_t, (Z, X, Y))
+    per_voxel = isinstance(weights, torch.Tensor) and weights.ndim > 0
+    operands = [v_re, v_im, psi_t, *(u_out or ())]
+    if per_voxel:
+        _check_f32("weights", weights, (Z, X, Y))
+        operands.append(weights)
+    if out is not None:
+        _check_f32("out", out, (Z, X, Y))
+        operands.append(out)
+    if u_out is not None:
+        _check_pair("u_out", u_out, plan)
+    dev = _device(*operands)
+    c = plan_tensors(plan, dev)
+    if dev.type == "cpu":
+        new, u = pass_cua_plain(v_re, v_im, psi_t, weights, c, lam, min_value)
+        return _finish(out, new), _finish(u_out, u)
+    lib = _build.library()
+    if out is None:
+        out = torch.empty_like(psi_t)
+    u_re, u_im = _outputs(u_out, plan, v_re)
+    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
+    err = lib.lmvn_fused_pass_cua(
+        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(u_re), _ptr(u_im),
+        _ptr(t_re), _ptr(t_im), _ptr(v_re), _ptr(v_im), _ptr(psi_t),
+        _ptr(weights) if per_voxel else None, 0.0 if per_voxel else float(weights),
+        float(lam), float(min_value), _stream(dev),
+    )
+    _build.check("pass_cua", err)
+    launches["pass_cua"] += 1
+    return out, (u_re, u_im)
+
+
+# ---------------------------------------------------------------- steps, convolve, spectra
+
+
+def fused_convolve_transposed(xt: torch.Tensor, k_re, k_im, conj_k: bool = False) -> torch.Tensor:
+    """Circular convolution of a (Z, X, Y)-transposed volume with a fused
+    kernel spectrum (:func:`kernel_spectrum_fused`), or with its conjugate
+    (``conj_k``): passes A, B, C (``fused_dft2.py:2005``).  Returns the
+    transposed convolved volume."""
+    plan = _plan_for(xt.shape, None)
+    u = pass_a(xt, plan)
+    v = pass_b(*u, k_re, k_im, plan, conj_k=conj_k, out=u)
+    return pass_c(*v, plan)
+
+
+def fused_convolve_spectrum(x: torch.Tensor, k_re, k_im, conj_k: bool = False) -> torch.Tensor:
+    """:func:`fused_convolve_transposed` for a natural (Z, Y, X) volume, with
+    a transpose in and out (``fused_dft2.py:2034``)."""
+    xt = x.transpose(-1, -2).contiguous()
+    return fused_convolve_transposed(xt, k_re, k_im, conj_k).transpose(-1, -2).contiguous()
 
 
 def fused_rl_step_transposed(
@@ -492,6 +632,41 @@ def fused_rl_step_transposed(
     return pass_cu(*v, psi_t, weights, plan, lam, min_value, out=out)
 
 
+def fused_forward_transposed(xt: torch.Tensor) -> Pair:
+    """Pass A alone (``fused_dft2.py:2097``): the spectrum that seeds the
+    carried chain, once per deconvolve call."""
+    return pass_a(xt, _plan_for(xt.shape, None))
+
+
+def fused_rl_step_carried(
+    psi_t: torch.Tensor,
+    u: Pair,
+    view_t: torch.Tensor,
+    k1: Pair,
+    k2: Pair,
+    weights,
+    lam,
+    min_value: float,
+    conj_k2: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Pair]:
+    """One RL view step with pass A of psi carried between steps, four
+    passes (``fused_dft2.py:2115``):
+
+        B(x K1) -> CQA -> B(x K2, or conj K2) -> CUA
+
+    ``u`` is pass A of ``psi_t`` (:func:`fused_forward_transposed`, or the
+    previous step's carry).  Returns (psi', u(psi')): the same values as
+    :func:`fused_rl_step_transposed` followed by pass A, with one read of
+    psi' and one pass fewer.  The passes run in place in ``u``'s buffers,
+    which hold the returned spectrum; ``out=psi_t`` updates psi in place."""
+    plan = _plan_for(psi_t.shape, None)
+    v = pass_b(*u, *k1, plan, out=u)
+    u = pass_cqa(*v, view_t, plan, out=v)
+    v = pass_b(*u, *k2, plan, conj_k=conj_k2, out=u)
+    return pass_cua(*v, psi_t, weights, plan, lam, min_value, out=out, u_out=v)
+
+
 def sparse_prep_ok(kernel_z: int, Z: int) -> bool:
     """Whether the z-sparse spectrum forwarding serves a kernel of z-extent
     ``kernel_z`` at Z planes: twice its 8-aligned extent fits in Z."""
@@ -500,20 +675,33 @@ def sparse_prep_ok(kernel_z: int, Z: int) -> bool:
 
 def kernel_spectrum_fused(kernel: torch.Tensor, shape: Sequence[int]) -> Pair:
     """The wrapped kernel's spectrum in the fused (Kxp, Z, Y) layout, z and y
-    in the interleaved split order (``fused_dft2.py:1593``), z-sparse branch:
-    the wrapped kernel occupies only kz planes, so pass A runs on a gathered
-    stack of Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction
-    over them (``torch.einsum`` in fp32).  The dense branch needs pass BF
-    (K5), which is not ported: it raises."""
+    in the interleaved split order (``fused_dft2.py:1593``), forwarded by the
+    passes the convolve runs.  The branch follows the shape, as the JAX
+    default does: the z-sparse one when :func:`sparse_prep_ok`, else the
+    dense one (pass BF)."""
     Z, Y, X = (int(s) for s in shape)
-    plan = make_fused_plan((Z, Y, X))
     kernel = kernel.to(torch.float32)
+    if sparse_prep_ok(kernel.shape[0], Z):
+        return _spectrum_sparse(kernel, (Z, Y, X))
+    return _spectrum_dense(kernel, (Z, Y, X))
+
+
+def _spectrum_dense(kernel: torch.Tensor, shape) -> Pair:
+    """Pass A of the wrapped, transposed kernel, then pass BF
+    (``fused_dft2.py:1667-1670``)."""
+    plan = make_fused_plan(shape)
+    kt = wrap_kernel(kernel, shape).transpose(1, 2).contiguous()
+    return pass_bf(*pass_a(kt, plan), plan)
+
+
+def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
+    """The z-sparse branch (``fused_dft2.py:1642-1665``): the wrapped kernel
+    occupies only kz planes, so pass A runs on a gathered stack of
+    Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction over them
+    (``torch.einsum`` in fp32)."""
+    Z, Y, X = shape
+    plan = make_fused_plan(shape)
     kz = int(kernel.shape[0])
-    if not sparse_prep_ok(kz, Z):
-        raise NotImplementedError(
-            f"dense fused spectrum forwarding (kernel z-extent {kz} at Z={Z}) runs pass BF, "
-            "K5, which is not ported yet (ROADMAP queue 2, K5)"
-        )
     zs = -(-kz // 8) * 8
     cz = kz // 2  # kernel center, z axis
     head = kz - cz

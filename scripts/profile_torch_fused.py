@@ -4,17 +4,23 @@
 Run from the repository root on a host with one GPU:
 
     python3 scripts/profile_torch_fused.py [--n 256] [--algorithm fused]
+        [--carried | --interleaved]
 
 Drives bench.py's headline configuration (4 views at n³, kernel1 21³,
 kernel2 25³, per-voxel weights, λ 0.006, 10 iterations) once to warm up,
-then once under ``torch.profiler``, and prints:
+then once under ``torch.profiler``.  ``--carried`` runs the fused engine's
+carried chain (``LMVN_FUSED_CARRY=1``).  ``--interleaved`` runs the
+interleaved rung instead, in benchmarks/bench_streamed.py's configuration
+(kernel2 the flipped 21³ kernel1, chunk_z 64, 2 iterations, the host stacks
+pinned beforehand).  It prints:
 
-* device time by pass (pass_a, pass_b, pass_cqa, pass_cu, spectrum prep):
-  each pass wrapper runs inside a ``record_function`` range here, so the
-  kernels it launches are summed under its name;
-* device time by kernel name, with the count;
-* the idle share: 1 - (union of kernel intervals) / (host wall time of the
-  synchronised call).
+* device time by pass (the seven fused passes, spectrum prep): each pass
+  wrapper runs inside a ``record_function`` range here, so the kernels it
+  launches are summed under its name;
+* device time by kernel name, with the count; host-to-device copies appear
+  as ``Memcpy HtoD`` events;
+* the idle share: 1 - (union of kernel and copy intervals) / (host wall time
+  of the synchronised call), and the same for the kernels alone.
 
 The card's name and power limit come first, from nvidia-smi.  The profiled
 call is not timed for throughput: chip_smoke.py does that.
@@ -31,7 +37,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PASSES = ("pass_a", "pass_b", "pass_cqa", "pass_cu")
+PASSES = ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")
 
 
 def busy_ms(events):
@@ -55,14 +61,19 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import ITERS, LAM, MIN_VALUE, V, bench_kernels
-    from libmultiviewnative_torch.deconv import rl
+    from libmultiviewnative_torch.deconv import interleaved as il, rl
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
     from libmultiviewnative_torch.ops import fused as fu
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--algorithm", default="fused", choices=("fused", "fft"))
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--carried", action="store_true")
+    mode.add_argument("--interleaved", action="store_true")
     args = ap.parse_args()
+    if args.carried:
+        os.environ["LMVN_FUSED_CARRY"] = "1"
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_fused: CUDA is not available")
     smi = subprocess.run(
@@ -80,27 +91,44 @@ def main():
                 return _fn(*a, **k)
 
         setattr(fu, name, wrapped)
-    prep = rl.prepare_spectra_fused if args.algorithm == "fused" else rl.prepare_spectra
+    owner, prep = (
+        (il, il.engine_spectra) if args.interleaved
+        else (rl, rl.prepare_spectra_fused if args.algorithm == "fused" else rl.prepare_spectra)
+    )
 
     @functools.wraps(prep)
     def prep_wrapped(*a, **k):
         with record_function("spectrum_prep"):
             return prep(*a, **k)
 
-    setattr(rl, prep.__name__, prep_wrapped)
+    setattr(owner, prep.__name__, prep_wrapped)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     shape = (args.n,) * 3
     k1, k2 = bench_kernels()
-    views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)).to(dev)
-    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
-                         torch.full((V,) + shape, 1.0 / V, device=dev))
-    psi0 = torch.full(shape, float(views.mean()), device=dev)
+    views = rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)
+    if args.interleaved:
+        host_views = [torch.from_numpy(v).pin_memory() for v in views]
+        host_weights = [torch.full(shape, 1.0 / V).pin_memory() for _ in range(V)]
+        k2 = np.stack([np.flip(k).copy() for k in k1])
+        psi0 = np.full(shape, float(views[0].mean()), np.float32)
+        iters = 2
 
-    def call():
-        return rl.deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE,
-                             algorithm=args.algorithm)
+        def call():
+            return il.deconvolve_interleaved(psi0, host_views, k1, k2, host_weights, iters,
+                                             lam=LAM, min_value=MIN_VALUE,
+                                             algorithm=args.algorithm, device=dev)
+    else:
+        views = torch.from_numpy(views).to(dev)
+        data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
+                             torch.full((V,) + shape, 1.0 / V, device=dev))
+        psi0 = torch.full(shape, float(views.mean()), device=dev)
+        iters = ITERS
+
+        def call():
+            return rl.deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE,
+                                 algorithm=args.algorithm)
 
     call()
     torch.cuda.synchronize()
@@ -114,9 +142,13 @@ def main():
     # the record_function ranges appear on the device too, as annotations
     kernels = [e for e in device if e.name not in ranges]
     busy = busy_ms(kernels)
+    compute_busy = busy_ms([e for e in kernels if not e.name.startswith("Memcpy")])
     total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"{args.algorithm} 4 views {args.n}^3, {ITERS} iterations: wall {wall_ms:.3f} ms,"
-          f" kernel time {total:.3f} ms, busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
+    what = ("interleaved " if args.interleaved else "") + args.algorithm
+    what += " carried" if args.carried else ""
+    print(f"{what} 4 views {args.n}^3, {iters} iterations: wall {wall_ms:.3f} ms,"
+          f" device time {total:.3f} ms, busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f};"
+          f" kernels alone busy {compute_busy:.3f} ms, idle share {1 - compute_busy / wall_ms:.4f}")
     print("by pass (device ms of the kernels each range launched, calls; the 8 pass_a"
           " calls of the spectrum prep count under both):")
     for name in ranges:

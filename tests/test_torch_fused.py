@@ -166,10 +166,14 @@ def test_pass_cu_matches_jax(jax_passes, lam):
 
 
 def test_dense_spectrum_prep_raises_naming_k5():
-    """A kernel z-extent of 9 at Z = 16 needs the dense branch (pass BF)."""
+    """A kernel z-extent of 9 at Z = 16 needs the dense branch (pass BF, K5).
+    It raised until K5 was ported; now the shape alone picks the branch, and
+    the dense one forwards through pass A and pass BF
+    (tests/test_torch_fused_rest.py holds it against JAX's)."""
     k = torch.from_numpy(gaussian_kernel((9, 5, 5), 1.0))
-    with pytest.raises(NotImplementedError, match="K5"):
-        fu.kernel_spectrum_fused(k, (16, 24, 32))
+    got = fu.kernel_spectrum_fused(k, (16, 24, 32))
+    want = fu._spectrum_dense(k, (16, 24, 32))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert fu.sparse_prep_ok(8, 16) and not fu.sparse_prep_ok(9, 16)
 
 
