@@ -11,7 +11,9 @@ Phases, each raising on failure (there is no CPU fallback):
 2. build: nvcc builds the hand-written kernels from ops/csrc/;
 3. kernels: each kernel (K1 rl_update, K2 quotient, K3 spectral_multiply)
    against its plain PyTorch version on the card, at the main path's shapes,
-   with the error and the CUDA-event times (median) of both;
+   with the error and the CUDA-event times (median) of both, and of the one
+   PyTorch call that computes the same function where there is one (K2
+   ``torch.div``, K3 the complex ``*``): its ``library_ms``;
 4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
    iterations under the gates of tests/test_golden_regression.py;
 5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``,
@@ -21,6 +23,7 @@ Phases, each raising on failure (there is no CPU fallback):
 8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
 9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
    their plain versions on the card at the 256³ and 512³ main-path shapes;
+   K4 (FFT stages) also against ``torch.fft.rfft2``;
 10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
     with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
     it/s and the slope, and held against the fft engine after 10 iterations;
@@ -29,14 +32,17 @@ Phases, each raising on failure (there is no CPU fallback):
 12. fused 512³: phase 7's configuration through the fused engine (K4 44);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
-    of ``ops.fused.fused_limit`` (small shapes), and shapes past them
-    refused before any launch;
+    of ``ops.fused.fused_limit`` (small shapes), K4 and K7 at lengths with
+    odd prime factors (the FFT stages' radix-3/5 and generic stages), and
+    shapes past the limits refused before any launch;
 15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
-    256³ and 512³, and the dense spectrum forwarding (pass A + BF) against
-    the z-sparse one for the bench kernels at 256³;
+    256³ and 512³ (K5 also against ``torch.fft.fft`` over z, K7 against
+    ``torch.fft.irfft2``), and the dense spectrum forwarding (pass A + BF)
+    against the z-sparse one for the bench kernels at 256³;
 16. carried chain: phases 10 and 12's configurations with
     ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 9 per 256³
-    call), it/s, slope, and psi against the plain chain;
+    call), it/s, slope, and psi against the plain chain (within 1e-5: K10's
+    pass A is the GEMM form, the plain chain's K4 the FFT stages);
 17. dense forwarding on the main path: 4 views at (32, 512, 512) through
     ``deconvolve(algorithm="fused")`` (K5 8 per call), against the fft
     engine;
@@ -46,11 +52,18 @@ Phases, each raising on failure (there is no CPU fallback):
     step timed alone beside the measured step, peak memory, and psi against
     the in-core ``deconvolve``.
 
-The line before the last is one JSON object with every kernel's record; the
-last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX.
+Every kernel's record carries its bound: the larger of the bytes its
+function must move (each input read once, each output written once; a
+spectrum input's pad rows not at all) over 3.35 TB/s and the operations the
+function needs over 67 TFLOP/s (fp32 outside the tensor cores; transforms
+counted as FFTs, whatever the kernel runs), at the main-path shape of its
+timing, logged with each kernel's share of it.  The line before the
+last is one JSON object with every kernel's record (256³); the last line is
+``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -72,6 +85,9 @@ CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
 FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
+FFT_SOURCE = "libmultiviewnative_torch/ops/csrc/fft_stage.cuh"
+SOURCES = {name: FUSED_SOURCE for name in ("pass_bf", "pass_b", "pass_cqa", "pass_cu", "pass_cua")}
+SOURCES.update(pass_a=FFT_SOURCE, pass_c=FFT_SOURCE)
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
@@ -97,9 +113,17 @@ TOLERANCE = 1e-6
 FUSED_TOLERANCE = 1e-5
 # (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at pass
 # B's shared-memory bound, a 5-way split z stage, an 8-way split y stage, X
-# at pass CQA's shared-memory bound; then one step past each bound
-EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832))
-OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840))
+# at pass CQA's shared-memory bound, an unsplit Y at the FFT y stage's
+# shared-memory bound (8 rows of 3632); then one step past each bound
+EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832), (8, 3632, 8))
+OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840), (8, 3640, 8))
+# lengths with odd prime factors for K4 and K7's FFT stages: X = 264 (8·3·11),
+# 808 (8·101), 832 (64·13); Y = 200 (8·5·5), 1016 (8·127), both at R = 1
+ODD_SHAPES = ((16, 200, 264), (8, 1016, 808), (8, 200, 832), (8, 1016, 264))
+# the H100 SXM's published peaks: HBM3 bytes/s and fp32 FLOP/s outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def tikhonov_atol(lam):
@@ -176,31 +200,60 @@ def compare(torch, name, got, ref):
     return abs_err, max(scale, 1e-30)
 
 
+def bound(nbytes, ops):
+    """(ms, what sets it): the least time the card could take to move
+    ``nbytes`` and perform ``ops`` fp32 operations."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOPS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0,
-                 tol=TOLERANCE, groups=lambda out: (out,)):
+                 tol=TOLERANCE, groups=lambda out: (out,), library=None):
     """Hold one kernel call against its plain version, time both (median
-    CUDA-event ms, in turns plain, kernel, kernel, plain) and log GB/s of
-    ``nbytes``; fold the error into ``records[name]``.  ``groups`` splits an
-    output into parts held each against its own scale (K10's psi' and its
-    spectrum pair)."""
+    CUDA-event ms, in turns plain, kernel, kernel, plain; with ``library``,
+    the PyTorch call computing the same function, in turns plain, kernel,
+    library, library, kernel, plain) and log GB/s of ``nbytes``; fold the
+    error into ``records[name]``.  ``groups`` splits an output into parts
+    held each against its own scale (K10's psi' and its spectrum pair).
+    Returns (ms, plain_ms, library_ms or None)."""
     got, ref = kernel(), plain()
     errs = [compare(torch, f"{name} {label}", g, r) for g, r in zip(groups(got), groups(ref))]
     del got, ref
     ok = all(err <= tol * sc + atol for err, sc in errs)
     abs_err, scale = max(errs, key=lambda e: e[0] / e[1])
-    samples = {plain: [], kernel: []}
-    for fn in (plain, kernel, kernel, plain):
+    turns = (plain, kernel, kernel, plain) if library is None else (
+        plain, kernel, library, library, kernel, plain)
+    samples = {fn: [] for fn in turns}
+    for fn in turns:
         samples[fn] += event_times_ms(torch, fn)
     ms, plain_ms = statistics.median(samples[kernel]), statistics.median(samples[plain])
+    lib_ms = None if library is None else statistics.median(samples[library])
     log(f"{name:17s} {label:34s} max_abs_err {abs_err:.3e} rel {abs_err / scale:.3e}"
         f" (tol {tol:g} of max|plain| + {atol:.2e})"
         f" kernel {ms:.4f} ms {nbytes / ms / 1e6:8.1f} GB/s"
-        f" | plain {plain_ms:.4f} ms {nbytes / plain_ms / 1e6:8.1f} GB/s")
+        f" | plain {plain_ms:.4f} ms {nbytes / plain_ms / 1e6:8.1f} GB/s"
+        + ("" if lib_ms is None else f" | library {lib_ms:.4f} ms"))
     if not ok:
         raise AssertionError(f"{name} {label}: error {abs_err:.3e} beyond tolerance")
     rec = records.setdefault(name, {"max_abs_err": 0.0})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-    return ms, plain_ms
+    return ms, plain_ms, lib_ms
+
+
+def keep_timing(records, name, size, times, nbytes, ops):
+    """Store one kernel's main-path timing at ``size``³ with its bound: the
+    256³ numbers are the record's own keys, the 512³ ones under "512"."""
+    ms, plain_ms, lib_ms = times
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"{name:17s} {size}^3 main path: bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB,"
+        f" {ops / 1e9:.3f} GFLOP); kernel at {bound_ms / ms:.3f} of it, plain at"
+        f" {bound_ms / plain_ms:.3f}")
+    entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by}
+    if size == HEADLINE_N:
+        records[name].update(entry)
+    else:
+        records[name]["512"] = entry
 
 
 def phase_kernels(torch, dev):
@@ -209,7 +262,6 @@ def phase_kernels(torch, dev):
     log("# phase 3: kernels vs plain versions on the card")
     gen = torch.Generator(device=dev).manual_seed(0)
     records = {}
-    main_ms = {}
 
     def rand(shape, lo, hi, dtype=torch.float32):
         return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * (hi - lo) + lo
@@ -229,8 +281,10 @@ def phase_kernels(torch, dev):
                     lambda: ew.rl_update_plain(psi, integral, weights, lam, MIN_VALUE),
                     nbytes, atol=tikhonov_atol(lam),
                 )
-                if n == HEADLINE_N and wlabel == "voxel-w" and lam == LAM:
-                    main_ms["rl_update"] = t
+                # the main path's update: per-voxel weights at 256³, scalar
+                # at 512³ (bench.py's configs), λ > 0; ~10 operations a voxel
+                if lam == LAM and (wlabel == "voxel-w") == (n == HEADLINE_N):
+                    keep_timing(records, "rl_update", n, t, nbytes, 10 * psi.numel())
         view = rand(shape, 0.0, 200.0)
         denom = rand(shape, 0.5, 1.5)
         out = torch.empty_like(view)
@@ -238,10 +292,9 @@ def phase_kernels(torch, dev):
             torch, records, "quotient", f"{n}^3",
             lambda: ew.quotient(view, denom, out=out),
             lambda: ew.quotient_plain(view, denom),
-            3 * vox,
+            3 * vox, library=lambda: torch.div(view, denom),
         )
-        if n == HEADLINE_N:
-            main_ms["quotient"] = t
+        keep_timing(records, "quotient", n, t, 3 * vox, 2 * view.numel())
         del psi, integral, w, view, denom, out
 
         spec = (n, n, n // 2 + 1)
@@ -253,10 +306,11 @@ def phase_kernels(torch, dev):
                 torch, records, "spectral_multiply", f"{spec} conj={conj}",
                 lambda: ew.spectral_multiply(x, k, conj_k=conj, out=out),
                 lambda: ew.spectral_multiply_plain(x, k, conj),
-                24 * k.numel(),
+                24 * k.numel(), library=(lambda: x * k.conj()) if conj else (lambda: x * k),
             )
-            if n == HEADLINE_N and not conj:
-                main_ms["spectral_multiply"] = t
+            # the main path's product: plain at 256³, conj_k at 512³ (adjoint)
+            if conj == (n == BIG_N):
+                keep_timing(records, "spectral_multiply", n, t, 24 * k.numel(), 6 * k.numel())
         del x, k, out
         torch.cuda.empty_cache()
 
@@ -284,8 +338,6 @@ def phase_kernels(torch, dev):
         check_kernel(torch, records, "rl_update", f"edge values lam={lam}",
                      lambda: ew.rl_update(edge_psi, edge_int, 1.0, lam, MIN_VALUE),
                      lambda: ew.rl_update_plain(edge_psi, edge_int, 1.0, lam, MIN_VALUE), 48)
-    for name, (ms, plain_ms) in main_ms.items():
-        records[name].update(ms=ms, plain_ms=plain_ms)
     return records
 
 
@@ -458,7 +510,8 @@ def phase_cross_check(torch, dev):
 
     log(f"# phase 8: CUDA vs the port's CPU path, 4 views at {CROSS_N}^3, 2 iterations")
     ws = Workspace.from_views(
-        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1)
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1),
+        device="cpu",
     )
     psi0 = initial_psi(ws.data)
     cpu = deconvolve(psi0, ws.data, 2, lam=LAM, min_value=MIN_VALUE)
@@ -470,15 +523,19 @@ def phase_cross_check(torch, dev):
 
 
 def fused_flops(plan):
-    """Real FLOPs one call of each fused pass executes (x stages as packed
-    real products, split stages as R Karatsuba (M, M) products per row)."""
+    """The operations each fused pass's function needs, whatever algorithm
+    its kernel runs: its transforms as FFTs, 5 n log2 n per complex length-n
+    transform (Y/2 of length X per plane along x, two real columns each;
+    Kx·Z of length Y along y; Kx·Y of length Z along z), plus its pointwise
+    work (pass B's complex product, CQA's quotient, CU's and CUA's update at
+    K1's 10 operations a voxel)."""
     Z, Y, X = plan.shape
-    kxp = plan.kxp
-    x = 4 * kxp * X * Y * Z
-    y = 6 * kxp * Z * Y * plan.sy.M
-    z = 6 * kxp * Y * Z * plan.sz.M
-    return {"pass_a": x + y, "pass_bf": z, "pass_b": 2 * z, "pass_c": x + y,
-            "pass_cqa": 2 * (x + y), "pass_cu": x + y, "pass_cua": 2 * (x + y)}
+    kx = plan.kxh
+    xy = Z * (Y // 2) * 5 * X * math.log2(X) + kx * Z * 5 * Y * math.log2(Y)
+    z = kx * Y * 5 * Z * math.log2(Z)
+    return {"pass_a": xy, "pass_bf": z, "pass_b": 2 * z + 6 * kx * Z * Y, "pass_c": xy,
+            "pass_cqa": 2 * xy + X * Y * Z, "pass_cu": xy + 10 * X * Y * Z,
+            "pass_cua": 2 * xy + 10 * X * Y * Z}
 
 
 def check_fp32_matmuls(torch):
@@ -517,30 +574,28 @@ def phase_fused_kernels(torch, dev, records):
         out = torch.empty_like(psi)
         conj = size == BIG_N
         weights = 0.25 if size == BIG_N else rand((Z, X, Y), 0.0, 0.5)
-        vol, spec = 4 * psi.numel(), 8 * u[0].numel()
+        # bytes the functions need: a spectrum input's Kx rows (its pad rows
+        # carry nothing), a spectrum output's Kxp rows (pad rows written)
+        vol, spec, spec_in = 4 * psi.numel(), 8 * u[0].numel(), 8 * plan.kxh * Z * Y
         flops = fused_flops(plan)
         checks = (
             ("pass_a", label, lambda: fu.pass_a(psi, plan, out=buf),
-             lambda: fu.pass_a_plain(psi, c), vol + spec, 0.0),
+             lambda: fu.pass_a_plain(psi, c), vol + spec, 0.0,
+             lambda: torch.fft.rfft2(psi, dim=(2, 1))),
             ("pass_b", f"{label} conj={conj}",
              lambda: fu.pass_b(*u, kre, kim, plan, conj_k=conj, out=buf),
-             lambda: fu.pass_b_plain(*u, kre, kim, c, conj), 3 * spec, 0.0),
+             lambda: fu.pass_b_plain(*u, kre, kim, c, conj), 2 * spec_in + spec, 0.0, None),
             ("pass_cqa", label, lambda: fu.pass_cqa(*v, view, plan, out=buf),
-             lambda: fu.pass_cqa_plain(*v, view, c), 2 * spec + vol, 0.0),
+             lambda: fu.pass_cqa_plain(*v, view, c), spec_in + vol + spec, 0.0, None),
             ("pass_cu", f"{label} {'scalar' if conj else 'voxel'}-w lam={LAM}",
              lambda: fu.pass_cu(*v, psi, weights, plan, LAM, MIN_VALUE, out=out),
              lambda: fu.pass_cu_plain(*v, psi, weights, c, LAM, MIN_VALUE),
-             spec + (2 if conj else 3) * vol, tikhonov_atol(LAM)),
+             spec_in + (2 if conj else 3) * vol, tikhonov_atol(LAM), None),
         )
-        for name, what, kernel_fn, plain_fn, nbytes, atol in checks:
-            ms, plain_ms = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
-                                        atol=atol, tol=FUSED_TOLERANCE)
-            log(f"{name:17s} {what:34s} {flops[name] / ms / 1e9:8.2f} TFLOP/s kernel,"
-                f" {flops[name] / plain_ms / 1e9:8.2f} plain ({flops[name] / 1e9:.2f} GFLOP)")
-            if size == HEADLINE_N:
-                records[name].update(ms=ms, plain_ms=plain_ms)
-            else:
-                records[name].update(ms_512=ms, plain_ms_512=plain_ms)
+        for name, what, kernel_fn, plain_fn, nbytes, atol, library in checks:
+            t = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
+                             atol=atol, tol=FUSED_TOLERANCE, library=library)
+            keep_timing(records, name, size, t, nbytes, flops[name])
         del psi, view, u, v, buf, out, kre, kim
         torch.cuda.empty_cache()
 
@@ -654,7 +709,8 @@ def phase_fused_cross_check(torch, dev):
 
     log(f"# phase 13: fused CUDA vs the fused CPU path, 4 views at {CROSS_N}^3, 2 iterations")
     ws = Workspace.from_views(
-        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1)
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1),
+        device="cpu",
     )
     psi0 = initial_psi(ws.data)
     kw = dict(lam=LAM, min_value=MIN_VALUE, algorithm="fused")
@@ -670,10 +726,10 @@ def phase_fused_limits(torch, dev):
     """The kernels run at the edges of what ``fused_limit`` accepts, and a
     shape past an edge is refused before any launch."""
     from libmultiviewnative_torch.ops import fused as fu
-    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+    from libmultiviewnative_torch.ops.fused_plan import fft_radices, make_fused_plan
     from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
-    log("# phase 14: fused kernels at the edges of their shape limits")
+    log("# phase 14: fused kernels at the edges of their shape limits, and K4/K7 at odd lengths")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernel = torch.from_numpy(gaussian_kernel((3, 3, 3), 1.0)).to(dev)
     for shape in EDGE_SHAPES:
@@ -705,6 +761,21 @@ def phase_fused_limits(torch, dev):
                 f" (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
+    for shape in ODD_SHAPES:
+        Z, Y, X = shape
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        psi = torch.rand((Z, X, Y), generator=gen, device=dev) * 99.0 + 1.0
+        v = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in range(2))
+        for name, got, want in (
+            ("pass_a", fu.pass_a(psi, plan), fu.pass_a_plain(psi, c)),
+            ("pass_c", fu.pass_c(*v, plan), fu.pass_c_plain(*v, c)),
+        ):
+            err, scale = compare(torch, f"{name} {shape}", got, want)
+            log(f"{name:13s} ZYX={shape} (FFT radices x {fft_radices(X)}, y {fft_radices(Y)}):"
+                f" max_abs_err {err:.3e} rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
+            if not err <= FUSED_TOLERANCE * scale:
+                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
     for shape in OVER_SHAPES:
         Z, Y, X = shape
         plan = make_fused_plan(shape)
@@ -732,7 +803,7 @@ def phase_rest_kernels(torch, dev, records):
     and the two spectrum forwardings against each other."""
     from libmultiviewnative_torch.core.wrap import wrap_kernel
     from libmultiviewnative_torch.ops import fused as fu
-    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan, split_perm
 
     log("# phase 15: K5 pass BF, K7 pass C and K10 pass CUA vs plain versions on the card")
     check_fp32_matmuls(torch)
@@ -757,29 +828,33 @@ def phase_rest_kernels(torch, dev, records):
         weights, lam = (0.25, LAM) if scalar else (rand((Z, X, Y), 0.0, 0.5), 0.0)
         out = torch.empty_like(psi)
         buf = (torch.empty_like(v[0]), torch.empty_like(v[1]))
-        vol, spec = 4 * psi.numel(), 8 * v[0].numel()
+        vol, spec, spec_in = 4 * psi.numel(), 8 * v[0].numel(), 8 * plan.kxh * Z * Y
         flops = fused_flops(plan)
+        # the library calls' inputs: K5's pair as one complex tensor; K7's
+        # spectrum with y in natural order, (Z, Kx, Y) with x the halved axis
+        uk_c = torch.complex(*uk)
+        natural = torch.empty((plan.kxh, Z, Y), dtype=torch.complex64, device=dev)
+        natural[..., torch.as_tensor(split_perm(Y, (plan.sy.R, plan.sy.M)), device=dev)] = (
+            torch.complex(*v)[: plan.kxh])
+        natural = natural.transpose(0, 1).contiguous()
         checks = (
             ("pass_bf", f"{label} kernel1 21^3", lambda: fu.pass_bf(*uk, plan),
-             lambda: fu.pass_bf_plain(*uk, c), 2 * spec, 0.0, None),
+             lambda: fu.pass_bf_plain(*uk, c), spec_in + spec, 0.0, None,
+             lambda: torch.fft.fft(uk_c, dim=1)),
             ("pass_c", label, lambda: fu.pass_c(*v, plan),
-             lambda: fu.pass_c_plain(*v, c), spec + vol, 0.0, None),
+             lambda: fu.pass_c_plain(*v, c), spec_in + vol, 0.0, None,
+             lambda: torch.fft.irfft2(natural, s=(Y, X), dim=(2, 1))),
             ("pass_cua", f"{label} {'scalar' if scalar else 'voxel'}-w lam={lam}",
              lambda: fu.pass_cua(*v, psi, weights, plan, lam, MIN_VALUE, out=out, u_out=buf),
              lambda: fu.pass_cua_plain(*v, psi, weights, c, lam, MIN_VALUE),
-             2 * spec + (2 if scalar else 3) * vol, tikhonov_atol(lam), lambda o: o),
+             spec_in + spec + (2 if scalar else 3) * vol, tikhonov_atol(lam), lambda o: o, None),
         )
-        for name, what, kernel_fn, plain_fn, nbytes, atol, groups in checks:
-            ms, plain_ms = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
-                                        atol=atol, tol=FUSED_TOLERANCE,
-                                        groups=groups or (lambda o: (o,)))
-            log(f"{name:17s} {what:34s} {flops[name] / ms / 1e9:8.2f} TFLOP/s kernel,"
-                f" {flops[name] / plain_ms / 1e9:8.2f} plain ({flops[name] / 1e9:.2f} GFLOP)")
-            if size == HEADLINE_N:
-                records[name].update(ms=ms, plain_ms=plain_ms)
-            else:
-                records[name].update(ms_512=ms, plain_ms_512=plain_ms)
-        del psi, v, uk, out, buf, kre, kim, weights
+        for name, what, kernel_fn, plain_fn, nbytes, atol, groups, library in checks:
+            t = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
+                             atol=atol, tol=FUSED_TOLERANCE,
+                             groups=groups or (lambda o: (o,)), library=library)
+            keep_timing(records, name, size, t, nbytes, flops[name])
+        del psi, v, uk, out, buf, kre, kim, weights, uk_c, natural
         torch.cuda.empty_cache()
 
     shape = (HEADLINE_N,) * 3
@@ -830,8 +905,10 @@ def phase_carried(torch, dev, rng, launches_out):
             os.environ["LMVN_FUSED_CARRY"] = "0"
             plain = run_n(ITERS)
             diff = float((carried - plain).abs().max()) / float(plain.abs().max())
+            # not bitwise: K10's pass A is the GEMM form, the plain chain's
+            # K4 the FFT stages
             log(f"carried vs plain chain {label} after {ITERS} iterations: max|diff|/max|psi| ="
-                f" {diff:.3e} (tol 1e-5), bitwise equal: {bool(torch.equal(carried, plain))}")
+                f" {diff:.3e} (tol 1e-5)")
             if not diff <= 1e-5:
                 raise AssertionError(f"carried and plain chains disagree at {label}: {diff:.3e}")
             del data, psi0, carried, plain
@@ -1021,17 +1098,17 @@ def main():
     phase_interleaved(torch, dev, launches)
 
     log("rates (it/s, slope): " + json.dumps(rates))
+    log("kernel timings at 256^3 and 512^3: " + json.dumps(records))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": FUSED_SOURCE if name.startswith("pass_") else SOURCE,
+            "source": SOURCES.get(name, SOURCE),
             "replaces": REPLACES[name],
             "launches": launches[name],
-            "max_abs_err": records[name]["max_abs_err"],
-            "ms": records[name]["ms"],
-            "plain_ms": records[name]["plain_ms"],
+            **{key: records[name][key] for key in keys},
         }
         for name in KERNEL_NAMES
     ]

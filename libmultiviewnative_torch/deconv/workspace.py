@@ -125,7 +125,7 @@ class MultiViewData:
         views: Sequence[View],
         dtype=torch.float32,
         shape_policy: str = "strict",
-        device="cpu",
+        device="cuda",
     ) -> "MultiViewData":
         """Stack per-view data; kernels are center-padded to the max shape.
 
@@ -186,7 +186,7 @@ class Workspace:
         lambda_: float = 0.0,
         min_value: float = 1e-4,
         num_iterations: int = 1,
-        device="cpu",
+        device="cuda",
     ) -> "Workspace":
         return cls(
             data=MultiViewData.from_views(views, device=device),

@@ -18,7 +18,7 @@ from .deconv.rl import FUSED_XMODE, PreparedSpectra
 from .deconv.workspace import MultiViewData
 
 
-def multiview_data_from_numpy(views, kernel1, kernel2, weights, device="cpu") -> MultiViewData:
+def multiview_data_from_numpy(views, kernel1, kernel2, weights, device="cuda") -> MultiViewData:
     """A :class:`MultiViewData` from stacked float32 arrays: views and
     weights (V, Z, Y, X) (weights may be (V,)), kernels (V, kz, ky, kx)."""
 
@@ -29,7 +29,7 @@ def multiview_data_from_numpy(views, kernel1, kernel2, weights, device="cpu") ->
 
 
 def prepared_from_jax(
-    algorithm: str, spatial: Sequence[int], k1, k2, device="cpu", xmode: str = FUSED_XMODE
+    algorithm: str, spatial: Sequence[int], k1, k2, device="cuda", xmode: str = FUSED_XMODE
 ) -> PreparedSpectra:
     """A :class:`PreparedSpectra` from the spectra of a JAX ``PreparedSpectra``.
 

@@ -5,7 +5,8 @@ shared library with a plain C interface, in ``build/torch_kernels/<hash>/``
 beside the package (a directory ``.gitignore`` lists), keyed by a hash of
 the sources, the headers and the flags.  Each source is compiled by its own
 ``nvcc`` process, all started together, and the objects are then linked
-(6.1-6.4 s on an H100 host with 8 cores, against 8.0-9.0 s for one ``nvcc``
+(21.8 s on an H100 host with 8 cores, most of it ``fused.cu`` with the FFT
+stage kernels; before those, 6.1-6.4 s against 8.0-9.0 s for one ``nvcc``
 over both sources).  The library is loaded with ``ctypes``: every pointer
 and the stream go in as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
@@ -30,7 +31,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("elementwise.cu", "fused.cu")
-_HEADERS = ("rl_update.cuh",)
+_HEADERS = ("fft_stage.cuh", "rl_update.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,0 +1,553 @@
+// Shared-memory mixed-radix FFT stages for Hopper (sm_90a), fp32: the x and y
+// stages of the fused engine's passes A (K4) and C (K7).
+//
+// They replace the DFT-as-matrix-product stages of the TPU kernels
+// _pass_a_kernel / _pass_c_kernel (libmultiviewnative_tpu/ops/pallas/
+// fused_dft2.py:986, :1209, reached by _run_pass_a :1703 and _run_pass_c
+// :1825).  The TPU computes a DFT as a product with a dense matrix because
+// its matrix unit makes products cheap; fp32 CUDA cores do not, and an
+// O(N^2) DFT on them costs 5-9x the HBM time of the pass.  An FFT does
+// O(log N) work per value, so these stages are bound by HBM bytes: each
+// pass reads its input once, writes and reads the (Kxp, Z, Y) scratch pair
+// once, and writes its output once.  Everything else stays in shared memory.
+//
+// The transform (ops/fused_plan.py make_fft_stages): an in-place
+// decimation-in-time FFT.  The load stores input i at position pos[i] (the
+// mixed-radix digit reversal); stage j then combines, for each block b and
+// k' < m_j, the r values at b*L_j + t*m_j + k' (L_j = r*m_j): each is
+// multiplied by the twiddle W_{L_j}^{t k'} and the r of them are replaced by
+// their r-point DFT, output k1 at b*L_j + k1*m_j + k'.  A butterfly reads and
+// writes the same r places, so a stage needs no second buffer: one barrier
+// after it.  Radices 2, 4 and 8 have butterflies of their own, 3, 5 and 7 a
+// direct DFT unrolled at compile time; any other prime runs a generic stage
+// in rounds of whole butterflies (results in registers, a barrier, then the
+// writes).  Twiddles and roots are float64 values stored as float32 (no
+// __sinf/__cosf on the device); the inverse conjugates them.
+//
+// A block holds P sequences interleaved, value i of sequence s at i*P + s,
+// and its threads take the sequence index fastest.  So a warp reads and
+// writes whole 128-byte lines in every stage, and in the loads and stores
+// too: the x stage interleaves the column pairs of its y-column tile, whose
+// rows are contiguous in global memory; the y stage interleaves rows and
+// walks them fastest, so each row is read and written in 32-byte sectors.
+//
+// Butterflies use __fmaf_rn where a multiply-add is meant (the library is
+// built with -fmad=false).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+extern "C" {
+
+// Mirrors ops/fused.py's _FftArgs: the stage plan of one transform length.
+struct LmvnFft {
+  int n, nstages;
+  int radix[16];    // in the order the stages run
+  const float* tw;  // (re, im) pairs: n - 1 twiddles, then the roots
+  const int* pos;   // position of input i after the digit-reversed load
+};
+
+}  // extern "C"
+
+namespace lmvn_fft {
+
+constexpr int kThreads = 256;
+constexpr int kMaxStages = 16;
+constexpr int kGenericOuts = 4;  // results a thread holds in a generic round
+constexpr int kMaxGenericRadix = kThreads * kGenericOuts;
+constexpr int kBatch = 4;  // global loads a thread issues before it waits
+
+// For e in [0, n) over the block's threads: load(e), kBatch of them at a
+// time, all issued before the first store(e, value), so that each thread
+// keeps kBatch loads from HBM in flight.
+template <class T, class Load, class Store>
+__device__ __forceinline__ void batched(int n, Load load, Store store) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThreads) {
+    T v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (e0 + i * kThreads < n) v[i] = load(e0 + i * kThreads);
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      if (e0 + i * kThreads < n) store(e0 + i * kThreads, v[i]);
+  }
+}
+
+struct Pair4 {
+  float4 re, im;
+};
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, -(a.y * b.y)),
+                     __fmaf_rn(a.x, b.y, a.y * b.x));
+}
+
+// acc + a*b
+__device__ __forceinline__ float2 cmac(float2 acc, float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, __fmaf_rn(-a.y, b.y, acc.x)),
+                     __fmaf_rn(a.x, b.y, __fmaf_rn(a.y, b.x, acc.y)));
+}
+
+// entry i of a twiddle or root table, conjugated for the inverse
+template <bool INV>
+__device__ __forceinline__ float2 table(const float2* t, int i) {
+  float2 w = __ldg(t + i);
+  if (INV) w.y = -w.y;
+  return w;
+}
+
+// v * (-i) forward, v * (+i) inverse: W_4^1
+template <bool INV>
+__device__ __forceinline__ float2 rot4(float2 v) {
+  return INV ? make_float2(-v.y, v.x) : make_float2(v.y, -v.x);
+}
+
+// v * W_8^1: (1 - i)/sqrt(2) forward, (1 + i)/sqrt(2) inverse
+template <bool INV>
+__device__ __forceinline__ float2 rot8(float2 v) {
+  constexpr float h = 0.70710678118654752440f;
+  return INV ? make_float2((v.x - v.y) * h, (v.x + v.y) * h)
+             : make_float2((v.x + v.y) * h, (v.y - v.x) * h);
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft4(float2& a, float2& b, float2& c,
+                                     float2& d) {
+  const float2 s0 = cadd(a, c), d0 = csub(a, c);
+  const float2 s1 = cadd(b, d), d1 = rot4<INV>(csub(b, d));
+  a = cadd(s0, s1);
+  c = csub(s0, s1);
+  b = cadd(d0, d1);
+  d = csub(d0, d1);
+}
+
+// The r-point DFT of v in place; rt holds the roots W_R^s (direct radices).
+template <int R, bool INV>
+__device__ __forceinline__ void dft(float2 (&v)[R], const float2 (&rt)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0];
+    v[0] = cadd(a, v[1]);
+    v[1] = csub(a, v[1]);
+  } else if constexpr (R == 4) {
+    dft4<INV>(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 8) {
+    // two 4-point DFTs of the even and odd values, then one radix-2 layer
+    float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+    dft4<INV>(e0, e1, e2, e3);
+    dft4<INV>(o0, o1, o2, o3);
+    o1 = rot8<INV>(o1);
+    o2 = rot4<INV>(o2);
+    o3 = rot4<INV>(rot8<INV>(o3));
+    v[0] = cadd(e0, o0);
+    v[4] = csub(e0, o0);
+    v[1] = cadd(e1, o1);
+    v[5] = csub(e1, o1);
+    v[2] = cadd(e2, o2);
+    v[6] = csub(e2, o2);
+    v[3] = cadd(e3, o3);
+    v[7] = csub(e3, o3);
+  } else {
+    float2 out[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int t = 1; t < R; ++t) acc = cmac(acc, v[t], rt[(t * k) % R]);
+      out[k] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = out[k];
+  }
+}
+
+// One stage of radix R over P interleaved sequences of length n: each
+// thread takes whole butterflies and writes their results where it read
+// their inputs, so the stage runs in place.
+template <int R, int P, bool INV>
+__device__ __forceinline__ void radix_stage(float2* buf, int n, int m,
+                                            const float2* tw,
+                                            const float2* roots) {
+  float2 rt[R];
+  if constexpr (R != 2 && R != 4 && R != 8) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) rt[s] = table<INV>(roots, s);
+  }
+  const int L = R * m;
+  const int total = P * (n / R);
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int s = e % P, bf = e / P;
+    const int k = bf % m, b = bf / m;
+    float2* at = buf + (b * L + k) * P + s;
+    float2 v[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[t] = at[t * m * P];
+    if (k > 0) {
+#pragma unroll
+      for (int t = 1; t < R; ++t)
+        v[t] = cmul(v[t], table<INV>(tw, m - 1 + (t - 1) * m + k));
+    }
+    dft<R, INV>(v, rt);
+#pragma unroll
+    for (int t = 0; t < R; ++t) at[t * m * P] = v[t];
+  }
+}
+
+// A stage of any radix r <= kMaxGenericRadix: rounds of whole butterflies,
+// each result a direct sum over the butterfly's r twiddled inputs, held in
+// registers until every thread has read, then written over the inputs.
+template <int P, bool INV>
+__device__ void generic_stage(float2* buf, int n, int r, int m,
+                              const float2* tw, const float2* roots) {
+  const int L = r * m;
+  const int butterflies = P * (n / r);
+  const int per_round = kMaxGenericRadix / r;
+  for (int b0 = 0; b0 < butterflies; b0 += per_round) {
+    const int outs = min(per_round, butterflies - b0) * r;
+    float2 res[kGenericOuts];
+#pragma unroll
+    for (int i = 0; i < kGenericOuts; ++i) {
+      const int o = threadIdx.x + i * kThreads;
+      if (o >= outs) continue;
+      const int bf = b0 + o / r, k1 = o % r;
+      const int s = bf % P, j = bf / P;
+      const int k = j % m, b = j / m;
+      const float2* at = buf + (b * L + k) * P + s;
+      float2 acc = at[0];
+      int root = 0;  // t * k1 mod r
+      for (int t = 1; t < r; ++t) {
+        root += k1;
+        if (root >= r) root -= r;
+        float2 v = at[t * m * P];
+        if (k > 0) v = cmul(v, table<INV>(tw, m - 1 + (t - 1) * m + k));
+        acc = cmac(acc, v, table<INV>(roots, root));
+      }
+      res[i] = acc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kGenericOuts; ++i) {
+      const int o = threadIdx.x + i * kThreads;
+      if (o >= outs) continue;
+      const int bf = b0 + o / r, k1 = o % r;
+      const int s = bf % P, j = bf / P;
+      const int k = j % m, b = j / m;
+      buf[(b * L + k1 * m + k) * P + s] = res[i];
+    }
+    __syncthreads();
+  }
+}
+
+// Every stage of f on the block's P sequences, loaded in digit-reversed
+// order; leaves frequency (or, inverse, sample) i at position i.  Ends with
+// a barrier.
+template <int P, bool INV>
+__device__ void run_stages(float2* buf, const LmvnFft& f) {
+  const float2* tw = reinterpret_cast<const float2*>(f.tw);
+  const float2* roots = tw + (f.n - 1);
+  int m = 1;
+  for (int j = 0; j < f.nstages; ++j) {
+    const int r = f.radix[j];
+    switch (r) {
+      case 2:
+        radix_stage<2, P, INV>(buf, f.n, m, tw, roots);
+        break;
+      case 4:
+        radix_stage<4, P, INV>(buf, f.n, m, tw, roots);
+        break;
+      case 8:
+        radix_stage<8, P, INV>(buf, f.n, m, tw, roots);
+        break;
+      case 3:
+        radix_stage<3, P, INV>(buf, f.n, m, tw, roots);
+        roots += r;
+        break;
+      case 5:
+        radix_stage<5, P, INV>(buf, f.n, m, tw, roots);
+        roots += r;
+        break;
+      case 7:
+        radix_stage<7, P, INV>(buf, f.n, m, tw, roots);
+        roots += r;
+        break;
+      default:
+        generic_stage<P, INV>(buf, f.n, r, m, tw, roots);
+        roots += r;
+        break;
+    }
+    __syncthreads();
+    m *= r;
+  }
+}
+
+// ------------------------------------------------------------ x stages
+// A block per (y-column tile of kXCols, plane z): the column pairs (2s,
+// 2s+1) of the tile are the real and imaginary parts of sequence s, so one
+// complex FFT of length X transforms two real columns.
+constexpr int kXCols = 32;
+constexpr int kXSeq = kXCols / 2;
+constexpr int kXQuads = kXCols / 4;  // float4 loads per row of the tile
+
+inline size_t x_smem(int X) { return sizeof(float2) * X * kXSeq; }
+
+// K4 launch 1: t[k, z, cols] = sum_x xt[z, x, cols] W_X^{k x} for k < Kx.
+// The spectra A, B of the two real columns of sequence s come out of its
+// FFT F by the hermitian split A_k = (F_k + conj F_{X-k}) / 2,
+// B_k = (F_k - conj F_{X-k}) / 2i.  Rows k >= Kx of t are not written: the
+// y stage writes the pad rows of its output as zeros without reading them.
+__global__ void __launch_bounds__(kThreads)
+    x_forward_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
+                     const float* __restrict__ xt, const LmvnFft f, int Z,
+                     int Y, int Kx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  const float* plane = xt + static_cast<size_t>(z) * X * Y;
+  batched<float4>(
+      X * kXQuads,
+      [&](int e) {
+        const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+        return c < Y ? __ldg(reinterpret_cast<const float4*>(
+                           plane + static_cast<size_t>(x) * Y + c))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      },
+      [&](int e, float4 v) {
+        const int x = e / kXQuads, q = e % kXQuads;
+        *reinterpret_cast<float4*>(buf + __ldg(f.pos + x) * kXSeq + 2 * q) = v;
+      });
+  __syncthreads();
+  run_stages<kXSeq, false>(buf, f);
+  for (int e = threadIdx.x; e < Kx * kXQuads; e += kThreads) {
+    const int k = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
+    if (c >= Y) continue;
+    const int kn = k == 0 ? 0 : X - k;
+    float re[4], im[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 a = buf[k * kXSeq + 2 * q + h];
+      const float2 b = buf[kn * kXSeq + 2 * q + h];
+      re[2 * h] = (a.x + b.x) * 0.5f;
+      im[2 * h] = (a.y - b.y) * 0.5f;
+      re[2 * h + 1] = (a.y + b.y) * 0.5f;
+      im[2 * h + 1] = (b.x - a.x) * 0.5f;
+    }
+    const size_t o = (static_cast<size_t>(k) * Z + z) * Y + c;
+    *reinterpret_cast<float4*>(t_re + o) = make_float4(re[0], re[1], re[2], re[3]);
+    *reinterpret_cast<float4*>(t_im + o) = make_float4(im[0], im[1], im[2], im[3]);
+  }
+}
+
+// K7 launch 2: out[z, x, cols] = scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x})
+// over k < Kx, w the hermitian doubling weights (1 at k = 0 and X/2, else 2),
+// scale = 1/X.  Two columns' half spectra A, B become one full spectrum
+// Z_k = A_k + i B_k, Z_{X-k} = conj A_k + i conj B_k, whose inverse FFT is
+// A's column plus i B's.  The imaginary parts of A and B at k = 0 and X/2
+// are dropped, as the zero sine columns of the plan's bxp drop them.
+__global__ void __launch_bounds__(kThreads)
+    x_inverse_kernel(float* __restrict__ out, const float* __restrict__ t_re,
+                     const float* __restrict__ t_im, const LmvnFft f, int Z,
+                     int Y, int Kx, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  batched<Pair4>(
+      Kx * kXQuads,
+      [&](int e) {
+        const int k = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+        Pair4 v = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+        if (c < Y) {
+          const size_t i = (static_cast<size_t>(k) * Z + z) * Y + c;
+          v.re = __ldg(reinterpret_cast<const float4*>(t_re + i));
+          v.im = __ldg(reinterpret_cast<const float4*>(t_im + i));
+        }
+        return v;
+      },
+      [&](int e, Pair4 v) {
+        const int k = e / kXQuads, q = e % kXQuads;
+        const float4 re = v.re;
+        const bool edge = k == 0 || 2 * k == X;
+        const float4 im = edge ? make_float4(0.f, 0.f, 0.f, 0.f) : v.im;
+        // sequence 2q: A = (re.x, im.x), B = (re.y, im.y); 2q + 1: (.z), (.w)
+        *reinterpret_cast<float4*>(buf + __ldg(f.pos + k) * kXSeq + 2 * q) =
+            make_float4(re.x - im.y, im.x + re.y, re.z - im.w, im.z + re.w);
+        if (!edge)
+          *reinterpret_cast<float4*>(buf + __ldg(f.pos + X - k) * kXSeq + 2 * q) =
+              make_float4(re.x + im.y, re.y - im.x, re.z + im.w, re.w - im.z);
+      });
+  __syncthreads();
+  run_stages<kXSeq, true>(buf, f);
+  float* plane = out + static_cast<size_t>(z) * X * Y;
+  for (int e = threadIdx.x; e < X * kXQuads; e += kThreads) {
+    const int x = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
+    if (c >= Y) continue;
+    const float4 v = *reinterpret_cast<const float4*>(buf + x * kXSeq + 2 * q);
+    *reinterpret_cast<float4*>(plane + static_cast<size_t>(x) * Y + c) =
+        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+  }
+}
+
+// ------------------------------------------------------------ y stages
+// A block per P rows g = k*Z + z of a (Kxp, Z, Y) pair, each row one
+// length-Y FFT.  Spectra keep y in the interleaved split order of
+// ops/fused_plan.py split_perm: position j = q*M + p holds frequency
+// R*p + q, so the forward stores frequency f at (f mod R)*M + f div R and
+// the inverse reads it from there; the omega combination of the split
+// stages is not needed.  Threads take the row fastest in the loads and
+// stores too: a row is read and written in 32-byte sectors.
+// 16 rows a block up to Y = 512, else 8 (32-byte sectors still); the 8 rows
+// must fit one block's shared memory, so Y <= 3632 (ops/fused.py
+// fused_limit).
+constexpr size_t kYSmemTarget = 64 * 1024;  // per block, for occupancy
+
+inline int y_rows(int Y) {
+  return 16 * sizeof(float2) * Y <= kYSmemTarget ? 16 : 8;
+}
+
+inline size_t y_smem(int Y) { return sizeof(float2) * y_rows(Y) * Y; }
+
+__device__ __forceinline__ int split_freq(int j, int R, int M) {
+  return R * (j % M) + j / M;
+}
+
+// Forward (K4 launch 2): rows g >= valid (the pad x-frequencies) are
+// written as zeros and not read.  Inverse (K7 launch 1): scale = 1/Y; pad
+// rows are neither read nor written (the x stage reads k < Kx only).
+template <int P, bool INV>
+__global__ void __launch_bounds__(kThreads)
+    y_kernel(float* __restrict__ o_re, float* __restrict__ o_im,
+             const float* __restrict__ i_re, const float* __restrict__ i_im,
+             const LmvnFft f, int valid, int R, int M, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int Y = f.n, quads = Y / 4, g0 = blockIdx.x * P;
+  if (g0 >= valid) {
+    if (!INV) {
+      for (int e = threadIdx.x; e < P * quads; e += kThreads) {
+        const size_t o = static_cast<size_t>(g0 + e % P) * Y + 4 * (e / P);
+        *reinterpret_cast<float4*>(o_re + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(o_im + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+  batched<Pair4>(
+      P * quads,
+      [&](int e) {
+        const int g = g0 + e % P;
+        Pair4 v = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+        if (g < valid) {
+          const size_t i = static_cast<size_t>(g) * Y + 4 * (e / P);
+          v.re = __ldg(reinterpret_cast<const float4*>(i_re + i));
+          v.im = __ldg(reinterpret_cast<const float4*>(i_im + i));
+        }
+        return v;
+      },
+      [&](int e, Pair4 v) {
+        const int row = e % P, j = 4 * (e / P);
+        const float vr[4] = {v.re.x, v.re.y, v.re.z, v.re.w};
+        const float vi[4] = {v.im.x, v.im.y, v.im.z, v.im.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int src = INV ? split_freq(j + h, R, M) : j + h;
+          buf[__ldg(f.pos + src) * P + row] = make_float2(vr[h], vi[h]);
+        }
+      });
+  __syncthreads();
+  run_stages<P, INV>(buf, f);
+  for (int e = threadIdx.x; e < P * quads; e += kThreads) {
+    const int row = e % P, j = 4 * (e / P), g = g0 + row;
+    if (INV && g >= valid) continue;
+    float vr[4], vi[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int at = INV ? j + h : split_freq(j + h, R, M);
+      const float2 v = buf[at * P + row];
+      vr[h] = INV ? v.x * scale : v.x;
+      vi[h] = INV ? v.y * scale : v.y;
+    }
+    const size_t o = static_cast<size_t>(g) * Y + j;
+    *reinterpret_cast<float4*>(o_re + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
+    *reinterpret_cast<float4*>(o_im + o) = make_float4(vi[0], vi[1], vi[2], vi[3]);
+  }
+}
+
+// ------------------------------------------------------------ launches
+// Each returns cudaGetLastError() after its launch.
+
+inline unsigned blocks(int a, int b) {
+  return static_cast<unsigned>((a + b - 1) / b);
+}
+
+inline int x_forward(float* t_re, float* t_im, const float* xt,
+                     const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
+  const size_t smem = x_smem(f.n);
+  cudaError_t e = cudaFuncSetAttribute(
+      x_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  x_forward_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
+      t_re, t_im, xt, f, Z, Y, Kx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int x_inverse(float* out, const float* t_re, const float* t_im,
+                     const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
+  const size_t smem = x_smem(f.n);
+  cudaError_t e = cudaFuncSetAttribute(
+      x_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  x_inverse_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
+      out, t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, bool INV>
+inline int y_launch(float* o_re, float* o_im, const float* i_re,
+                    const float* i_im, const LmvnFft& f, int rows, int valid,
+                    int R, int M, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * P * f.n;
+  cudaError_t e = cudaFuncSetAttribute(
+      y_kernel<P, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  y_kernel<P, INV><<<blocks(rows, P), kThreads, smem, s>>>(
+      o_re, o_im, i_re, i_im, f, valid, R, M,
+      INV ? 1.0f / static_cast<float>(f.n) : 1.0f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The y stage over rows = Kxp*Z rows, of which valid = Kx*Z are not pad.
+template <bool INV>
+inline int y_stage(float* o_re, float* o_im, const float* i_re,
+                   const float* i_im, const LmvnFft& f, int rows, int valid,
+                   int R, int M, cudaStream_t s) {
+  return y_rows(f.n) == 16
+             ? y_launch<16, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s)
+             : y_launch<8, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s);
+}
+
+// What the kernels rely on: the tables match the length, every stage radix
+// fits a generic round, and a block's sequences fit shared memory.
+inline bool plan_ok(const LmvnFft& f, int n, size_t smem, size_t smem_max) {
+  if (f.n != n || f.nstages < 0 || f.nstages > kMaxStages) return false;
+  if (!f.tw || !f.pos) return false;
+  long long prod = 1;
+  for (int j = 0; j < f.nstages; ++j) {
+    if (f.radix[j] < 2 || f.radix[j] > kMaxGenericRadix) return false;
+    prod *= f.radix[j];
+  }
+  return prod == n && smem <= smem_max;
+}
+
+}  // namespace lmvn_fft

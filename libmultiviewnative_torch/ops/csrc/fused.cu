@@ -15,47 +15,58 @@
 // (Kxp, Z, Y) float32, z and y in the interleaved split order, pad rows
 // k in [Kx, Kxp) written as zeros.  Plan constants come from ops/fused_plan.py.
 //
-// What bounds them: matrix-product FLOPs.  A view step at 256^3 is about
-// 90 GFLOP against about 1.3 GB of HBM traffic, so every pass is built from
+// Two designs live here.
+//
+// K4 and K7 are shared-memory FFT stages (fft_stage.cuh): an x stage (a block
+// per (plane, 32 y columns), one complex FFT per pair of real columns) and a
+// y stage (a block per few rows, one FFT per row, frequencies stored in the
+// split order).  They are bound by HBM bytes: the volume, the scratch pair
+// written and read once, the output.
+//
+// K5, K6 and K8-K10 compute their DFTs as matrix products, so the FLOPs of
+// those O(N^2) products, not the bytes their functions need, set their time:
 // two register-tiled fp32 GEMM cores on CUDA cores (no tensor cores: the
 // contract is full fp32):
-//   rgemm  real product, for the x stages (packed x-rfft and x-irfft);
+//   rgemm  real product, for the x stages (packed x-irfft, x-rfft);
 //   cgemm  complex product in the 3-multiplication Karatsuba form
 //          (re = m1 - m2, im = m3 - m1 - m2), for the split y and z stages.
 // Each block of 256 threads owns a BM x BN output tile; each thread a TM x TN
 // register tile; BK = 16 deep slices of both operands are staged in shared
 // memory by loader functors (double-buffered: the next slice is fetched into
 // registers while the current one is multiplied).  Dot products use
-// __fmaf_rn explicitly: the library is built with -fmad=false.
+// __fmaf_rn explicitly: the library is built with -fmad=false.  The FFT
+// stages are the base for their later redesign.
 //
 // How a Pallas pass maps onto blocks.  A TPU pass holds an 8-plane slab in
 // VMEM; a Hopper block has at most 227 KB of shared memory, so passes are
 // cut along what each stage needs:
 //   y stages are row-local (a row = the Y values of one (k, z)): one launch
-//     over all Kxp*Z rows (ystage_kernel);
+//     over all Kxp*Z rows (ystage_kernel, fft_stage.cuh y_kernel);
 //   x stages are column-local within a plane: a block per (plane, y-column
-//     tile) (xfwd_kernel, xcqa_kernel, xcu_kernel);
+//     tile) (xcqa_kernel, xcu_kernel, fft_stage.cuh x_*_kernel);
 //   the z stage of pass B is column-local within an x-frequency slice: a
 //     block per (k, y-column tile) keeps the whole (Z, 32) product of the
 //     forward DFT and the kernel spectrum in shared memory for the inverse;
 //     pass BF is its forward half alone, written straight to the output.
-// The omega_R halves of the split y stages run as an in-place R-point DFT
-// across column blocks (combine_kernel), skipped when R == 1.
-// Launches per pass call (R > 1 / R == 1): A 3/2 (x-forward into a scratch
-// spectrum, combine, y products), BF 1, B 1, C 3/2 (y products into the
-// scratch, combine, x-inverse), CQA 5/3 (y products into the scratch,
-// combine, x-inverse + quotient + x-forward in one block with the quotient in
-// shared memory, combine, y products), CU 3/2 (y products, combine,
-// x-inverse + RL update), CUA 5/3 (CQA's sequence with the RL update in
-// place of the quotient: psi' is stored and also kept in shared memory for
-// the x-forward).  The scratch spectrum goes through HBM (a (Kxp, Z, Y)
-// pair, 71 MB at 256^3); the quotient and the integral volumes never do.
+// The omega_R halves of the GEMM passes' split y stages run as an in-place
+// R-point DFT across column blocks (combine_kernel), skipped when R == 1;
+// the FFT y stage needs none.
+// Launches per pass call (R > 1 / R == 1): A 2 (x stage into a scratch
+// spectrum, y stage), BF 1, B 1, C 2 (y stage into the scratch, x stage),
+// CQA 5/3 (y products into the scratch, combine, x-inverse + quotient +
+// x-forward in one block with the quotient in shared memory, combine, y
+// products), CU 3/2 (y products, combine, x-inverse + RL update), CUA 5/3
+// (CQA's sequence with the RL update in place of the quotient: psi' is
+// stored and also kept in shared memory for the x-forward).  The scratch
+// spectrum goes through HBM (a (Kxp, Z, Y) pair, 71 MB at 256^3); the
+// quotient and the integral volumes never do.
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "fft_stage.cuh"
 #include "rl_update.cuh"
 
 extern "C" {
@@ -76,6 +87,8 @@ struct LmvnFusedPlan {
   // the (q, r) complex omega tables, row stride R, re/im pairs, 128 floats
   // each: omf y, omi y, omf z, omi z
   const float* om;
+  LmvnFft fx;  // the FFT stages of passes A and C: length X
+  LmvnFft fy;  // length Y
 };
 
 }  // extern "C"
@@ -450,32 +463,6 @@ __device__ __forceinline__ void store_t(float* t_re, float* t_im, int row,
 
 constexpr int XBM = 64, XBN = 64, XTM = 4, XTN = 4;
 
-// K4 launch 1: T[:, z, cols] = fxp (2Kxp, X) @ xt[z] (X, cols)
-__global__ void __launch_bounds__(kThreads)
-    xfwd_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
-                const float* __restrict__ xt, const LmvnFusedPlan p) {
-  __shared__ __align__(16) RTile<XBM, XBN> s[2];
-  const int m0 = blockIdx.x * XBM, n0 = blockIdx.y * XBN, z = blockIdx.z;
-  const int X = p.X, Y = p.Y, rows = 2 * p.Kxp;
-  const float* fxp = p.fxp;
-  const float* plane = xt + static_cast<size_t>(z) * X * Y;
-  float acc[XTM][XTN];
-  rgemm<XBM, XBN, XTM, XTN, true, false>(
-      acc, s, X,
-      [&](int m, int k) {
-        const int r = m0 + m;
-        return r < rows ? fxp[static_cast<size_t>(r) * X + k] : 0.f;
-      },
-      [&](int k, int n) {
-        const int c = n0 + n;
-        return c < Y ? plane[static_cast<size_t>(k) * Y + c] : 0.f;
-      });
-  epilogue<XBN, XTM, XTN>(acc, [&](int m, int n, float v) {
-    const int r = m0 + m, c = n0 + n;
-    if (r < rows && c < Y) store_t(t_re, t_im, r, z, c, v, p.Z, Y, p.Kx, p.Kxp);
-  });
-}
-
 // The packed x-irfft operand: rows kk < Kxp of t_re, then Kxp rows of t_im.
 __device__ __forceinline__ float load_s(const float* t_re, const float* t_im,
                                         int kk, int z, int col, int Z, int Y,
@@ -557,10 +544,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K9 launch 2 (UPDATE true): integral (X, cols) = bxp @ [t_re; t_im][:, z,
-// cols], then the RL update of K1 (lmvn::rl_one); out may alias psi.
-// K7 launch 2 (UPDATE false): the x-irfft alone, out = the integral.
-template <bool UPDATE>
+// K9 launch 2: integral (X, cols) = bxp @ [t_re; t_im][:, z, cols], then the
+// RL update of K1 (lmvn::rl_one); out may alias psi.
 __global__ void __launch_bounds__(kThreads)
     xcu_kernel(float* out, const float* __restrict__ t_re,
                const float* __restrict__ t_im, const float* psi,
@@ -582,10 +567,7 @@ __global__ void __launch_bounds__(kThreads)
     const int x = m0 + m, c = n0 + n;
     if (x >= X || c >= Y) return;
     const size_t i = (static_cast<size_t>(z) * X + x) * Y + c;
-    if constexpr (UPDATE)
-      out[i] = lmvn::rl_one(psi[i], integral, w ? w[i] : rp.w_scalar, rp);
-    else
-      out[i] = integral;
+    out[i] = lmvn::rl_one(psi[i], integral, w ? w[i] : rp.w_scalar, rp);
   });
 }
 
@@ -813,7 +795,9 @@ bool plan_ok(const LmvnFusedPlan* p) {
   // dynamic shared memory, with room for the static omega tables
   constexpr size_t kMaxDynamic = 232448 - 2 * sizeof(float) * kOmega;
   return zstage_smem(p->Z) <= kMaxDynamic &&
-         xcqa_smem(p->X) <= kMaxDynamic;
+         xcqa_smem(p->X) <= kMaxDynamic &&
+         lmvn_fft::plan_ok(p->fx, p->X, lmvn_fft::x_smem(p->X), 232448) &&
+         lmvn_fft::plan_ok(p->fy, p->Y, lmvn_fft::y_smem(p->Y), 232448);
 }
 
 int start_call(int device, const LmvnFusedPlan* p) {
@@ -826,7 +810,7 @@ int start_call(int device, const LmvnFusedPlan* p) {
 
 extern "C" {
 
-// K4: u = pass A(xt).  t is a (Kxp, Z, Y) scratch pair.
+// K4: u = pass A(xt), two FFT stages.  t is a (Kxp, Z, Y) scratch pair.
 int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
                       void* u_im, void* t_re, void* t_im, const void* xt,
                       void* stream) {
@@ -835,12 +819,12 @@ int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  xfwd_kernel<<<dim3(cdiv(2 * p->Kxp, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0,
-                s>>>(tr, ti, static_cast<const float*>(xt), *p);
-  err = static_cast<int>(cudaGetLastError());
-  if (!err) err = combine(false, tr, ti, *p, s);
-  if (!err) err = ystage(false, static_cast<float*>(u_re),
-                         static_cast<float*>(u_im), tr, ti, *p, s);
+  err = lmvn_fft::x_forward(tr, ti, static_cast<const float*>(xt), p->fx, p->Z,
+                            p->Y, p->Kx, s);
+  if (!err)
+    err = lmvn_fft::y_stage<false>(static_cast<float*>(u_re),
+                                   static_cast<float*>(u_im), tr, ti, p->fy,
+                                   p->Kxp * p->Z, p->Kx * p->Z, p->Ry, p->My, s);
   return err;
 }
 
@@ -907,8 +891,7 @@ int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
                static_cast<const float*>(v_im), *p, s);
   if (!err) err = combine(true, tr, ti, *p, s);
   if (err) return err;
-  xcu_kernel<true><<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0,
-                     s>>>(
+  xcu_kernel<<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads, 0, s>>>(
       static_cast<float*>(out), tr, ti, static_cast<const float*>(psi),
       static_cast<const float*>(w), lmvn::rl_params(w_scalar, lam, min_value),
       *p);
@@ -933,7 +916,8 @@ int lmvn_fused_pass_bf(int device, const LmvnFusedPlan* p, void* o_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: out = pass C(v), the real (Z, X, Y) volume.  t is a scratch pair.
+// K7: out = pass C(v), the real (Z, X, Y) volume, two FFT stages.  t is a
+// scratch pair.
 int lmvn_fused_pass_c(int device, const LmvnFusedPlan* p, void* out,
                       void* t_re, void* t_im, const void* v_re,
                       const void* v_im, void* stream) {
@@ -942,14 +926,13 @@ int lmvn_fused_pass_c(int device, const LmvnFusedPlan* p, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
-               static_cast<const float*>(v_im), *p, s);
-  if (!err) err = combine(true, tr, ti, *p, s);
-  if (err) return err;
-  xcu_kernel<false><<<dim3(cdiv(p->X, XBM), cdiv(p->Y, XBN), p->Z), kThreads,
-                      0, s>>>(static_cast<float*>(out), tr, ti, nullptr,
-                              nullptr, lmvn::RlParams{}, *p);
-  return static_cast<int>(cudaGetLastError());
+  err = lmvn_fft::y_stage<true>(tr, ti, static_cast<const float*>(v_re),
+                                static_cast<const float*>(v_im), p->fy,
+                                p->Kxp * p->Z, p->Kx * p->Z, p->Ry, p->My, s);
+  if (!err)
+    err = lmvn_fft::x_inverse(static_cast<float*>(out), tr, ti, p->fx, p->Z,
+                              p->Y, p->Kx, s);
+  return err;
 }
 
 // K10: out = RL update of psi with integral pass C(v), and u = pass A(out).

@@ -13,15 +13,16 @@ the next (:func:`fused_rl_step_carried`):
 
     B(x K1) -> CQA -> B(x K2) -> CUA (CU, then A of psi')
 
-* K4 :func:`pass_a` replaces ``_run_pass_a`` (``fused_dft2.py:1703``): packed
-  x-rfft then split y-DFT, (Z, X, Y) -> u (Kxp, Z, Y) re/im.
+* K4 :func:`pass_a` replaces ``_run_pass_a`` (``fused_dft2.py:1703``): x-rfft
+  then y-DFT, (Z, X, Y) -> u (Kxp, Z, Y) re/im.  On the card, two
+  shared-memory FFT stages (``ops/csrc/fft_stage.cuh``).
 * K5 :func:`pass_bf` replaces ``_run_pass_bf`` (:1764): the split z-DFT
   alone, which forwards a kernel spectrum (:func:`kernel_spectrum_fused`).
 * K6 :func:`pass_b` replaces ``_run_pass_b`` (:1735): split z-DFT, times the
   kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.
-* K7 :func:`pass_c` replaces ``_run_pass_c`` (:1825): split y-inverse and
-  packed x-irfft, u -> the real (Z, X, Y) volume
-  (:func:`fused_convolve_transposed` is A, B, C).
+* K7 :func:`pass_c` replaces ``_run_pass_c`` (:1825): y-inverse and x-irfft,
+  u -> the real (Z, X, Y) volume (:func:`fused_convolve_transposed` is A, B,
+  C).  On the card, the two FFT stages of K4 run backwards.
 * K8 :func:`pass_cqa` replaces ``_run_pass_cqa`` (:1854): y-inverse, x-irfft,
   view · (1/blurred), x-rfft, y-DFT; the quotient volume is never stored.
 * K9 :func:`pass_cu` replaces ``_run_pass_cu`` (:1909): y-inverse, x-irfft
@@ -31,15 +32,17 @@ the next (:func:`fused_rl_step_carried`):
 
 Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
 the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
-k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu``.
+k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu`` and, for K4 and
+K7, ``ops/csrc/fft_stage.cuh``.
 
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
 tensor launches the kernel or raises.  Each pass call on the card adds one to
-:data:`launches`; a pass call is 3 (A), 1 (BF, B), 3 (C and CU) or 5 (CQA
+:data:`launches`; a pass call is 2 (A and C), 1 (BF, B), 3 (CU) or 5 (CQA
 and CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 2 and 3
 when it is not.  All but BF and B write one scratch spectrum pair from
-``torch.empty``.
+``torch.empty``.  The plain versions are the JAX package's matrix-product
+stages; the FFT stages of K4 and K7 compute the same transforms.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ from ..core.kernels import compute_quotient, rl_update as rl_update_plain
 from ..core.wrap import wrap_kernel
 from . import _build
 from .elementwise import _check, _device, _stream
-from .fused_plan import FusedPlan, make_fused_plan, pick_split, split_perm
+from .fused_plan import (
+    FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, pick_split, split_perm,
+)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -74,6 +79,7 @@ def reset_launches() -> None:
 # xcqa_smem, zstage_smem and plan_ok): the opt-in maximum per block less the
 # z stage's static omega tables (2 x 128 floats).
 _SMEM_MAX = 232448 - 2 * 4 * 128
+_FFT_SMEM_MAX = 232448  # the FFT stages hold no static tables
 _CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
 
 
@@ -89,6 +95,13 @@ def _zstage_smem(Z: int) -> int:
     return 2 * 2 * 4 * 16 * (132 + 36) + 2 * 4 * Z * 32
 
 
+def _fft_y_smem(Y: int) -> int:
+    """The y stage of passes A and C (``y_smem`` in ``ops/csrc/
+    fft_stage.cuh``): 16 rows of Y complex values up to 64 KB, else 8."""
+    rows = 16 if 16 * 8 * Y <= 64 * 1024 else 8
+    return rows * 8 * Y
+
+
 def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     """Why the fused engine cannot serve a (Z, X, Y) transposed volume on
     ``device``, or None when it can.
@@ -99,14 +112,19 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     pass, since one plan serves them all:
 
     * a split y stage of R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are
-      not): the y stages of passes A, C, CQA, CU and CUA;
+      not): the y stages of passes CQA, CU and CUA;
+    * Y <= 3632: 8 rows of Y complex values in one block's shared memory,
+      the FFT y stage of passes A and C.  Only an unsplit Y (R = 1, not a
+      multiple of 128) comes near it;
     * X <= 832: the (X, 64) column in shared memory of passes CQA and CUA;
     * Z <= 736: the (Z, 32) complex product in shared memory of pass B.
       Pass BF holds no column (43 KB), but shares pass B's z stage, whose
       R <= 8 this bound keeps.
 
     :func:`.fused_plan.pick_split`'s M = 128 meets the kernels' other
-    conditions on M."""
+    conditions on M.  The FFT stages' own conditions follow from these: the
+    x stage's 16 columns of X fit (X <= 1816), and every prime factor of X
+    and Y, a generic stage's radix, is at most 454, under its 1024."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
@@ -115,6 +133,11 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     ry = pick_split(Y)[0]
     if ry not in (1, 2, 4, 8):
         return f"Y={Y} splits into R={ry} blocks of 128; the y stage takes R in 1, 2, 4, 8"
+    if _fft_y_smem(Y) > _FFT_SMEM_MAX:
+        return (
+            f"Y={Y}: the FFT y stage of passes A and C needs {_fft_y_smem(Y)} B of shared "
+            f"memory, over {_FFT_SMEM_MAX}"
+        )
     if _xcqa_smem(X) > _SMEM_MAX:
         return (
             f"X={X}: passes CQA and CUA need {_xcqa_smem(X)} B of shared memory, "
@@ -145,6 +168,16 @@ def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int,
 # ---------------------------------------------------------------- constants
 
 
+class _FftArgs(ctypes.Structure):
+    """``LmvnFft`` of ``ops/csrc/fft_stage.cuh``: one length's FFT stages
+    (:func:`.fused_plan.make_fft_stages`)."""
+
+    _fields_ = [
+        ("n", ctypes.c_int), ("nstages", ctypes.c_int), ("radix", ctypes.c_int * FFT_MAX_STAGES),
+        ("tw", ctypes.c_void_p), ("pos", ctypes.c_void_p),
+    ]
+
+
 class _PlanArgs(ctypes.Structure):
     """``LmvnFusedPlan`` of ``ops/csrc/fused.cu``, field by field."""
 
@@ -156,7 +189,7 @@ class _PlanArgs(ctypes.Structure):
             "fxp", "bxp", "wfy_re", "wfy_im", "wiy_re", "wiy_im",
             "wfz_re", "wfz_im", "wiz_re", "wiz_im", "om",
         )
-    ]
+    ] + [("fx", _FftArgs), ("fy", _FftArgs)]
 
 
 _OMEGA_FLOATS = 128  # per table: 2·R·R floats for R <= 8
@@ -188,12 +221,21 @@ class PlanTensors:
             tables.append(np.pad(flat, (0, _OMEGA_FLOATS - flat.size)))
         self.om = t(np.concatenate(tables))
         ptr = lambda x: x.data_ptr()
+        self.fft = []  # (tw, pos) tensors of the x and y FFT stages, kept alive
+        ffts = []
+        for n in (X, Y):
+            st = make_fft_stages(n)
+            tw = t(np.stack([st.tw.real, st.tw.imag], axis=-1))
+            pos = torch.as_tensor(st.pos, device=device)
+            self.fft.append((tw, pos))
+            radix = (ctypes.c_int * FFT_MAX_STAGES)(*st.radices)
+            ffts.append(_FftArgs(n, len(st.radices), radix, ptr(tw), ptr(pos)))
         self.args = _PlanArgs(
             Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, 0,
             ptr(self.fxp), ptr(self.bxp),
             ptr(self.wfy[0]), ptr(self.wfy[1]), ptr(self.wiy[0]), ptr(self.wiy[1]),
             ptr(self.wfz[0]), ptr(self.wfz[1]), ptr(self.wiz[0]), ptr(self.wiz[1]),
-            ptr(self.om),
+            ptr(self.om), *ffts,
         )
 
 
@@ -397,6 +439,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_aligned(**tensors):
+    """The FFT stages of K4 and K7 move 16-byte vectors: every tensor they
+    read or write starts on a 16-byte boundary (a fresh allocation does)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the CUDA pass")
+
+
 def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pair] = None) -> Pair:
     """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum."""
     plan = _plan_for(xt.shape, plan)
@@ -409,6 +459,7 @@ def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pai
         return _finish(out, pass_a_plain(xt, c))
     lib = _build.library()
     u_re, u_im = _outputs(out, plan, xt)
+    _check_aligned(xt=xt, out_re=u_re, out_im=u_im)
     t_re, t_im = torch.empty_like(u_re), torch.empty_like(u_im)
     err = lib.lmvn_fused_pass_a(
         dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),
@@ -472,6 +523,7 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     if dev.type == "cpu":
         return pass_c_plain(v_re, v_im, c)
     lib = _build.library()
+    _check_aligned(v_re=v_re, v_im=v_im)
     out = torch.empty((Z, X, Y), device=dev)
     t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
     err = lib.lmvn_fused_pass_c(

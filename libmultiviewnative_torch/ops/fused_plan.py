@@ -182,3 +182,100 @@ def split_perm(n: int, split: Tuple[int, int]) -> np.ndarray:
     for q in range(R):
         idx[q * M : (q + 1) * M] = np.arange(M) * R + q
     return idx
+
+
+# ---------------------------------------------------------------- FFT stages
+# The port's own tables for the shared-memory FFT stages of passes A and C
+# (ops/csrc/fft_stage.cuh); the JAX package has no counterpart.
+
+FFT_MAX_STAGES = 16  # kMaxStages in fft_stage.cuh
+
+
+class FftStages(NamedTuple):
+    """An in-place mixed-radix decimation-in-time FFT of length n.
+
+    ``radices`` in the order the stages run.  Stage j combines sub-DFTs of
+    length m_j = radices[0] · ... · radices[j-1] into DFTs of length
+    L_j = radices[j] · m_j: for each block b and k' < m_j, the values at
+    b·L_j + t·m_j + k' (t < r) are multiplied by W_{L_j}^{t·k'} and replaced
+    by their r-point DFT, output k1 at b·L_j + k1·m_j + k'.  W_L = exp(-2πi/L)
+    forward; the inverse conjugates every table entry.
+
+    ``pos[i]`` is where input i is stored before the first stage (the
+    mixed-radix digit reversal), so the last stage leaves frequency f at
+    position f.  ``tw`` (complex64) holds the twiddles W_{L_j}^{t·k'} of stage
+    j at m_j - 1 + (t - 1)·m_j + k' (n - 1 values in all), then for each stage
+    whose radix is not 2, 4 or 8, in stage order, its r roots W_r^s."""
+
+    n: int
+    radices: Tuple[int, ...]
+    tw: np.ndarray
+    pos: np.ndarray
+
+
+def fft_radices(n: int) -> Tuple[int, ...]:
+    """The stage radices of a length-n transform, in the order they run:
+    the factors other than 2, 3, 5 and 7 (one generic stage each) first,
+    then 7s, 5s, 3s, then the power of two as 8s with one 4, two 4s or one 2
+    for the remainder."""
+    if n < 1:
+        raise ValueError(f"FFT length must be positive, got {n}")
+    rest, twos = n, 0
+    while rest % 2 == 0:
+        rest //= 2
+        twos += 1
+    small = []
+    for p in (3, 5, 7):
+        while rest % p == 0:
+            rest //= p
+            small.append(p)
+    generic, p = [], 11
+    while rest > 1:
+        while rest % p == 0:
+            rest //= p
+            generic.append(p)
+        p += 2
+    eights, left = divmod(twos, 3)
+    pow2 = [8] * eights
+    if left == 1 and eights:
+        pow2[-1:] = [4, 4]
+    elif left == 1:
+        pow2.append(2)
+    elif left == 2:
+        pow2.append(4)
+    return tuple(generic[::-1] + small[::-1] + pow2)
+
+
+@functools.lru_cache(maxsize=64)
+def make_fft_stages(n: int) -> FftStages:
+    """The stage plan and tables of a length-n FFT (float64, stored float32)."""
+    radices = fft_radices(n)
+    if len(radices) > FFT_MAX_STAGES:
+        raise ValueError(f"length {n} needs {len(radices)} FFT stages, over {FFT_MAX_STAGES}")
+    tw = [np.zeros(0)]
+    m = 1
+    for r in radices:
+        L = r * m
+        t, k = np.meshgrid(np.arange(1, r), np.arange(m), indexing="ij")
+        tw.append(np.exp(-2j * np.pi * (t * k) / L).ravel())
+        m = L
+    for r in radices:
+        if r not in (2, 4, 8):
+            tw.append(np.exp(-2j * np.pi * np.arange(r) / r))
+    # position p = sum_j d_j m_j (d_j < r_j) holds input sum_j d_j prod_{i>j} r_i
+    pos = np.zeros(n, np.int64)
+    p = np.arange(n)
+    src = np.zeros(n, np.int64)
+    rem = p.copy()
+    above = int(np.prod(radices)) if radices else 1
+    for r in radices:
+        above //= r
+        src += (rem % r) * above
+        rem //= r
+    pos[src] = p
+    return FftStages(
+        n=n,
+        radices=radices,
+        tw=np.concatenate(tw).astype(np.complex64),
+        pos=pos.astype(np.int32),
+    )

@@ -1,0 +1,171 @@
+"""The function the FFT stages of K4 (pass A) and K7 (pass C) compute, and
+the tables they read.
+
+On the card, passes A and C run as shared-memory mixed-radix FFT stages
+(ops/csrc/fft_stage.cuh), which cannot run here.  So these tests hold what
+the kernels must agree with, and the plan they follow:
+
+* the plain passes (the JAX package's matrix-product stages, which
+  chip_smoke.py holds the kernels against on the card) equal numpy's 2D real
+  FFTs in the fused layout: (Kxp, Z, Y) re/im pairs, y in the split order of
+  ``split_perm``, pad rows zero; tolerance 1e-5 of max|·| over the pair;
+* a numpy emulation of the kernels' in-place decimation-in-time stages,
+  reading the tables of ``fused_plan.make_fft_stages`` as the kernels do,
+  reproduces ``np.fft.fft`` (and its unscaled inverse) to 1e-6 of max|·| at
+  every X the fused engine serves (8 to 832) and at Y of 200, 1016 and the
+  split lengths;
+* every length ``fused_limit`` admits on the card has a stage plan and a
+  shared-memory size the kernels accept;
+* the ctypes mirror of the kernels' plan struct keeps the C layout.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from libmultiviewnative_torch.ops import fused as fu
+from libmultiviewnative_torch.ops import fused_plan as fp
+
+torch.set_num_threads(1)
+
+PAIR_RTOL = 1e-5
+FFT_RTOL = 1e-6
+# (Z, Y, X): R = 1 with a lane-misaligned X, R = 2, R = 4, odd prime
+# factors in both lengths (200 = 8·25, 264 = 8·3·11)
+SHAPES = [(8, 24, 40), (8, 256, 16), (8, 512, 24), (8, 200, 264)]
+X_LENGTHS = [8 * i for i in range(1, 105)]
+Y_LENGTHS = [200, 256, 512, 968, 1016, 1024]
+
+
+def _pair_rel(got, want):
+    got = np.concatenate([np.asarray(g).ravel() for g in got])
+    want = np.concatenate([np.asarray(w).ravel() for w in want])
+    assert got.shape == want.shape and np.isfinite(got).all()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _plain(shape):
+    plan = fp.make_fused_plan(shape)
+    return plan, fu.plan_tensors(plan, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_pass_a_plain_is_the_real_2d_fft(shape):
+    Z, Y, X = shape
+    plan, c = _plain(shape)
+    xt = np.random.default_rng(0).uniform(-1.0, 2.0, (Z, X, Y)).astype(np.float32)
+    u = fu.pass_a_plain(torch.from_numpy(xt), c)
+    spec = np.fft.rfft2(xt.astype(np.float64), axes=(2, 1))  # (Z, Kx, Y), x halved
+    spec = spec.transpose(1, 0, 2)[:, :, fp.split_perm(Y, (plan.sy.R, plan.sy.M))]
+    want = np.zeros((2, plan.kxp, Z, Y))
+    want[0, : plan.kxh], want[1, : plan.kxh] = spec.real, spec.imag
+    assert _pair_rel(u, want) <= PAIR_RTOL
+    assert all(not t[plan.kxh :].any() for t in u)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_pass_c_plain_is_the_real_2d_inverse(shape):
+    """The imaginary parts at the DC and Nyquist x-bins are ignored, as
+    numpy's irfft ignores them; the pad rows of the input are never read."""
+    Z, Y, X = shape
+    plan, c = _plain(shape)
+    rng = np.random.default_rng(1)
+    v = rng.standard_normal((2, plan.kxp, Z, Y)).astype(np.float32)
+    v[:, plan.kxh :] = 0.0
+    got = fu.pass_c_plain(torch.from_numpy(v[0]), torch.from_numpy(v[1]), c).numpy()
+    natural = np.empty((plan.kxh, Z, Y), np.complex128)
+    natural[..., fp.split_perm(Y, (plan.sy.R, plan.sy.M))] = (v[0] + 1j * v[1])[: plan.kxh]
+    want = np.fft.irfft2(natural.transpose(1, 0, 2), s=(Y, X), axes=(2, 1))
+    assert got.shape == (Z, X, Y)
+    assert float(np.abs(got - want).max() / np.abs(want).max()) <= PAIR_RTOL
+
+
+def _emulate(stages: fp.FftStages, x: np.ndarray, inverse: bool) -> np.ndarray:
+    """The kernels' transform in complex64: the digit-reversed load, then
+    each stage's twiddles and r-point DFTs in place, with the roots of radix
+    2, 4 and 8 built in and the others read after the twiddles."""
+    n = stages.n
+    table = np.conj(stages.tw) if inverse else stages.tw
+    buf = np.empty(n, np.complex64)
+    buf[stages.pos] = x.astype(np.complex64)
+    roots_at, m = n - 1, 1
+    for r in stages.radices:
+        L = r * m
+        tw = np.ones((r, m), np.complex64)
+        tw[1:] = table[m - 1 : m - 1 + (r - 1) * m].reshape(r - 1, m)
+        if r in (2, 4, 8):
+            roots = np.exp((1j if inverse else -1j) * 2 * np.pi * np.arange(r) / r)
+        else:
+            roots, roots_at = table[roots_at : roots_at + r], roots_at + r
+        dft = roots.astype(np.complex64)[np.outer(np.arange(r), np.arange(r)) % r]
+        y = buf.reshape(n // L, r, m) * tw  # value t*m + k' of block b
+        buf = np.einsum("kt,btm->bkm", dft, y).astype(np.complex64).reshape(n)
+        m = L
+    assert roots_at == stages.tw.size
+    return buf
+
+
+@pytest.mark.parametrize("n", X_LENGTHS + Y_LENGTHS)
+def test_stage_emulation_reproduces_numpy_fft(n):
+    stages = fp.make_fft_stages(n)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    for inverse, want in ((False, np.fft.fft(x)), (True, np.fft.ifft(x) * n)):
+        got = _emulate(stages, x, inverse)
+        assert float(np.abs(got - want).max() / np.abs(want).max()) <= FFT_RTOL, inverse
+
+
+@pytest.mark.parametrize("n", [8, 200, 256, 264, 808, 832, 1016, 1024])
+def test_stage_tables(n):
+    """Radices in the kernels' range, in the order the stages run (generic
+    primes first, the power of two last); pos a permutation; the twiddle
+    table n - 1 values, then r roots per radix other than 2, 4, 8."""
+    st = fp.make_fft_stages(n)
+    assert int(np.prod(st.radices)) == n and len(st.radices) <= fp.FFT_MAX_STAGES
+    assert all(2 <= r <= 1024 for r in st.radices)
+    small = [r for r in st.radices if r in (2, 3, 4, 5, 7, 8)]
+    assert list(st.radices[-len(small):]) == small
+    assert sorted(st.pos.tolist()) == list(range(n)) and st.pos.dtype == np.int32
+    odd = sum(r for r in st.radices if r not in (2, 4, 8))
+    assert st.tw.dtype == np.complex64 and st.tw.size == n - 1 + odd
+    # stage j's twiddles W_{L_j}^{t k'} at m_j - 1 + (t - 1) m_j + k'
+    m = 1
+    for r in st.radices:
+        t, k = np.meshgrid(np.arange(1, r), np.arange(m), indexing="ij")
+        want = np.exp(-2j * np.pi * t * k / (r * m)).ravel()
+        np.testing.assert_allclose(st.tw[m - 1 : m - 1 + (r - 1) * m], want, rtol=0, atol=1e-7)
+        m *= r
+
+
+@pytest.mark.parametrize("axis", ["X", "Y"])
+def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
+    """``lmvn_fft::plan_ok`` in Python: every length that ``fused_limit``
+    admits on the card has at most 16 stages of radix 2 to 1024, and its x
+    stage (16 columns) and y stage (16 rows up to Y = 512, else 8) fit one
+    block's shared memory.  Past Y = 3632 an unsplit row is refused, among
+    them Y = 8248 = 8·1031, whose prime factor no generic stage takes."""
+    smem_max, admitted = 232448, []
+    for n in range(8, 8 * 1100 + 1, 8):
+        zxy = (8, n, 8) if axis == "X" else (8, 8, n)
+        if fu.fused_limit(zxy, "cuda") is not None:
+            continue
+        admitted.append(n)
+        st = fp.make_fft_stages(n)
+        assert len(st.radices) <= fp.FFT_MAX_STAGES and all(2 <= r <= 1024 for r in st.radices)
+        rows = 16 if axis == "X" or 16 * 8 * n <= 64 * 1024 else 8
+        assert rows * 8 * n <= smem_max, n
+    if axis == "X":
+        assert admitted[-1] == 832
+    else:
+        assert 1024 in admitted and admitted[-1] == 3632 and 8248 not in admitted
+
+
+def test_plan_struct_mirrors_the_c_layout():
+    """``LmvnFft`` (fft_stage.cuh): two ints, int radix[16], two pointers;
+    ``LmvnFusedPlan`` (fused.cu) appends fx and fy after its pointers."""
+    assert ctypes.sizeof(fu._FftArgs) == 88
+    assert (fu._FftArgs.radix.offset, fu._FftArgs.tw.offset, fu._FftArgs.pos.offset) == (8, 72, 80)
+    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset) == (128, 216)
+    assert ctypes.sizeof(fu._PlanArgs) == 304

@@ -192,7 +192,7 @@ def _inputs(scalar_weights, seed=0):
 
 
 def _port(psi0, views, k1, k2, w, **kw):
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     return rl.deconvolve(torch.from_numpy(psi0), data, **kw)
 
 
@@ -224,7 +224,7 @@ def test_fused_prepared_simultaneous_and_history(view_order):
     """The prepared, simultaneous and history paths of the fused driver
     against the port's own sequential fused and fft engines."""
     args = _inputs(scalar_weights=False)
-    data = multiview_data_from_numpy(*args[1:])
+    data = multiview_data_from_numpy(*args[1:], device="cpu")
     psi0 = torch.from_numpy(args[0])
     kw = dict(KW, view_order=view_order)
     fused = rl.deconvolve(psi0, data, algorithm="fused", **kw)
@@ -250,8 +250,9 @@ def test_prepared_from_jax_fused(adjoint):
     carried = prepared_from_jax(
         "fused", SHAPE, tuple(map(np.asarray, jprep.k1)), tuple(map(np.asarray, jprep.k2)),
         xmode=jprep.xmode,
+        device="cpu",
     )
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     own = rl.prepare_workspace(data, SHAPE, algorithm="fused", adjoint_kernel2=adjoint)
     assert own.conj_k2 == adjoint and not carried.conj_k2
     got = rl.deconvolve_prepared(torch.from_numpy(psi0), data, carried, **KW).numpy()
@@ -266,17 +267,17 @@ def test_auto_still_means_fft_and_fused_guards():
     rng = np.random.default_rng(3)
     views = rng.gamma(2.0, 20.0, (V, 12, 10, 9)).astype(np.float32)
     k = np.stack([gaussian_kernel((3, 3, 3), 1.0)] * V)
-    data = multiview_data_from_numpy(views, k, k, np.full((V,), 0.5, np.float32))
+    data = multiview_data_from_numpy(views, k, k, np.full((V,), 0.5, np.float32), device="cpu")
     with pytest.raises(ValueError, match="multiples of 8"):
         rl.deconvolve(torch.from_numpy(views[0]), data, 1, algorithm="fused")
     args = _inputs(scalar_weights=True)
-    data = multiview_data_from_numpy(*args[1:])
+    data = multiview_data_from_numpy(*args[1:], device="cpu")
     prepared = rl.prepare_workspace(data, SHAPE, algorithm="fused")
     prepared.xmode = "splitx"
     with pytest.raises(ValueError, match="x-row layout"):
         rl.deconvolve_prepared(torch.from_numpy(args[0]), data, prepared, 1)
     with pytest.raises(NotImplementedError, match="splitx"):
-        prepared_from_jax("fused", SHAPE, prepared.k1, prepared.k2, xmode="splitx")
+        prepared_from_jax("fused", SHAPE, prepared.k1, prepared.k2, xmode="splitx", device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -290,6 +291,8 @@ def test_auto_still_means_fft_and_fused_guards():
         ((736, 832, 256), True),  # Z and X at their bounds
         ((744, 256, 256), False),
         ((256, 840, 256), False),
+        ((8, 8, 3632), True),  # R = 1: 8 rows of the FFT y stage fill shared memory
+        ((8, 8, 3640), False),
     ],
     ids=str,
 )

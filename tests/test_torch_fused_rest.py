@@ -192,7 +192,7 @@ def test_carried_deconvolve_matches_jax_and_plain_chain(monkeypatch, adjoint):
     jdata = JaxData(*(jnp.asarray(a) for a in (views, k1, k2, w)))
     want, want_deltas = map(np.asarray, jrl.deconvolve_with_history(
         jnp.asarray(psi0), jdata, algorithm="fused", adjoint_kernel2=adjoint, **kw))
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     psi = torch.from_numpy(psi0)
     assert rl._carry_enabled()
     if adjoint:

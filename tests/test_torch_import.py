@@ -24,6 +24,7 @@ _SCRIPT = textwrap.dedent(
     ws = mvn.Workspace.from_views(
         multiview_data(2, (8, 8, 8), (3, 3, 3), (3, 3, 3), kernel="gaussian"),
         lambda_=0.006, num_iterations=2,
+        device="cpu",
     )
     out = mvn.deconvolve(mvn.initial_psi(ws.data), ws.data, 2, lam=0.006)
     assert out.shape == (8, 8, 8) and bool(torch.isfinite(out).all())

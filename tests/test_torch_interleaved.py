@@ -56,6 +56,7 @@ def _incore(psi0, views, k1, k2, ws, lam, engine):
     data = multiview_data_from_numpy(
         np.stack(views), np.stack(k1), np.stack(k2),
         np.stack([np.broadcast_to(np.asarray(w, np.float32), shape) for w in ws]),
+        device="cpu",
     )
     return rl.deconvolve(torch.from_numpy(psi0), data, ITERS, lam=lam, algorithm=engine).numpy()
 

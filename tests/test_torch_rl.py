@@ -64,7 +64,7 @@ def _jax(psi0, views, k1, k2, w, **kw):
 
 
 def _port(psi0, views, k1, k2, w, **kw):
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     return rl.deconvolve(torch.from_numpy(psi0), data, **kw).numpy()
 
 
@@ -122,7 +122,7 @@ def test_driver_under_the_cuda_fft_layout(monkeypatch, view_order):
 
     monkeypatch.setattr(convolve, "rfft3", cuda_like_rfft3)
     monkeypatch.setattr(rl, "rfft3", cuda_like_rfft3)
-    data = multiview_data_from_numpy(*args[1:])
+    data = multiview_data_from_numpy(*args[1:], device="cpu")
     assert not rl.prepare_spectra(data.kernel1, SHAPE)[0].is_contiguous()
     np.testing.assert_array_equal(_port(*args, **kw), want)
     assert fft.rfft3 is not cuda_like_rfft3
@@ -144,7 +144,7 @@ def test_unported_engines_raise(algorithm):
         fused = _port(*args, num_iterations=1, algorithm="fused")
         _close(fused, _port(*args, num_iterations=1, algorithm="fft"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepared_from_jax("fused", (16, 16, 16), (k, k), (k, k), xmode="splitx")
+            prepared_from_jax("fused", (16, 16, 16), (k, k), (k, k), xmode="splitx", device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(*args, num_iterations=1, algorithm=algorithm)
@@ -153,7 +153,7 @@ def test_unported_engines_raise(algorithm):
 def test_adjoint_requires_odd_kernel_dims():
     psi0, views, k1, k2, w = _inputs(scalar_weights=True)
     k_even = np.zeros((V, 4, 5, 5), np.float32)
-    data = multiview_data_from_numpy(views, k_even, k_even, w)
+    data = multiview_data_from_numpy(views, k_even, k_even, w, device="cpu")
     with pytest.raises(ValueError, match="odd kernel1 dims"):
         rl.deconvolve(torch.from_numpy(psi0), data, 1, adjoint_kernel2=True)
     with pytest.raises(ValueError, match="odd kernel1 dims"):
@@ -166,7 +166,7 @@ def test_history_deltas_match_jax():
     data = JaxData(*(jnp.asarray(a) for a in args[1:]))
     jpsi, jdeltas = jrl.deconvolve_with_history(jnp.asarray(args[0]), data, algorithm="fft", **kw)
     psi, deltas = rl.deconvolve_with_history(
-        torch.from_numpy(args[0]), multiview_data_from_numpy(*args[1:]), **kw
+        torch.from_numpy(args[0]), multiview_data_from_numpy(*args[1:], device="cpu"), **kw
     )
     assert deltas.shape == (3,)
     _close(psi.numpy(), np.asarray(jpsi))
@@ -183,8 +183,10 @@ def test_prepared_spectra_from_jax(adjoint):
     jprep = jrl.prepare_workspace(jdata, SHAPE, algorithm="fft", adjoint_kernel2=adjoint)
     kw = dict(num_iterations=3, lam=0.006, min_value=1e-4)
     want = np.asarray(jrl.deconvolve_prepared(jnp.asarray(psi0), jdata, jprep, **kw))
-    prepared = prepared_from_jax("fft", SHAPE, np.asarray(jprep.k1), np.asarray(jprep.k2))
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    prepared = prepared_from_jax(
+        "fft", SHAPE, np.asarray(jprep.k1), np.asarray(jprep.k2), device="cpu"
+    )
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     got = rl.deconvolve_prepared(torch.from_numpy(psi0), data, prepared, **kw).numpy()
     _close(got, want)
     own = rl.prepare_workspace(data, SHAPE, adjoint_kernel2=adjoint)
@@ -194,12 +196,12 @@ def test_prepared_spectra_from_jax(adjoint):
 
 def test_prepared_shape_guard_and_interop_engine_guard():
     psi0, views, k1, k2, w = _inputs()
-    data = multiview_data_from_numpy(views, k1, k2, w)
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     prepared = rl.prepare_workspace(data, (12, 10, 8))
     with pytest.raises(ValueError, match="prepared spectra are for"):
         rl.deconvolve_prepared(torch.from_numpy(psi0), data, prepared, 1)
     with pytest.raises(NotImplementedError):
-        prepared_from_jax("dft", SHAPE, None, None)
+        prepared_from_jax("dft", SHAPE, None, None, device="cpu")
 
 
 def test_workspace_wrapper_and_float64_reference():
@@ -209,6 +211,7 @@ def test_workspace_wrapper_and_float64_reference():
     ws = Workspace.from_views(
         [View(views[v], k1[v], k2[v], w[v]) for v in range(V)],
         lambda_=0.006, min_value=1e-4, num_iterations=2,
+        device="cpu",
     )
     psi = initial_psi(ws.data)
     torch.testing.assert_close(psi, torch.from_numpy(psi0), rtol=1e-6, atol=0)
@@ -221,18 +224,48 @@ def test_from_views_pads_kernels_and_checks_weights():
     psi0, views, k1, k2, w = _inputs()
     small = gaussian_kernel((3, 3, 3), 1.0)
     data = MultiViewData.from_views(
-        [View(views[0], k1[0], k2[0], w[0]), View(views[1], small, small, w[1])]
+        [View(views[0], k1[0], k2[0], w[0]), View(views[1], small, small, w[1])],
+        device="cpu",
     )
     assert data.kernel1.shape == (2, 5, 5, 5) and data.num_views == 2
     assert float(data.kernel1[1, 2, 2, 2]) == pytest.approx(float(small[1, 1, 1]))
     assert data.to("cpu").spatial_shape == SHAPE
     with pytest.raises(ValueError, match="share the image shape"):
         MultiViewData.from_views(
-            [View(views[0], k1[0], k2[0], w[0]), View(views[1][:4], k1[1], k2[1], w[1][:4])]
+            [View(views[0], k1[0], k2[0], w[0]), View(views[1][:4], k1[1], k2[1], w[1][:4])],
+            device="cpu",
         )
-    bad = multiview_data_from_numpy(views, k1, k2, np.ones((V,), np.float32))
+    bad = multiview_data_from_numpy(views, k1, k2, np.ones((V,), np.float32), device="cpu")
     with pytest.warns(WeightNormalizationWarning):
         rl.deconvolve(torch.from_numpy(psi0), bad, 1, view_order="simultaneous")
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["MultiViewData.from_views", "Workspace.from_views", "multiview_data_from_numpy",
+     "prepared_from_jax"],
+)
+def test_entry_points_default_to_the_card(entry):
+    """Without a ``device`` argument the entry points put their tensors on
+    the card; where there is none they raise, and never hand back CPU
+    tensors."""
+    psi0, views, k1, k2, w = _inputs()
+    spectra = np.zeros((V, *SHAPE[:2], SHAPE[2] // 2 + 1), np.complex64)
+    call = {
+        "MultiViewData.from_views": lambda: MultiViewData.from_views(
+            [View(views[v], k1[v], k2[v], w[v]) for v in range(V)]
+        ).views,
+        "Workspace.from_views": lambda: Workspace.from_views(
+            [View(views[v], k1[v], k2[v], w[v]) for v in range(V)]
+        ).data.views,
+        "multiview_data_from_numpy": lambda: multiview_data_from_numpy(views, k1, k2, w).views,
+        "prepared_from_jax": lambda: prepared_from_jax("fft", SHAPE, spectra, spectra).k1,
+    }[entry]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        call()
 
 
 PACK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden_mv6.npz")
@@ -249,7 +282,8 @@ def test_golden_pack(iters, golden, gate):
         [
             View(pack[f"view_{v}"], pack[f"kernel1_{v}"], pack[f"kernel2_{v}"], pack[f"weights_{v}"])
             for v in range(6)
-        ]
+        ],
+        device="cpu",
     )
     out = rl.deconvolve(
         torch.from_numpy(pack["psi_0_start"]), data, iters,
