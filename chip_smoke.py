@@ -23,7 +23,8 @@ Phases, each raising on failure (there is no CPU fallback):
 8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
 9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
    their plain versions on the card at the 256³ and 512³ main-path shapes;
-   K4 (FFT stages) also against ``torch.fft.rfft2``;
+   K4 (FFT stages) also against ``torch.fft.rfft2``; K6's FFT z stage timed
+   at 16 and 32 y columns a block;
 10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
     with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
     it/s and the slope, and held against the fft engine after 10 iterations;
@@ -33,12 +34,14 @@ Phases, each raising on failure (there is no CPU fallback):
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
     of ``ops.fused.fused_limit`` (small shapes), K4 and K7 at lengths with
-    odd prime factors (the FFT stages' radix-3/5 and generic stages), and
-    shapes past the limits refused before any launch;
+    odd prime factors (the FFT stages' radix-3/5 and generic stages), K5 and
+    K6 at Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and shapes
+    past the limits refused before any launch;
 15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
     256³ and 512³ (K5 also against ``torch.fft.fft`` over z, K7 against
-    ``torch.fft.irfft2``), and the dense spectrum forwarding (pass A + BF)
-    against the z-sparse one for the bench kernels at 256³;
+    ``torch.fft.irfft2``; K5 at 16 and 32 y columns a block), and the dense
+    spectrum forwarding (pass A + BF) against the z-sparse one for the bench
+    kernels at 256³;
 16. carried chain: phases 10 and 12's configurations with
     ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 9 per 256³
     call), it/s, slope, and psi against the plain chain (within 1e-5: K10's
@@ -50,7 +53,14 @@ Phases, each raising on failure (there is no CPU fallback):
     configuration: 4 views 512³, per-voxel weights, chunk_z 64) on both
     engines: s/iteration, launch counts, the copy and compute of one view
     step timed alone beside the measured step, peak memory, and psi against
-    the in-core ``deconvolve``.
+    the in-core ``deconvolve``;
+19. gradients and the fp32 contract: gradients through K1-K3 at 16³ on the
+    card against the port's CPU gradients (``fft_convolve3d`` with respect
+    to the kernel, ``rl_view_step`` with respect to psi), with one K3 launch
+    in the backward for each K3 product of the forward; a tensor λ that
+    requires grad, and a fused pass on such an operand, raise; and the
+    z-sparse spectrum forwarding under a caller's TF32 setting against its
+    fp32 result.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -86,8 +96,8 @@ CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
 FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
 FFT_SOURCE = "libmultiviewnative_torch/ops/csrc/fft_stage.cuh"
-SOURCES = {name: FUSED_SOURCE for name in ("pass_bf", "pass_b", "pass_cqa", "pass_cu", "pass_cua")}
-SOURCES.update(pass_a=FFT_SOURCE, pass_c=FFT_SOURCE)
+SOURCES = {name: FUSED_SOURCE for name in ("pass_cqa", "pass_cu", "pass_cua")}
+SOURCES.update({name: FFT_SOURCE for name in ("pass_a", "pass_bf", "pass_b", "pass_c")})
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
@@ -111,12 +121,16 @@ TOLERANCE = 1e-6
 # of up to 2·Kxp products taken in another order, ~1e-6 of max|plain| seen on
 # the CPU against the JAX package; the gate is 1e-5
 FUSED_TOLERANCE = 1e-5
-# (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at pass
-# B's shared-memory bound, a 5-way split z stage, an 8-way split y stage, X
-# at pass CQA's shared-memory bound, an unsplit Y at the FFT y stage's
+# (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at the
+# z stage's edge (736), a 5-way split z stage, an 8-way split y stage, X at
+# pass CQA's shared-memory bound, an unsplit Y at the FFT y stage's
 # shared-memory bound (8 rows of 3632); then one step past each bound
 EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832), (8, 3632, 8))
 OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840), (8, 3640, 8))
+# lengths for K5 and K6's FFT z stage: Z = 200 (8·5·5), 264 (8·3·11), 712
+# (8·89), 736 (32·23), with Y a whole, a partial and a single column tile
+Z_SHAPES = ((200, 64, 8), (264, 48, 16), (712, 40, 8), (736, 24, 16))
+GRAD_N = 16
 # lengths with odd prime factors for K4 and K7's FFT stages: X = 264 (8·3·11),
 # 808 (8·101), 832 (64·13); Y = 200 (8·5·5), 1016 (8·127), both at R = 1
 ODD_SHAPES = ((16, 200, 264), (8, 1016, 808), (8, 200, 832), (8, 1016, 264))
@@ -161,9 +175,12 @@ def phase_build():
     log(f"built {path} in {time.perf_counter() - t0:.2f} s")
     report = path.parent / "nvcc.log"
     if report.exists():
+        kernel = "?"
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas: {kernel}: {line.strip()}")
 
 
 def event_times_ms(torch, fn):
@@ -776,6 +793,27 @@ def phase_fused_limits(torch, dev):
                 f" max_abs_err {err:.3e} rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
+    for shape in Z_SHAPES:
+        Z, Y, X = shape
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        u = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in range(2))
+        k = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in range(2))
+        for t in u + k:
+            t[plan.kxh:] = 0.0  # pad rows, as pass A leaves them
+        inplace = tuple(t.clone() for t in u)
+        for name, got, want in (
+            ("pass_bf", fu.pass_bf(*u, plan), fu.pass_bf_plain(*u, c)),
+            ("pass_b", fu.pass_b(*u, *k, plan), fu.pass_b_plain(*u, *k, c)),
+            ("pass_b conj", fu.pass_b(*u, *k, plan, conj_k=True), fu.pass_b_plain(*u, *k, c, True)),
+            ("pass_b in place", fu.pass_b(*inplace, *k, plan, out=inplace),
+             fu.pass_b_plain(*u, *k, c)),
+        ):
+            err, scale = compare(torch, f"{name} {shape}", got, want)
+            log(f"{name:15s} ZYX={shape} (FFT radices z {fft_radices(Z)}): max_abs_err {err:.3e}"
+                f" rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
+            if not err <= FUSED_TOLERANCE * scale:
+                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
     for shape in OVER_SHAPES:
         Z, Y, X = shape
         plan = make_fused_plan(shape)
@@ -1065,6 +1103,116 @@ def phase_interleaved(torch, dev, launches_out):
     log("interleaved: " + json.dumps(results))
 
 
+def phase_grad(torch, dev):
+    """Gradients through K1-K3 on the card against the port's CPU
+    gradients, and the z-sparse spectrum forwarding's fp32 contraction under
+    a caller's TF32 setting."""
+    import contextlib
+
+    from libmultiviewnative_torch.core.convolve import fft_convolve3d
+    from libmultiviewnative_torch.deconv.rl import prepare_spectra, rl_view_step
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+    from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
+
+    log(f"# phase 19: gradients through K1-K3 at {GRAD_N}^3, and the fp32 contract")
+    shape = (GRAD_N,) * 3
+    rng = np.random.default_rng(19)
+    x = rng.normal(size=shape).astype(np.float32)
+    psi = rng.gamma(2.0, 5.0, shape).astype(np.float32)
+    view = rng.gamma(2.0, 5.0, shape).astype(np.float32)
+    weights = np.full(shape, 0.5, np.float32)
+    kern = gaussian_kernel((3, 3, 3), 1.0)
+
+    def conv_loss(device):
+        k = torch.from_numpy(kern).to(device).requires_grad_()
+        return (fft_convolve3d(torch.from_numpy(x).to(device), k) ** 2).sum(), k
+
+    def rl_loss(device):
+        p = torch.from_numpy(psi).to(device).requires_grad_()
+        k1 = prepare_spectra(torch.from_numpy(kern[None]).to(device), shape)[0]
+        v = torch.from_numpy(view).to(device)
+        out = rl_view_step(p, v, k1, k1, torch.from_numpy(weights).to(device), LAM, MIN_VALUE,
+                           conj_k2=True, out=p)
+        return ((out - v) ** 2).mean(), p
+
+    # (loss, K3 products in its forward, launches of its forward)
+    for what, make, products, forward_want in (
+        ("sum(fft_convolve3d(x, k)^2) d/dk", conv_loss, 1, {"spectral_multiply": 1}),
+        ("rl_view_step conj_k2 lam=0.006 d/dpsi", rl_loss, 2,
+         {"spectral_multiply": 2, "quotient": 1, "rl_update": 1}),
+    ):
+        loss, leaf = make("cpu")
+        loss.backward()
+        want = leaf.grad
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, leaf = make(dev)
+        torch.cuda.synchronize()
+        expect_counts(read_counts(), forward_want, f"forward of {what}")
+        reset_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        # K3's backward launches K3 once per product; K1's and K2's are
+        # PyTorch ops (the plain version's vjp)
+        expect_counts(read_counts(), {"spectral_multiply": products}, f"backward of {what}")
+        err = float((leaf.grad.cpu() - want).abs().max()) / float(want.abs().max())
+        log(f"gradient of {what}: card vs CPU max|diff|/max|g| = {err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"gradient of {what} disagrees with the CPU: {err:.3e}")
+
+    p = torch.ones(shape, device=dev, requires_grad=True)
+    for what, call in (
+        ("rl_update with a tensor lam that requires grad",
+         lambda: ew.rl_update(p, p.detach(), 0.5, torch.tensor(LAM, device=dev, requires_grad=True),
+                              MIN_VALUE)),
+        ("fused pass A of a volume that requires grad", lambda: fu.pass_a(p)),
+    ):
+        reset_counts()
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"{what}: raises ({e})")
+        else:
+            raise AssertionError(f"{what} did not raise")
+        expect_counts(read_counts(), {}, what)
+
+    # F5: the caller enables TF32 matmuls; the sparse forwarding stays fp32
+    k1, _ = bench_kernels()
+    kernel = torch.from_numpy(k1[0]).to(dev)
+    shape = (HEADLINE_N,) * 3
+    if not fu.sparse_prep_ok(kernel.shape[0], HEADLINE_N):
+        raise AssertionError("the bench kernel should take the z-sparse forwarding at 256^3")
+    check_fp32_matmuls(torch)
+    ref = fu.kernel_spectrum_fused(kernel, shape)
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = fu.kernel_spectrum_fused(kernel, shape)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        guard = fu._fp32_matmuls
+        fu._fp32_matmuls = contextlib.nullcontext  # what the pin prevents
+        try:
+            tf32 = fu.kernel_spectrum_fused(kernel, shape)
+        finally:
+            fu._fp32_matmuls = guard
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    check_fp32_matmuls(torch)
+    err, scale = compare(torch, "sparse forwarding under allow_tf32", got, ref)
+    unpinned, _ = compare(torch, "sparse forwarding, TF32", tf32, ref)
+    log(f"kernel_spectrum_fused at {shape} with allow_tf32 = True: max|diff|/max = {err / scale:.3e}"
+        f" against fp32 (tol 1e-6); the caller's setting kept: {kept}; the same contraction"
+        f" left to TF32: {unpinned / scale:.3e}")
+    if not (err <= 1e-6 * scale and kept):
+        raise AssertionError(f"the sparse forwarding left fp32 under allow_tf32: {err / scale:.3e}")
+    # the control: without the pin the same contraction must show TF32, or
+    # this check could not tell a pinned contraction from an ignored setting
+    if not unpinned > 1e-6 * scale:
+        raise AssertionError(
+            f"allow_tf32 = True did not reach the unpinned contraction ({unpinned / scale:.3e}"
+            " against fp32): the check cannot see TF32")
+
+
 def main():
     import torch
 
@@ -1096,6 +1244,8 @@ def main():
     phase_thin(torch, dev, rng, launches)
     torch.cuda.empty_cache()
     phase_interleaved(torch, dev, launches)
+    torch.cuda.empty_cache()
+    phase_grad(torch, dev)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

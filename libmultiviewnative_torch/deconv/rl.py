@@ -146,7 +146,9 @@ def rl_view_step(
     """One view's multiplicative update (``src/multiviewnative.cpp:191-228``).
 
     ``conj_k2`` multiplies by conj(k2_hat) (the adjoint of kernel1 when
-    k2_hat is kernel1's spectrum).  ``out=psi`` updates psi in place.
+    k2_hat is kernel1's spectrum).  ``out=psi`` updates psi in place, except
+    when grad mode is on and an operand requires grad: then the step builds
+    an autograd graph through K1-K3 and returns a new tensor.
     """
     integral = convolve_spectrum(psi, k1_hat)
     integral = quotient(view, integral, out=integral)
@@ -306,8 +308,9 @@ def deconvolve(
 
         def sweep(p):
             for v in range(num_views):
-                step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
-                     conj_k2=conj_k2, out=p)
+                # p itself unless autograd records the step (then a new tensor)
+                p = step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
+                         conj_k2=conj_k2, out=p)
             return p
 
     elif view_order == "simultaneous":

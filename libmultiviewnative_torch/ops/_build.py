@@ -5,9 +5,9 @@ shared library with a plain C interface, in ``build/torch_kernels/<hash>/``
 beside the package (a directory ``.gitignore`` lists), keyed by a hash of
 the sources, the headers and the flags.  Each source is compiled by its own
 ``nvcc`` process, all started together, and the objects are then linked
-(21.8 s on an H100 host with 8 cores, most of it ``fused.cu`` with the FFT
-stage kernels; before those, 6.1-6.4 s against 8.0-9.0 s for one ``nvcc``
-over both sources).  The library is loaded with ``ctypes``: every pointer
+(11.6-18.6 s on an H100 host with 8 cores, most of it ``fused.cu`` with the
+FFT stage kernels; with no FFT stages, 6.1-6.4 s against 8.0-9.0 s for
+one ``nvcc`` over both sources).  The library is loaded with ``ctypes``: every pointer
 and the stream go in as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 

@@ -1,10 +1,12 @@
 // Shared-memory mixed-radix FFT stages for Hopper (sm_90a), fp32: the x and y
-// stages of the fused engine's passes A (K4) and C (K7).
+// stages of the fused engine's passes A (K4) and C (K7), and the z stage of
+// passes B (K6) and BF (K5).
 //
 // They replace the DFT-as-matrix-product stages of the TPU kernels
 // _pass_a_kernel / _pass_c_kernel (libmultiviewnative_tpu/ops/pallas/
 // fused_dft2.py:986, :1209, reached by _run_pass_a :1703 and _run_pass_c
-// :1825).  The TPU computes a DFT as a product with a dense matrix because
+// :1825) and _pass_b_kernel / _pass_bf_kernel (the z stage below).  The TPU
+// computes a DFT as a product with a dense matrix because
 // its matrix unit makes products cheap; fp32 CUDA cores do not, and an
 // O(N^2) DFT on them costs 5-9x the HBM time of the pass.  An FFT does
 // O(log N) work per value, so these stages are bound by HBM bytes: each
@@ -173,8 +175,9 @@ __device__ __forceinline__ void dft(float2 (&v)[R], const float2 (&rt)[R]) {
 
 // One stage of radix R over P interleaved sequences of length n: each
 // thread takes whole butterflies and writes their results where it read
-// their inputs, so the stage runs in place.
-template <int R, int P, bool INV>
+// their inputs, so the stage runs in place.  DIF runs the transposed stage:
+// the twiddles multiply the butterfly's outputs instead of its inputs.
+template <int R, int P, bool INV, bool DIF>
 __device__ __forceinline__ void radix_stage(float2* buf, int n, int m,
                                             const float2* tw,
                                             const float2* roots) {
@@ -192,21 +195,27 @@ __device__ __forceinline__ void radix_stage(float2* buf, int n, int m,
     float2 v[R];
 #pragma unroll
     for (int t = 0; t < R; ++t) v[t] = at[t * m * P];
-    if (k > 0) {
+    if (!DIF && k > 0) {
 #pragma unroll
       for (int t = 1; t < R; ++t)
         v[t] = cmul(v[t], table<INV>(tw, m - 1 + (t - 1) * m + k));
     }
     dft<R, INV>(v, rt);
+    if (DIF && k > 0) {
+#pragma unroll
+      for (int t = 1; t < R; ++t)
+        v[t] = cmul(v[t], table<INV>(tw, m - 1 + (t - 1) * m + k));
+    }
 #pragma unroll
     for (int t = 0; t < R; ++t) at[t * m * P] = v[t];
   }
 }
 
 // A stage of any radix r <= kMaxGenericRadix: rounds of whole butterflies,
-// each result a direct sum over the butterfly's r twiddled inputs, held in
-// registers until every thread has read, then written over the inputs.
-template <int P, bool INV>
+// each result a direct sum over the butterfly's r twiddled inputs (DIF: a
+// sum over the plain inputs, then twiddled), held in registers until every
+// thread has read, then written over the inputs.
+template <int P, bool INV, bool DIF>
 __device__ void generic_stage(float2* buf, int n, int r, int m,
                               const float2* tw, const float2* roots) {
   const int L = r * m;
@@ -229,9 +238,11 @@ __device__ void generic_stage(float2* buf, int n, int r, int m,
         root += k1;
         if (root >= r) root -= r;
         float2 v = at[t * m * P];
-        if (k > 0) v = cmul(v, table<INV>(tw, m - 1 + (t - 1) * m + k));
+        if (!DIF && k > 0) v = cmul(v, table<INV>(tw, m - 1 + (t - 1) * m + k));
         acc = cmac(acc, v, table<INV>(roots, root));
       }
+      if (DIF && k > 0 && k1 > 0)
+        acc = cmul(acc, table<INV>(tw, m - 1 + (k1 - 1) * m + k));
       res[i] = acc;
     }
     __syncthreads();
@@ -248,6 +259,42 @@ __device__ void generic_stage(float2* buf, int n, int r, int m,
   }
 }
 
+// One stage of radix r; m is the product of the radices of the stages that
+// run before it in run_stages.  Ends with a barrier.
+template <int P, bool INV, bool DIF>
+__device__ __forceinline__ void stage(float2* buf, int n, int r, int m,
+                                      const float2* tw, const float2* roots) {
+  switch (r) {
+    case 2:
+      radix_stage<2, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    case 4:
+      radix_stage<4, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    case 8:
+      radix_stage<8, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    case 3:
+      radix_stage<3, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    case 5:
+      radix_stage<5, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    case 7:
+      radix_stage<7, P, INV, DIF>(buf, n, m, tw, roots);
+      break;
+    default:
+      generic_stage<P, INV, DIF>(buf, n, r, m, tw, roots);
+      break;
+  }
+  __syncthreads();
+}
+
+// whether a radix reads roots from the table (2, 4 and 8 build theirs in)
+__device__ __forceinline__ bool has_roots(int r) {
+  return r != 2 && r != 4 && r != 8;
+}
+
 // Every stage of f on the block's P sequences, loaded in digit-reversed
 // order; leaves frequency (or, inverse, sample) i at position i.  Ends with
 // a barrier.
@@ -258,35 +305,28 @@ __device__ void run_stages(float2* buf, const LmvnFft& f) {
   int m = 1;
   for (int j = 0; j < f.nstages; ++j) {
     const int r = f.radix[j];
-    switch (r) {
-      case 2:
-        radix_stage<2, P, INV>(buf, f.n, m, tw, roots);
-        break;
-      case 4:
-        radix_stage<4, P, INV>(buf, f.n, m, tw, roots);
-        break;
-      case 8:
-        radix_stage<8, P, INV>(buf, f.n, m, tw, roots);
-        break;
-      case 3:
-        radix_stage<3, P, INV>(buf, f.n, m, tw, roots);
-        roots += r;
-        break;
-      case 5:
-        radix_stage<5, P, INV>(buf, f.n, m, tw, roots);
-        roots += r;
-        break;
-      case 7:
-        radix_stage<7, P, INV>(buf, f.n, m, tw, roots);
-        roots += r;
-        break;
-      default:
-        generic_stage<P, INV>(buf, f.n, r, m, tw, roots);
-        roots += r;
-        break;
-    }
-    __syncthreads();
+    stage<P, INV, false>(buf, f.n, r, m, tw, roots);
+    if (has_roots(r)) roots += r;
     m *= r;
+  }
+}
+
+// The forward transform as the transpose of run_stages' (the DFT matrix is
+// symmetric): the transposed stages in reverse order, on sequences loaded in
+// natural order; leaves frequency i at position pos[i], where run_stages<P,
+// true> takes its input.  Ends with a barrier.
+template <int P>
+__device__ void run_stages_dif(float2* buf, const LmvnFft& f) {
+  const float2* tw = reinterpret_cast<const float2*>(f.tw);
+  const float2* roots = tw + (f.n - 1);
+  for (int j = 0; j < f.nstages; ++j)
+    if (has_roots(f.radix[j])) roots += f.radix[j];
+  int m = f.n;
+  for (int j = f.nstages - 1; j >= 0; --j) {
+    const int r = f.radix[j];
+    m /= r;
+    if (has_roots(r)) roots -= r;
+    stage<P, false, true>(buf, f.n, r, m, tw, roots);
   }
 }
 
@@ -481,6 +521,103 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ z stage
+// K6 (pass B) and K5 (pass BF), replacing the split z-DFT stages of the TPU
+// kernels _pass_b_kernel / _pass_bf_kernel (fused_dft2.py:1066, :1096,
+// reached by _run_pass_b :1735 and _run_pass_bf :1764).  A block per
+// (tile of P y columns, x-frequency k) of a (Kxp, Z, Y) pair: column c of
+// the slice k is one complex length-Z sequence, strided by Y in memory.
+// The block holds its P columns interleaved, value z of column s at
+// z*P + s, as the x stage holds its sequences; a thread takes two
+// neighbouring columns, so the global rows move as 8-byte pairs (a warp
+// covers whole 32-byte sectors) and shared memory as 16-byte vectors with
+// no bank conflicts.  The forward transform is run_stages_dif: the columns
+// load in natural order and frequency f comes out at pos[f], the digit-
+// reversed order in which the inverse stages take their input, so pass B
+// needs no permutation between its two transforms.
+//   pass B:  forward stages; frequency f times K[k, (f mod R)*M + f div R]
+//            (the kernel spectrum is stored in z's split order), or its
+//            conjugate; inverse stages; z stored in natural order times
+//            1/Z.  The block reads its whole tile before it writes, so the
+//            output may alias u (the main path runs pass B in place).
+//   pass BF: the forward stages alone, frequency f stored at
+//            (f mod R)*M + f div R, as the y stage stores y.
+// Pad x-frequencies k >= Kx are written as zeros and not read.
+// Like the x and y stages it is bound by HBM bytes: u (and K) read once,
+// the output written once, the transform in shared memory.
+// Columns per block: 16 at every Z (32 KB at Z = 256, 64 KB at 512, 94 KB
+// at 736).  A 32-column form was timed against it once on an H100 80GB HBM3
+// at 700 W (chip_smoke.py phases 9 and 15 of the same run): at Z = 256 pass B
+// tied (0.1426 ms at 32, 0.1453 at 16) and pass BF lost (0.0951 against
+// 0.0900); at Z = 512, where 32 columns take 128 KB and one block an SM,
+// both lost (pass B 1.6278 against 0.9624 ms, pass BF 0.7984 against 0.5921).
+constexpr int kZCols = 16;
+
+inline size_t z_smem(int Z) { return sizeof(float2) * kZCols * Z; }
+
+template <int P, bool FWD_ONLY>
+__global__ void __launch_bounds__(kThreads)
+    z_kernel(float* o_re, float* o_im, const float* u_re, const float* u_im,
+             const float* __restrict__ k_re, const float* __restrict__ k_im,
+             float ksign, const LmvnFft f, int Y, int Kx, int R, int M,
+             float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  constexpr int Q = P / 2;  // column pairs per row of the tile
+  const int Z = f.n, c0 = blockIdx.x * P, k = blockIdx.y;
+  const size_t base = static_cast<size_t>(k) * Z * Y;
+  if (k >= Kx) {
+    for (int e = threadIdx.x; e < Z * Q; e += kThreads) {
+      const int c = c0 + 2 * (e % Q);
+      if (c >= Y) continue;
+      const size_t o = base + static_cast<size_t>(e / Q) * Y + c;
+      *reinterpret_cast<float2*>(o_re + o) = make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(o_im + o) = make_float2(0.f, 0.f);
+    }
+    return;
+  }
+  batched<float4>(
+      Z * Q,
+      [&](int e) {
+        const int c = c0 + 2 * (e % Q);
+        if (c >= Y) return make_float4(0.f, 0.f, 0.f, 0.f);
+        const size_t i = base + static_cast<size_t>(e / Q) * Y + c;
+        const float2 re = *reinterpret_cast<const float2*>(u_re + i);
+        const float2 im = *reinterpret_cast<const float2*>(u_im + i);
+        return make_float4(re.x, im.x, re.y, im.y);
+      },
+      [&](int e, float4 v) { *reinterpret_cast<float4*>(buf + 2 * e) = v; });
+  __syncthreads();
+  run_stages_dif<P>(buf, f);
+  // row j of K (and of pass BF's output) holds frequency R*(j mod M) + j div M
+  if constexpr (!FWD_ONLY) {
+    for (int e = threadIdx.x; e < Z * Q; e += kThreads) {
+      const int j = e / Q, t = e % Q, c = c0 + 2 * t;
+      if (c >= Y) continue;
+      const size_t i = base + static_cast<size_t>(j) * Y + c;
+      const float2 kr = __ldg(reinterpret_cast<const float2*>(k_re + i));
+      const float2 ki = __ldg(reinterpret_cast<const float2*>(k_im + i));
+      float4* at = reinterpret_cast<float4*>(
+          buf + __ldg(f.pos + split_freq(j, R, M)) * P + 2 * t);
+      const float4 v = *at;
+      const float2 a = cmul(make_float2(v.x, v.y), make_float2(kr.x, ksign * ki.x));
+      const float2 b = cmul(make_float2(v.z, v.w), make_float2(kr.y, ksign * ki.y));
+      *at = make_float4(a.x, a.y, b.x, b.y);
+    }
+    __syncthreads();
+    run_stages<P, true>(buf, f);
+  }
+  for (int e = threadIdx.x; e < Z * Q; e += kThreads) {
+    const int j = e / Q, t = e % Q, c = c0 + 2 * t;
+    if (c >= Y) continue;
+    const int at = FWD_ONLY ? __ldg(f.pos + split_freq(j, R, M)) : j;
+    const float4 v = *reinterpret_cast<const float4*>(buf + at * P + 2 * t);
+    const size_t o = base + static_cast<size_t>(j) * Y + c;
+    *reinterpret_cast<float2*>(o_re + o) = make_float2(v.x * scale, v.z * scale);
+    *reinterpret_cast<float2*>(o_im + o) = make_float2(v.y * scale, v.w * scale);
+  }
+}
+
 // ------------------------------------------------------------ launches
 // Each returns cudaGetLastError() after its launch.
 
@@ -535,6 +672,33 @@ inline int y_stage(float* o_re, float* o_im, const float* i_re,
   return y_rows(f.n) == 16
              ? y_launch<16, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s)
              : y_launch<8, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s);
+}
+
+template <int P, bool FWD_ONLY>
+inline int z_launch(float* o_re, float* o_im, const float* u_re,
+                    const float* u_im, const float* k_re, const float* k_im,
+                    float ksign, const LmvnFft& f, int Y, int Kx, int Kxp,
+                    int R, int M, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * P * f.n;
+  cudaError_t e = cudaFuncSetAttribute(
+      z_kernel<P, FWD_ONLY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  z_kernel<P, FWD_ONLY><<<dim3(blocks(Y, P), Kxp), kThreads, smem, s>>>(
+      o_re, o_im, u_re, u_im, k_re, k_im, ksign, f, Y, Kx, R, M,
+      FWD_ONLY ? 1.0f : 1.0f / static_cast<float>(f.n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The z stage over the Kxp slices of a (Kxp, Z, Y) pair, of which Kx are
+// not pad; z's split is (R, M).
+template <bool FWD_ONLY>
+inline int z_stage(float* o_re, float* o_im, const float* u_re,
+                   const float* u_im, const float* k_re, const float* k_im,
+                   bool conj_k, const LmvnFft& f, int Y, int Kx, int Kxp,
+                   int R, int M, cudaStream_t s) {
+  return z_launch<kZCols, FWD_ONLY>(o_re, o_im, u_re, u_im, k_re, k_im,
+                                    conj_k ? -1.f : 1.f, f, Y, Kx, Kxp, R, M, s);
 }
 
 // What the kernels rely on: the tables match the length, every stage radix

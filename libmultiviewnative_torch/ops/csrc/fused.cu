@@ -17,19 +17,22 @@
 //
 // Two designs live here.
 //
-// K4 and K7 are shared-memory FFT stages (fft_stage.cuh): an x stage (a block
-// per (plane, 32 y columns), one complex FFT per pair of real columns) and a
+// K4-K7 are shared-memory FFT stages (fft_stage.cuh): an x stage (a block
+// per (plane, 32 y columns), one complex FFT per pair of real columns), a
 // y stage (a block per few rows, one FFT per row, frequencies stored in the
-// split order).  They are bound by HBM bytes: the volume, the scratch pair
-// written and read once, the output.
+// split order) and a z stage (a block per (x-frequency, 16 y columns),
+// one FFT per column, K5's frequencies stored in the split order,
+// K6's multiplied by the kernel spectrum and transformed back).  They are
+// bound by HBM bytes: the inputs, a scratch pair written and read once, the
+// output.
 //
-// K5, K6 and K8-K10 compute their DFTs as matrix products, so the FLOPs of
+// K8-K10 compute their DFTs as matrix products, so the FLOPs of
 // those O(N^2) products, not the bytes their functions need, set their time:
 // two register-tiled fp32 GEMM cores on CUDA cores (no tensor cores: the
 // contract is full fp32):
 //   rgemm  real product, for the x stages (packed x-irfft, x-rfft);
 //   cgemm  complex product in the 3-multiplication Karatsuba form
-//          (re = m1 - m2, im = m3 - m1 - m2), for the split y and z stages.
+//          (re = m1 - m2, im = m3 - m1 - m2), for the split y stages.
 // Each block of 256 threads owns a BM x BN output tile; each thread a TM x TN
 // register tile; BK = 16 deep slices of both operands are staged in shared
 // memory by loader functors (double-buffered: the next slice is fetched into
@@ -44,10 +47,10 @@
 //     over all Kxp*Z rows (ystage_kernel, fft_stage.cuh y_kernel);
 //   x stages are column-local within a plane: a block per (plane, y-column
 //     tile) (xcqa_kernel, xcu_kernel, fft_stage.cuh x_*_kernel);
-//   the z stage of pass B is column-local within an x-frequency slice: a
-//     block per (k, y-column tile) keeps the whole (Z, 32) product of the
-//     forward DFT and the kernel spectrum in shared memory for the inverse;
-//     pass BF is its forward half alone, written straight to the output.
+//   the z stage of passes B and BF is column-local within an x-frequency
+//     slice: a block per (k, y-column tile) keeps its columns in shared
+//     memory from the forward FFT through the product with the kernel
+//     spectrum to the inverse (fft_stage.cuh z_kernel).
 // The omega_R halves of the GEMM passes' split y stages run as an in-place
 // R-point DFT across column blocks (combine_kernel), skipped when R == 1;
 // the FFT y stage needs none.
@@ -80,15 +83,12 @@ struct LmvnFusedPlan {
   const float* wfy_im;
   const float* wiy_re;  // inverse y stage (1/My folded)
   const float* wiy_im;
-  const float* wfz_re;  // (Rz*Mz, Mz) forward z stage
-  const float* wfz_im;
-  const float* wiz_re;  // inverse z stage (1/Mz folded)
-  const float* wiz_im;
-  // the (q, r) complex omega tables, row stride R, re/im pairs, 128 floats
-  // each: omf y, omi y, omf z, omi z
+  // the (q, r) complex omega tables of the y stage, row stride R, re/im
+  // pairs, 128 floats each: omf, omi
   const float* om;
   LmvnFft fx;  // the FFT stages of passes A and C: length X
   LmvnFft fy;  // length Y
+  LmvnFft fz;  // the FFT stages of passes B and BF: length Z
 };
 
 }  // extern "C"
@@ -100,7 +100,7 @@ constexpr int BK = 16;
 constexpr int kMaxR = 8;
 
 constexpr int kOmega = 2 * kMaxR * kMaxR;  // floats per omega table
-enum { kOmfY = 0, kOmiY = 1, kOmfZ = 2, kOmiZ = 3 };
+enum { kOmfY = 0, kOmiY = 1 };
 
 // copy one omega table (2*R*R floats) into shared memory; the caller syncs
 __device__ __forceinline__ void load_omega(float* dst, const float* src,
@@ -571,160 +571,6 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
-// ------------------------------------------------------------ z stage (K6)
-// A block per (y-column tile, x-frequency k), on the (Z, Y) slice u[k]:
-//   forward (_fwd_split_left): P_q = Wf_q @ (sum_r omf[q,r] u[r*M + j, cols])
-//   times the kernel spectrum:  P[q*M + p] *= K[k, q*M + p, cols] (or conj)
-//   inverse (_inv_split_left):  W_q = Wi_q @ P_q, out_r = sum_q omi[q,r] W_q
-// P (Z, 32) complex stays in shared memory throughout.  out may alias u:
-// the block reads all of its (k, cols) column before it writes it.
-// FWD_ONLY (K5, pass BF, the kernel-spectrum forwarding): the forward half
-// alone, each P_q written straight to the output in the interleaved order
-// (frequency R*p + q at row q*M + p) and no kernel spectrum read.  There a
-// block writes its column while it still reads it, so out must not alias u.
-constexpr int ZBM = 128, ZBN = 32, ZTM = 4, ZTN = 4;
-
-size_t zstage_smem(int Z) {
-  return 2 * sizeof(CTile<ZBM, ZBN>) + 2 * sizeof(float) * Z * ZBN;
-}
-
-constexpr size_t kBfSmem = 2 * sizeof(CTile<ZBM, ZBN>);
-
-// MINB = 2 caps registers so that two blocks share an SM, where their shared
-// memory fits (Z <= 256: +22 % at 256^3 on the H100); at Z = 512 one block
-// fills the SM's shared memory and the cap would only spill (-7 %).
-template <int MINB, bool FWD_ONLY>
-__global__ void __launch_bounds__(kThreads, MINB)
-    zstage_kernel(float* o_re, float* o_im, const float* u_re,
-                  const float* u_im, const float* __restrict__ k_re,
-                  const float* __restrict__ k_im, float ksign,
-                  const LmvnFusedPlan p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto& s = *reinterpret_cast<CTile<ZBM, ZBN>(*)[2]>(smem);
-  const int Z = p.Z, Y = p.Y, R = p.Rz, M = p.Mz;
-  __shared__ float omf[kOmega], omi[kOmega];
-  load_omega(omf, p.om + kOmfZ * kOmega, R);
-  load_omega(omi, p.om + kOmiZ * kOmega, R);
-  __syncthreads();
-  float* pr = reinterpret_cast<float*>(smem + 2 * sizeof(CTile<ZBM, ZBN>));
-  float* pi = pr + Z * ZBN;
-  const int n0 = blockIdx.x * ZBN, k = blockIdx.y;
-  const size_t base = static_cast<size_t>(k) * Z * Y;
-  if (k >= p.Kx) {  // pad x-frequency: the output slice is zero
-    for (int e = threadIdx.x; e < Z * ZBN; e += kThreads) {
-      const int z = e / ZBN, c = n0 + e % ZBN;
-      if (c < Y) {
-        o_re[base + static_cast<size_t>(z) * Y + c] = 0.f;
-        o_im[base + static_cast<size_t>(z) * Y + c] = 0.f;
-      }
-    }
-    return;
-  }
-  const float* wf_re = p.wfz_re;
-  const float* wf_im = p.wfz_im;
-  const float* wi_re = p.wiz_re;
-  const float* wi_im = p.wiz_im;
-  float acc[3][ZTM][ZTN];
-  for (int q = 0; q < R; ++q) {
-    for (int p0 = 0; p0 < M; p0 += ZBM) {
-      cgemm<ZBM, ZBN, ZTM, ZTN, true, false>(
-          acc, s, M,
-          [&](int m, int j, float& re, float& im) {
-            const int pp = p0 + m;
-            if (pp >= M) return;
-            const size_t i = static_cast<size_t>(q * M + pp) * M + j;
-            re = wf_re[i];
-            im = wf_im[i];
-          },
-          [&](int j, int n, float& re, float& im) {
-            const int c = n0 + n;
-            if (c >= Y) return;
-            for (int r = 0; r < R; ++r) {
-              const size_t i = base + static_cast<size_t>(j + r * M) * Y + c;
-              float tr, ti;
-              om_mul(omf, R, q, r, u_re[i], u_im[i], tr, ti);
-              re = (r == 0) ? tr : re + tr;
-              im = (r == 0) ? ti : im + ti;
-            }
-          });
-      cepilogue<ZBN, ZTM, ZTN>(acc, [&](int m, int n, float vr, float vi) {
-        const int pp = p0 + m, c = n0 + n;
-        if (pp >= M) return;
-        if constexpr (FWD_ONLY) {
-          if (c < Y) {
-            const size_t i = base + static_cast<size_t>(q * M + pp) * Y + c;
-            o_re[i] = vr;
-            o_im[i] = vi;
-          }
-          return;
-        }
-        float kr = 0.f, ki = 0.f;
-        if (c < Y) {
-          const size_t i = base + static_cast<size_t>(q * M + pp) * Y + c;
-          kr = k_re[i];
-          ki = ksign * k_im[i];
-        }
-        pr[(q * M + pp) * ZBN + n] = vr * kr - vi * ki;
-        pi[(q * M + pp) * ZBN + n] = vr * ki + vi * kr;
-      });
-    }
-  }
-  if constexpr (FWD_ONLY) return;
-  __syncthreads();
-  // inverse, per q: W_q = Wi_q @ P_q, written over P_q (R > 1 needs M <=
-  // ZBM, one row tile, so every read of P_q precedes the write), or straight
-  // to the output when R == 1
-  for (int q = 0; q < R; ++q) {
-    for (int p0 = 0; p0 < M; p0 += ZBM) {
-      cgemm<ZBM, ZBN, ZTM, ZTN, true, false>(
-          acc, s, M,
-          [&](int m, int j, float& re, float& im) {
-            const int pp = p0 + m;
-            if (pp >= M) return;
-            const size_t i = static_cast<size_t>(q * M + pp) * M + j;
-            re = wi_re[i];
-            im = wi_im[i];
-          },
-          [&](int j, int n, float& re, float& im) {
-            re = pr[(q * M + j) * ZBN + n];
-            im = pi[(q * M + j) * ZBN + n];
-          });
-      cepilogue<ZBN, ZTM, ZTN>(acc, [&](int m, int n, float re, float im) {
-        const int pp = p0 + m, c = n0 + n;
-        if (pp >= M) return;
-        if (R > 1) {
-          pr[(q * M + pp) * ZBN + n] = re;
-          pi[(q * M + pp) * ZBN + n] = im;
-        } else if (c < Y) {
-          const size_t i = base + static_cast<size_t>(pp) * Y + c;
-          o_re[i] = re;
-          o_im[i] = im;
-        }
-      });
-    }
-  }
-  if (R == 1) return;
-  __syncthreads();
-  // the omega combination of _inv_split_left: out_r = sum_q omi[q,r] W_q
-  for (int e = threadIdx.x; e < M * ZBN; e += kThreads) {
-    const int pp = e / ZBN, n = e % ZBN, c = n0 + n;
-    if (c >= Y) continue;
-    for (int r = 0; r < R; ++r) {
-      float ar = 0.f, ai = 0.f;
-      for (int q = 0; q < R; ++q) {
-        float tr, ti;
-        om_mul(omi, R, q, r, pr[(q * M + pp) * ZBN + n],
-               pi[(q * M + pp) * ZBN + n], tr, ti);
-        ar = (q == 0) ? tr : ar + tr;
-        ai = (q == 0) ? ti : ai + ti;
-      }
-      const size_t i = base + static_cast<size_t>(r * M + pp) * Y + c;
-      o_re[i] = ar;
-      o_im[i] = ai;
-    }
-  }
-}
-
 unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
 // The omega half of a split y stage, in place; nothing to do at R == 1.
@@ -783,21 +629,26 @@ int xcqa(float* tr, float* ti, const float* src, float* out, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The largest Z the engine serves: the edge its z stage has run at.  The FFT
+// z stage itself fits up to Z = 1816 (16 columns of Z complex values in
+// 227 KB); a larger bound needs its own run at the new edge.
+constexpr int kMaxZ = 736;
+// The (X, 64) column of passes CQA and CUA, at most 1 KB under the opt-in
+// maximum: X <= 832, the edge these passes have run at (X = 840 would fill
+// the 227 KB exactly).
+constexpr size_t kXcqaSmemMax = 232448 - 1024;
+
 // the checks the kernels rely on; cudaErrorInvalidValue otherwise
 bool plan_ok(const LmvnFusedPlan* p) {
-  if (p->Ry < 1 || p->Ry > kMaxR || p->Rz < 1 || p->Rz > kMaxR) return false;
+  if (p->Ry < 1 || p->Ry > kMaxR || p->Rz < 1) return false;
   if (p->Ry & (p->Ry - 1)) return false;  // combine_kernel: R in {1, 2, 4, 8}
   if (p->Ry * p->My != p->Y || p->Rz * p->Mz != p->Z) return false;
   // a y-column tile must not straddle two split blocks
   if (p->Ry > 1 && p->My % YBN != 0) return false;
-  // pass B's inverse overwrites P_q in place: one row tile per q
-  if (p->Rz > 1 && p->Mz > ZBM) return false;
-  // dynamic shared memory, with room for the static omega tables
-  constexpr size_t kMaxDynamic = 232448 - 2 * sizeof(float) * kOmega;
-  return zstage_smem(p->Z) <= kMaxDynamic &&
-         xcqa_smem(p->X) <= kMaxDynamic &&
+  return p->Z <= kMaxZ && xcqa_smem(p->X) <= kXcqaSmemMax &&
          lmvn_fft::plan_ok(p->fx, p->X, lmvn_fft::x_smem(p->X), 232448) &&
-         lmvn_fft::plan_ok(p->fy, p->Y, lmvn_fft::y_smem(p->Y), 232448);
+         lmvn_fft::plan_ok(p->fy, p->Y, lmvn_fft::y_smem(p->Y), 232448) &&
+         lmvn_fft::plan_ok(p->fz, p->Z, lmvn_fft::z_smem(p->Z), 232448);
 }
 
 int start_call(int device, const LmvnFusedPlan* p) {
@@ -828,29 +679,20 @@ int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
   return err;
 }
 
-// K6: out = pass B(u, K) (out may alias u); conj_k != 0 multiplies by conj(K).
+// K6: out = pass B(u, K), one FFT z stage (out may alias u); conj_k != 0
+// multiplies by conj(K).
 int lmvn_fused_pass_b(int device, const LmvnFusedPlan* p, void* o_re,
                       void* o_im, const void* u_re, const void* u_im,
                       const void* k_re, const void* k_im, int conj_k,
                       void* stream) {
   int err = start_call(device, p);
   if (err) return err;
-  const size_t smem = zstage_smem(p->Z);
-  // two blocks per SM when 2 x (dynamic + static + the 1 KB the runtime
-  // reserves per block) fit the SM's 228 KB
-  const bool two = 2 * (smem + 2048) <= 233472;
-  auto kernel = two ? zstage_kernel<2, false> : zstage_kernel<1, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(cdiv(p->Y, ZBN), p->Kxp), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  return lmvn_fft::z_stage<false>(
       static_cast<float*>(o_re), static_cast<float*>(o_im),
       static_cast<const float*>(u_re), static_cast<const float*>(u_im),
       static_cast<const float*>(k_re), static_cast<const float*>(k_im),
-      conj_k ? -1.f : 1.f, *p);
-  return static_cast<int>(cudaGetLastError());
+      conj_k != 0, p->fz, p->Y, p->Kx, p->Kxp, p->Rz, p->Mz,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K8: u = pass A(view / pass C(v)).  t is a scratch pair distinct from v and
@@ -898,22 +740,18 @@ int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: o = pass BF(u), the forward split z-DFT alone.  o must not alias u.
+// K5: o = pass BF(u), the forward z FFT alone, frequencies stored in z's
+// split order.  o must not alias u.
 int lmvn_fused_pass_bf(int device, const LmvnFusedPlan* p, void* o_re,
                        void* o_im, const void* u_re, const void* u_im,
                        void* stream) {
   int err = start_call(device, p);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
-      zstage_kernel<2, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBfSmem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  zstage_kernel<2, true><<<dim3(cdiv(p->Y, ZBN), p->Kxp), kThreads, kBfSmem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  return lmvn_fft::z_stage<true>(
       static_cast<float*>(o_re), static_cast<float*>(o_im),
       static_cast<const float*>(u_re), static_cast<const float*>(u_im),
-      nullptr, nullptr, 1.f, *p);
-  return static_cast<int>(cudaGetLastError());
+      nullptr, nullptr, false, p->fz, p->Y, p->Kx, p->Kxp, p->Rz, p->Mz,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K7: out = pass C(v), the real (Z, X, Y) volume, two FFT stages.  t is a

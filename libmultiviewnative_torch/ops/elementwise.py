@@ -24,6 +24,17 @@ Dispatch: a tensor on the CPU goes to the plain PyTorch version (the
 ``*_plain`` functions, which the card's kernels are held against).  A CUDA
 tensor launches the kernel, or raises; it never falls back.  Each launch
 adds one to :data:`launches`.
+
+Gradients.  When grad mode is on and an operand requires grad, each wrapper
+runs through a ``torch.autograd.Function`` whose forward dispatches as
+above, and ``out=`` is ignored: the result is a fresh tensor, since autograd
+may need the operand that ``out`` would overwrite.  K3's backward is K3
+itself (the conjugate product, then a sum over the broadcast axes); K1's and
+K2's recompute the plain version's vjp from the saved inputs, as the JAX
+package's Pallas kernels carry no backward of their own (``jax.grad`` goes
+through jnp).  A tensor λ or weight volume that requires grad has no
+backward and raises ``NotImplementedError``.  With no operand requiring
+grad, as on the main path, nothing of this runs.
 """
 
 from __future__ import annotations
@@ -116,6 +127,24 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _wants_grad(*operands) -> bool:
+    """Whether autograd must see this call: grad mode on and some tensor
+    operand requiring grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in operands
+    )
+
+
+def _plain_vjp(plain, inputs, needs, grad):
+    """The vjp of ``plain(*inputs)`` against ``grad`` for the inputs that
+    ``needs`` marks, recomputed from the inputs (None for the others)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        res = plain(*leaves)
+        got = iter(torch.autograd.grad(res, [t for t in leaves if t.requires_grad], grad))
+    return tuple(next(got) if n else None for n in needs)
+
+
 def rl_update(
     psi: torch.Tensor,
     integral: torch.Tensor,
@@ -129,6 +158,7 @@ def rl_update(
     ``weights`` is a tensor of psi's shape or a scalar.  On the card ``lam``,
     ``min_value`` and a scalar weight are runtime float arguments (a 0-dim
     tensor is read back to the host first), so a λ sweep builds nothing new.
+    Differentiable in ``psi`` and ``integral``.
     """
     shape = tuple(psi.shape)
     _check("psi", psi, torch.float32)
@@ -142,9 +172,21 @@ def rl_update(
         _check("out", out, torch.float32, shape)
         operands.append(out)
     dev = _device(*operands)
+    if _wants_grad(psi, integral, weights, lam):
+        for what, t in (("weights", weights), ("lam", lam)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                raise NotImplementedError(
+                    f"rl_update: {what} requires grad, but K1 has no backward for it (ROADMAP P16)"
+                )
+        return _RlUpdate.apply(psi, integral, weights, lam, min_value)
+    return _rl_update(dev, psi, integral, weights, lam, min_value, out)
+
+
+def _rl_update(dev, psi, integral, weights, lam, min_value, out):
     if dev.type == "cpu":
         res = rl_update_plain(psi, integral, weights, lam, min_value)
         return res if out is None else out.copy_(res)
+    per_voxel = isinstance(weights, torch.Tensor) and weights.ndim > 0
     lib = _build.library()
     if out is None:
         out = torch.empty_like(psi)
@@ -165,10 +207,26 @@ def rl_update(
     return out
 
 
+class _RlUpdate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi, integral, weights, lam, min_value):
+        ctx.save_for_backward(psi, integral)
+        ctx.args = (weights, lam, min_value)
+        return _rl_update(psi.device, psi, integral, weights, lam, min_value, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        weights, lam, min_value = ctx.args
+        plain = lambda p, i: rl_update_plain(p, i, weights, lam, min_value)  # noqa: E731
+        g_psi, g_int = _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], grad)
+        return g_psi, g_int, None, None, None
+
+
 def quotient(
     view: torch.Tensor, integral: torch.Tensor, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """K2: view · (1/integral); ``out`` may be ``integral``."""
+    """K2: view · (1/integral); ``out`` may be ``integral``.  Differentiable
+    in both operands."""
     shape = tuple(view.shape)
     _check("view", view, torch.float32)
     _check("integral", integral, torch.float32, shape)
@@ -177,6 +235,12 @@ def quotient(
         _check("out", out, torch.float32, shape)
         operands.append(out)
     dev = _device(*operands)
+    if _wants_grad(view, integral):
+        return _Quotient.apply(view, integral)
+    return _quotient(dev, view, integral, out)
+
+
+def _quotient(dev, view, integral, out):
     if dev.type == "cpu":
         res = quotient_plain(view, integral)
         return res if out is None else out.copy_(res)
@@ -192,6 +256,17 @@ def quotient(
     return out
 
 
+class _Quotient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, view, integral):
+        ctx.save_for_backward(view, integral)
+        return _quotient(view.device, view, integral, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(quotient_plain, ctx.saved_tensors, ctx.needs_input_grad, grad)
+
+
 def spectral_multiply(
     x_hat: torch.Tensor,
     k_hat: torch.Tensor,
@@ -203,7 +278,8 @@ def spectral_multiply(
     ``k_hat``'s shape must be a suffix of ``x_hat``'s: it is applied to every
     leading (batch) entry of ``x_hat`` without being materialised.  ``k_hat``
     may have any dense layout; ``x_hat`` and ``out`` must repeat it over the
-    leading axes (:func:`layout_like` makes such a copy).
+    leading axes (:func:`layout_like` makes such a copy).  Differentiable in
+    both operands; the backward launches K3 (:class:`_SpectralMultiply`).
     """
     _check("x_hat", x_hat, torch.complex64, contiguous=False)
     _check("k_hat", k_hat, torch.complex64, contiguous=False)
@@ -222,6 +298,12 @@ def spectral_multiply(
         if t is not None and not _same_order(t, k_hat):
             raise ValueError(f"{name} does not hold k_hat's memory order; see layout_like()")
     dev = _device(*operands)
+    if _wants_grad(x_hat, k_hat):
+        return _SpectralMultiply.apply(x_hat, k_hat, bool(conj_k))
+    return _spectral_multiply(dev, x_hat, k_hat, conj_k, out)
+
+
+def _spectral_multiply(dev, x_hat, k_hat, conj_k, out):
     if dev.type == "cpu":
         res = spectral_multiply_plain(x_hat, k_hat, conj_k)
         return res if out is None else out.copy_(res)
@@ -237,3 +319,33 @@ def spectral_multiply(
     launches["spectral_multiply"] += 1
     return out
 
+
+class _SpectralMultiply(torch.autograd.Function):
+    """out = x̂·k̂ (or x̂·conj k̂), in PyTorch's convention for complex
+    gradients (the conjugate Wirtinger derivative):
+
+        grad_x = g·conj(k̂)                 (g·k̂ under conj_k)
+        grad_k = Σ_batch g·conj(x̂)          (its conjugate under conj_k)
+
+    Each product is one K3 call; the sum runs over x̂'s leading axes."""
+
+    @staticmethod
+    def forward(ctx, x_hat, k_hat, conj_k):
+        ctx.save_for_backward(x_hat, k_hat)
+        ctx.conj_k = conj_k
+        return _spectral_multiply(x_hat.device, x_hat, k_hat, conj_k, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x_hat, k_hat = ctx.saved_tensors
+        grad = grad.resolve_conj()
+        g_x = g_k = None
+        if ctx.needs_input_grad[0]:
+            g_x = spectral_multiply(layout_like(grad, k_hat), k_hat, conj_k=not ctx.conj_k)
+        if ctx.needs_input_grad[1]:
+            g_k = spectral_multiply(layout_like(grad, x_hat), x_hat, conj_k=True)
+            if x_hat.ndim > k_hat.ndim:  # sum(dim=()) would sum every axis
+                g_k = g_k.sum(dim=tuple(range(x_hat.ndim - k_hat.ndim)))
+            if ctx.conj_k:
+                g_k = g_k.conj().resolve_conj()
+        return g_x, g_k, None

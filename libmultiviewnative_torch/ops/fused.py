@@ -18,8 +18,10 @@ the next (:func:`fused_rl_step_carried`):
   shared-memory FFT stages (``ops/csrc/fft_stage.cuh``).
 * K5 :func:`pass_bf` replaces ``_run_pass_bf`` (:1764): the split z-DFT
   alone, which forwards a kernel spectrum (:func:`kernel_spectrum_fused`).
+  On the card, one shared-memory FFT z stage (``ops/csrc/fft_stage.cuh``).
 * K6 :func:`pass_b` replaces ``_run_pass_b`` (:1735): split z-DFT, times the
-  kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.
+  kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.  On the
+  card, the same z stage with the product and the inverse FFT in it.
 * K7 :func:`pass_c` replaces ``_run_pass_c`` (:1825): y-inverse and x-irfft,
   u -> the real (Z, X, Y) volume (:func:`fused_convolve_transposed` is A, B,
   C).  On the card, the two FFT stages of K4 run backwards.
@@ -33,7 +35,7 @@ the next (:func:`fused_rl_step_carried`):
 Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
 the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
 k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu`` and, for K4 and
-K7, ``ops/csrc/fft_stage.cuh``.
+K5-K7, ``ops/csrc/fft_stage.cuh``.
 
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
@@ -42,11 +44,12 @@ tensor launches the kernel or raises.  Each pass call on the card adds one to
 and CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 2 and 3
 when it is not.  All but BF and B write one scratch spectrum pair from
 ``torch.empty``.  The plain versions are the JAX package's matrix-product
-stages; the FFT stages of K4 and K7 compute the same transforms.
+stages; the FFT stages of K4-K7 compute the same transforms.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Sequence, Tuple
 
@@ -56,7 +59,7 @@ import torch
 from ..core.kernels import compute_quotient, rl_update as rl_update_plain
 from ..core.wrap import wrap_kernel
 from . import _build
-from .elementwise import _check, _device, _stream
+from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
     FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, pick_split, split_perm,
 )
@@ -75,11 +78,13 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-# Shared memory of the kernels in ops/csrc/fused.cu, in bytes (its
-# xcqa_smem, zstage_smem and plan_ok): the opt-in maximum per block less the
-# z stage's static omega tables (2 x 128 floats).
-_SMEM_MAX = 232448 - 2 * 4 * 128
-_FFT_SMEM_MAX = 232448  # the FFT stages hold no static tables
+# Shared memory per block of the kernels in ops/csrc/fused.cu and
+# fft_stage.cuh, in bytes (plan_ok there): the opt-in maximum, and the
+# bound of passes CQA and CUA 1 KB under it (kXcqaSmemMax).
+_FFT_SMEM_MAX = 232448
+_XCQA_SMEM_MAX = _FFT_SMEM_MAX - 1024
+# kMaxZ in fused.cu: the edge the z stage has run at (phase 14 of chip_smoke.py)
+_Z_MAX = 736
 _CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
 
 
@@ -90,9 +95,9 @@ def _xcqa_smem(X: int) -> int:
 
 
 def _zstage_smem(Z: int) -> int:
-    """Two CTile<128, 32> (re and im of 16 x (132 + 36) floats), then the
-    (Z, 32) complex product."""
-    return 2 * 2 * 4 * 16 * (132 + 36) + 2 * 4 * Z * 32
+    """The FFT z stage of passes B and BF (``z_smem`` in ``ops/csrc/
+    fft_stage.cuh``): 16 y columns of Z complex values."""
+    return 16 * 8 * Z
 
 
 def _fft_y_smem(Y: int) -> int:
@@ -116,15 +121,17 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     * Y <= 3632: 8 rows of Y complex values in one block's shared memory,
       the FFT y stage of passes A and C.  Only an unsplit Y (R = 1, not a
       multiple of 128) comes near it;
-    * X <= 832: the (X, 64) column in shared memory of passes CQA and CUA;
-    * Z <= 736: the (Z, 32) complex product in shared memory of pass B.
-      Pass BF holds no column (43 KB), but shares pass B's z stage, whose
-      R <= 8 this bound keeps.
+    * X <= 832: the (X, 64) column in shared memory of passes CQA and CUA
+      (X = 840 would fill the opt-in maximum exactly; it is not run);
+    * Z <= 736: the edge the z stage of passes B and BF has run at.  Its
+      FFT z stage holds 16 columns of Z complex values (:func:`_zstage_smem`,
+      94 KB at 736) and would fit up to Z = 1816; a larger bound is run at
+      its new edge first.
 
     :func:`.fused_plan.pick_split`'s M = 128 meets the kernels' other
     conditions on M.  The FFT stages' own conditions follow from these: the
-    x stage's 16 columns of X fit (X <= 1816), and every prime factor of X
-    and Y, a generic stage's radix, is at most 454, under its 1024."""
+    x stage's 16 columns of X fit (X <= 1816), and every prime factor of X,
+    Y and Z, a generic stage's radix, is at most 454, under its 1024."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
@@ -138,13 +145,13 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
             f"Y={Y}: the FFT y stage of passes A and C needs {_fft_y_smem(Y)} B of shared "
             f"memory, over {_FFT_SMEM_MAX}"
         )
-    if _xcqa_smem(X) > _SMEM_MAX:
+    if _xcqa_smem(X) > _XCQA_SMEM_MAX:
         return (
             f"X={X}: passes CQA and CUA need {_xcqa_smem(X)} B of shared memory, "
-            f"over {_SMEM_MAX}"
+            f"over {_XCQA_SMEM_MAX}"
         )
-    if _zstage_smem(Z) > _SMEM_MAX:
-        return f"Z={Z}: pass B needs {_zstage_smem(Z)} B of shared memory, over {_SMEM_MAX}"
+    if Z > _Z_MAX:
+        return f"Z={Z}: the z stage of passes B and BF has run up to Z={_Z_MAX}"
     return None
 
 
@@ -185,11 +192,8 @@ class _PlanArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in ("Z", "X", "Y", "Kx", "Kxp", "Ry", "My", "Rz", "Mz", "pad_")
     ] + [
         (n, ctypes.c_void_p)
-        for n in (
-            "fxp", "bxp", "wfy_re", "wfy_im", "wiy_re", "wiy_im",
-            "wfz_re", "wfz_im", "wiz_re", "wiz_im", "om",
-        )
-    ] + [("fx", _FftArgs), ("fy", _FftArgs)]
+        for n in ("fxp", "bxp", "wfy_re", "wfy_im", "wiy_re", "wiy_im", "om")
+    ] + [("fx", _FftArgs), ("fy", _FftArgs), ("fz", _FftArgs)]
 
 
 _OMEGA_FLOATS = 128  # per table: 2·R·R floats for R <= 8
@@ -216,14 +220,14 @@ class PlanTensors:
         if device.type != "cuda":
             return
         tables = []
-        for om in (plan.sy.omf, plan.sy.omi, plan.sz.omf, plan.sz.omi):
+        for om in (plan.sy.omf, plan.sy.omi):
             flat = np.stack([om.real, om.imag], axis=-1).astype(np.float32).reshape(-1)
             tables.append(np.pad(flat, (0, _OMEGA_FLOATS - flat.size)))
         self.om = t(np.concatenate(tables))
         ptr = lambda x: x.data_ptr()
-        self.fft = []  # (tw, pos) tensors of the x and y FFT stages, kept alive
+        self.fft = []  # (tw, pos) tensors of the x, y and z FFT stages, kept alive
         ffts = []
-        for n in (X, Y):
+        for n in (X, Y, Z):
             st = make_fft_stages(n)
             tw = t(np.stack([st.tw.real, st.tw.imag], axis=-1))
             pos = torch.as_tensor(st.pos, device=device)
@@ -234,7 +238,6 @@ class PlanTensors:
             Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, 0,
             ptr(self.fxp), ptr(self.bxp),
             ptr(self.wfy[0]), ptr(self.wfy[1]), ptr(self.wiy[0]), ptr(self.wiy[1]),
-            ptr(self.wfz[0]), ptr(self.wfz[1]), ptr(self.wiz[0]), ptr(self.wiz[1]),
             ptr(self.om), *ffts,
         )
 
@@ -435,12 +438,20 @@ def _finish(out, res):
     return out.copy_(res)
 
 
+def _no_graph(name, *operands):
+    """The CUDA passes write through raw pointers, so autograd would see no
+    graph: refuse instead of returning detached values.  (On the CPU the
+    plain passes are PyTorch ops, differentiable without ``out=``.)"""
+    if _wants_grad(*operands):
+        raise NotImplementedError(f"{name}: the CUDA pass has no backward yet (ROADMAP P16)")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def _check_aligned(**tensors):
-    """The FFT stages of K4 and K7 move 16-byte vectors: every tensor they
+    """The FFT stages of K4-K7 move 8- and 16-byte vectors: every tensor they
     read or write starts on a 16-byte boundary (a fresh allocation does)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
@@ -457,6 +468,7 @@ def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pai
         if out is not None:
             _check_pair("out", out, plan)
         return _finish(out, pass_a_plain(xt, c))
+    _no_graph("pass_a", xt)
     lib = _build.library()
     u_re, u_im = _outputs(out, plan, xt)
     _check_aligned(xt=xt, out_re=u_re, out_im=u_im)
@@ -483,8 +495,10 @@ def pass_b(
         if out is not None:
             _check_pair("out", out, plan)
         return _finish(out, pass_b_plain(u_re, u_im, k_re, k_im, c, conj_k))
+    _no_graph("pass_b", u_re, u_im, k_re, k_im)
     lib = _build.library()
     o_re, o_im = _outputs(out, plan, u_re)
+    _check_aligned(u_re=u_re, u_im=u_im, k_re=k_re, k_im=k_im, out_re=o_re, out_im=o_im)
     err = lib.lmvn_fused_pass_b(
         dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
         _ptr(k_re), _ptr(k_im), int(bool(conj_k)), _stream(dev),
@@ -495,15 +509,16 @@ def pass_b(
 
 
 def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
-    """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair (a block
-    writes its column while it still reads it, so never in place)."""
+    """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair."""
     _check_pair("u", (u_re, u_im), plan)
     dev = _device(u_re, u_im)
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
         return pass_bf_plain(u_re, u_im, c)
+    _no_graph("pass_bf", u_re, u_im)
     lib = _build.library()
     o_re, o_im = _outputs(None, plan, u_re)
+    _check_aligned(u_re=u_re, u_im=u_im)
     err = lib.lmvn_fused_pass_bf(
         dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
         _stream(dev),
@@ -522,6 +537,7 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
         return pass_c_plain(v_re, v_im, c)
+    _no_graph("pass_c", v_re, v_im)
     lib = _build.library()
     _check_aligned(v_re=v_re, v_im=v_im)
     out = torch.empty((Z, X, Y), device=dev)
@@ -547,6 +563,7 @@ def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) ->
         if out is not None:
             _check_pair("out", out, plan)
         return _finish(out, pass_cqa_plain(v_re, v_im, view_t, c))
+    _no_graph("pass_cqa", v_re, v_im, view_t)
     lib = _build.library()
     u_re, u_im = _outputs(out, plan, v_re)
     t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
@@ -580,6 +597,7 @@ def pass_cu(
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
         return _finish(out, pass_cu_plain(v_re, v_im, psi_t, weights, c, lam, min_value))
+    _no_graph("pass_cu", *operands)
     lib = _build.library()
     if out is None:
         out = torch.empty_like(psi_t)
@@ -619,6 +637,7 @@ def pass_cua(
     if dev.type == "cpu":
         new, u = pass_cua_plain(v_re, v_im, psi_t, weights, c, lam, min_value)
         return _finish(out, new), _finish(u_out, u)
+    _no_graph("pass_cua", *operands)
     lib = _build.library()
     if out is None:
         out = torch.empty_like(psi_t)
@@ -750,7 +769,8 @@ def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
     """The z-sparse branch (``fused_dft2.py:1642-1665``): the wrapped kernel
     occupies only kz planes, so pass A runs on a gathered stack of
     Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction over them
-    (``torch.einsum`` in fp32)."""
+    (``torch.einsum``, in fp32 whatever the caller set for matmuls: the JAX
+    branch pins ``precision=HIGHEST``, :func:`_fp32_matmuls`)."""
     Z, Y, X = shape
     plan = make_fused_plan(shape)
     kz = int(kernel.shape[0])
@@ -770,7 +790,33 @@ def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
     e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
     # einsum may return a permuted layout (it does on CUDA); the passes
     # take contiguous (Kxp, Z, Y) spectra
-    return (
-        (e(tr, u_re) - e(ti, u_im)).contiguous(),
-        (e(tr, u_im) + e(ti, u_re)).contiguous(),
-    )
+    with _fp32_matmuls():
+        return (
+            (e(tr, u_re) - e(ti, u_im)).contiguous(),
+            (e(tr, u_im) + e(ti, u_re)).contiguous(),
+        )
+
+
+@contextlib.contextmanager
+def _fp32_matmuls():
+    """Full fp32 matmuls inside, the caller's setting restored after: a
+    caller's ``torch.backends.cuda.matmul.allow_tf32 = True`` (or
+    ``set_float32_matmul_precision("high")``) would run them in TF32, an
+    error of the 1e-3 class, outside the engine's fp32 contract.  Both of
+    PyTorch's settings are saved: the legacy precision string and, where it
+    exists, ``torch.backends.cuda.matmul.fp32_precision``; reading the
+    legacy one raises once a caller has mixed the two."""
+    matmul = torch.backends.cuda.matmul
+    saved_new = getattr(matmul, "fp32_precision", None)
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        saved = None
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved is not None:
+            torch.set_float32_matmul_precision(saved)
+        if saved_new is not None:
+            matmul.fp32_precision = saved_new

@@ -1,25 +1,32 @@
-"""The function the FFT stages of K4 (pass A) and K7 (pass C) compute, and
-the tables they read.
+"""The function the FFT stages of K4 (pass A), K7 (pass C), K6 (pass B) and
+K5 (pass BF) compute, and the tables they read.
 
-On the card, passes A and C run as shared-memory mixed-radix FFT stages
+On the card, these passes run as shared-memory mixed-radix FFT stages
 (ops/csrc/fft_stage.cuh), which cannot run here.  So these tests hold what
 the kernels must agree with, and the plan they follow:
 
 * the plain passes (the JAX package's matrix-product stages, which
-  chip_smoke.py holds the kernels against on the card) equal numpy's 2D real
-  FFTs in the fused layout: (Kxp, Z, Y) re/im pairs, y in the split order of
-  ``split_perm``, pad rows zero; tolerance 1e-5 of max|·| over the pair;
+  chip_smoke.py holds the kernels against on the card) equal numpy's FFTs in
+  the fused layout: (Kxp, Z, Y) re/im pairs, y (and K5's z) in the split
+  order of ``split_perm``, pad rows zero; tolerance 1e-5 of max|·| over the
+  pair;
 * a numpy emulation of the kernels' in-place decimation-in-time stages,
   reading the tables of ``fused_plan.make_fft_stages`` as the kernels do,
   reproduces ``np.fft.fft`` (and its unscaled inverse) to 1e-6 of max|·| at
   every X the fused engine serves (8 to 832) and at Y of 200, 1016 and the
-  split lengths;
+  split lengths; so does the emulation of the z stage's transposed forward
+  stages (natural order in, frequency f at ``pos[f]`` out);
+* the emulation of the whole z stage (load, forward, the kernel spectrum
+  gathered at ``split_freq``, inverse, store) reproduces the plain K5 and K6
+  to the tolerance of the plain passes;
 * every length ``fused_limit`` admits on the card has a stage plan and a
   shared-memory size the kernels accept;
 * the ctypes mirror of the kernels' plan struct keeps the C layout.
 """
 
 import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -82,29 +89,53 @@ def test_pass_c_plain_is_the_real_2d_inverse(shape):
     assert float(np.abs(got - want).max() / np.abs(want).max()) <= PAIR_RTOL
 
 
-def _emulate(stages: fp.FftStages, x: np.ndarray, inverse: bool) -> np.ndarray:
-    """The kernels' transform in complex64: the digit-reversed load, then
-    each stage's twiddles and r-point DFTs in place, with the roots of radix
-    2, 4 and 8 built in and the others read after the twiddles."""
+def _stage_tables(stages: fp.FftStages, inverse: bool):
+    """Per stage, in the order run_stages runs them: (r, m, twiddles (r, m),
+    r-point DFT matrix), the roots of radix 2, 4 and 8 built in and the
+    others read from the table after the twiddles."""
     n = stages.n
     table = np.conj(stages.tw) if inverse else stages.tw
-    buf = np.empty(n, np.complex64)
-    buf[stages.pos] = x.astype(np.complex64)
-    roots_at, m = n - 1, 1
+    roots_at, m, out = n - 1, 1, []
     for r in stages.radices:
-        L = r * m
         tw = np.ones((r, m), np.complex64)
         tw[1:] = table[m - 1 : m - 1 + (r - 1) * m].reshape(r - 1, m)
         if r in (2, 4, 8):
             roots = np.exp((1j if inverse else -1j) * 2 * np.pi * np.arange(r) / r)
         else:
             roots, roots_at = table[roots_at : roots_at + r], roots_at + r
-        dft = roots.astype(np.complex64)[np.outer(np.arange(r), np.arange(r)) % r]
-        y = buf.reshape(n // L, r, m) * tw  # value t*m + k' of block b
-        buf = np.einsum("kt,btm->bkm", dft, y).astype(np.complex64).reshape(n)
-        m = L
+        out.append((r, m, tw, roots.astype(np.complex64)[np.outer(np.arange(r), np.arange(r)) % r]))
+        m *= r
     assert roots_at == stages.tw.size
+    return out
+
+
+def _run_stages(stages: fp.FftStages, buf: np.ndarray, inverse: bool) -> np.ndarray:
+    """run_stages in complex64 on (n, P) sequences already in digit-reversed
+    order: each stage's twiddles, then its r-point DFTs, in place."""
+    n = stages.n
+    for r, m, tw, dft in _stage_tables(stages, inverse):
+        y = buf.reshape(n // (r * m), r, m, -1) * tw[..., None]  # value t*m + k' of block b
+        buf = np.einsum("kt,btms->bkms", dft, y).astype(np.complex64).reshape(buf.shape)
     return buf
+
+
+def _run_stages_dif(stages: fp.FftStages, buf: np.ndarray) -> np.ndarray:
+    """run_stages_dif in complex64 on (n, P) sequences in natural order: the
+    transposed stages in reverse order, each r-point DFT before its
+    twiddles; frequency f ends at pos[f]."""
+    n = stages.n
+    for r, m, tw, dft in reversed(_stage_tables(stages, False)):
+        y = np.einsum("kt,btms->bkms", dft, buf.reshape(n // (r * m), r, m, -1))
+        buf = (y * tw[..., None]).astype(np.complex64).reshape(buf.shape)
+    return buf
+
+
+def _emulate(stages: fp.FftStages, x: np.ndarray, inverse: bool) -> np.ndarray:
+    """The x and y stages' transform: the digit-reversed load, then
+    run_stages."""
+    buf = np.empty((stages.n, 1), np.complex64)
+    buf[stages.pos, 0] = x.astype(np.complex64)
+    return _run_stages(stages, buf, inverse)[:, 0]
 
 
 @pytest.mark.parametrize("n", X_LENGTHS + Y_LENGTHS)
@@ -115,6 +146,88 @@ def test_stage_emulation_reproduces_numpy_fft(n):
     for inverse, want in ((False, np.fft.fft(x)), (True, np.fft.ifft(x) * n)):
         got = _emulate(stages, x, inverse)
         assert float(np.abs(got - want).max() / np.abs(want).max()) <= FFT_RTOL, inverse
+
+
+# Z of the z stage: R = 1, 2 and 4 split lengths, radices 5, 3 and 11, 23,
+# 89, and the two ends of what the card serves
+Z_LENGTHS = [8, 32, 200, 256, 264, 512, 712, 736]
+
+
+@pytest.mark.parametrize("n", Z_LENGTHS)
+def test_transposed_stages_reproduce_numpy_fft(n):
+    """The z stage's forward transform: natural order in, frequency f at
+    pos[f] out, where the inverse run_stages takes its input."""
+    stages = fp.make_fft_stages(n)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    got = _run_stages_dif(stages, x.astype(np.complex64))[stages.pos]
+    want = np.fft.fft(x, axis=0)
+    assert float(np.abs(got - want).max() / np.abs(want).max()) <= FFT_RTOL
+
+
+def _z_inputs(Z, seed):
+    """A (Z, Y, X) plan with pad x-frequencies, and u and K̂ pairs whose pad
+    rows are zero (as pass A leaves them)."""
+    plan = fp.make_fused_plan((Z, 16, 8))
+    rng = np.random.default_rng(seed)
+    u, k = (rng.standard_normal((2, plan.kxp, Z, 16)).astype(np.float32) for _ in range(2))
+    u[:, plan.kxh :] = 0.0
+    k[:, plan.kxh :] = 0.0
+    return plan, u, k
+
+
+@pytest.mark.parametrize("conj_k", [False, True])
+@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736])
+def test_z_stage_plain_passes_are_the_z_fft(Z, conj_k):
+    """Plain K6 is ifft(fft(u, z) · K̂, z) with K̂ taken from z's split order
+    (or its conjugate); plain K5 is fft(u, z) stored in the split order."""
+    plan, u, k = _z_inputs(Z, Z + conj_k)
+    c = fu.plan_tensors(plan, torch.device("cpu"))
+    perm = fp.split_perm(Z, (plan.sz.R, plan.sz.M))
+    uc = (u[0] + 1j * u[1]).astype(np.complex128)
+    k_nat = np.empty_like(uc)
+    k_nat[:, perm] = k[0] + 1j * k[1]
+    spec = np.fft.fft(uc, axis=1)
+    want = np.fft.ifft(spec * (np.conj(k_nat) if conj_k else k_nat), axis=1)
+    got = fu.pass_b_plain(*map(torch.from_numpy, u), *map(torch.from_numpy, k), c, conj_k)
+    assert _pair_rel(got, (want.real, want.imag)) <= PAIR_RTOL
+    got = fu.pass_bf_plain(*map(torch.from_numpy, u), c)
+    assert _pair_rel(got, (spec[:, perm].real, spec[:, perm].imag)) <= PAIR_RTOL
+
+
+def _emulate_z_stage(plan, u, k, conj_k, fwd_only):
+    """z_kernel on every slice: the natural-order load of each y column, the
+    transposed forward stages, then pass BF's store of frequency
+    split_freq(j) from pos[split_freq(j)] into row j, or pass B's product
+    with row j of K̂ at the same place, the inverse stages and the natural
+    store times 1/Z.  Pad slices come out zero."""
+    Z = plan.shape[0]
+    stages = fp.make_fft_stages(Z)
+    freq = fp.split_perm(Z, (plan.sz.R, plan.sz.M))  # split_freq(j) for each row j
+    at = stages.pos[freq]
+    out = np.zeros((2,) + u.shape[1:], np.float32)
+    for kx in range(plan.kxh):
+        buf = _run_stages_dif(stages, (u[0, kx] + 1j * u[1, kx]).astype(np.complex64))
+        if fwd_only:
+            res = buf[at]
+        else:
+            kk = (k[0, kx] + 1j * k[1, kx]).astype(np.complex64)
+            buf[at] *= np.conj(kk) if conj_k else kk
+            res = _run_stages(stages, buf, True) * np.float32(1.0 / Z)
+        out[0, kx], out[1, kx] = res.real, res.imag
+    return out
+
+
+@pytest.mark.parametrize("conj_k", [False, True])
+@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736])
+def test_z_stage_emulation_reproduces_the_plain_passes(Z, conj_k):
+    plan, u, k = _z_inputs(Z, 2 * Z + conj_k)
+    c = fu.plan_tensors(plan, torch.device("cpu"))
+    ut, kt = tuple(map(torch.from_numpy, u)), tuple(map(torch.from_numpy, k))
+    got = _emulate_z_stage(plan, u, k, conj_k, fwd_only=False)
+    assert _pair_rel(got, fu.pass_b_plain(*ut, *kt, c, conj_k)) <= PAIR_RTOL
+    got = _emulate_z_stage(plan, u, None, False, fwd_only=True)
+    assert _pair_rel(got, fu.pass_bf_plain(*ut, c)) <= PAIR_RTOL
 
 
 @pytest.mark.parametrize("n", [8, 200, 256, 264, 808, 832, 1016, 1024])
@@ -139,33 +252,43 @@ def test_stage_tables(n):
         m *= r
 
 
-@pytest.mark.parametrize("axis", ["X", "Y"])
+@pytest.mark.parametrize("axis", ["X", "Y", "Z"])
 def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
     """``lmvn_fft::plan_ok`` in Python: every length that ``fused_limit``
     admits on the card has at most 16 stages of radix 2 to 1024, and its x
-    stage (16 columns) and y stage (16 rows up to Y = 512, else 8) fit one
-    block's shared memory.  Past Y = 3632 an unsplit row is refused, among
-    them Y = 8248 = 8·1031, whose prime factor no generic stage takes."""
+    stage (16 columns), y stage (16 rows up to Y = 512, else 8) and z stage
+    (``kZCols`` columns, read from the header) fit one block's shared memory.
+    Past Y = 3632 an unsplit row is refused, among them Y = 8248 = 8·1031,
+    whose prime factor no generic stage takes; past Z = 736, every Z."""
+    header = (Path(fu.__file__).parent / "csrc" / "fft_stage.cuh").read_text()
+    z_cols = int(re.search(r"constexpr int kZCols = (\d+);", header).group(1))
     smem_max, admitted = 232448, []
     for n in range(8, 8 * 1100 + 1, 8):
-        zxy = (8, n, 8) if axis == "X" else (8, 8, n)
+        zxy = {"X": (8, n, 8), "Y": (8, 8, n), "Z": (n, 8, 8)}[axis]
         if fu.fused_limit(zxy, "cuda") is not None:
             continue
         admitted.append(n)
         st = fp.make_fft_stages(n)
         assert len(st.radices) <= fp.FFT_MAX_STAGES and all(2 <= r <= 1024 for r in st.radices)
+        if axis == "Z":
+            assert fu._zstage_smem(n) == z_cols * 8 * n <= smem_max, n
+            continue
         rows = 16 if axis == "X" or 16 * 8 * n <= 64 * 1024 else 8
         assert rows * 8 * n <= smem_max, n
     if axis == "X":
         assert admitted[-1] == 832
-    else:
+    elif axis == "Y":
         assert 1024 in admitted and admitted[-1] == 3632 and 8248 not in admitted
+    else:
+        assert admitted == list(range(8, 737, 8))
 
 
 def test_plan_struct_mirrors_the_c_layout():
     """``LmvnFft`` (fft_stage.cuh): two ints, int radix[16], two pointers;
-    ``LmvnFusedPlan`` (fused.cu) appends fx and fy after its pointers."""
+    ``LmvnFusedPlan`` (fused.cu): ten ints, seven pointers, then fx, fy and
+    fz."""
     assert ctypes.sizeof(fu._FftArgs) == 88
     assert (fu._FftArgs.radix.offset, fu._FftArgs.tw.offset, fu._FftArgs.pos.offset) == (8, 72, 80)
-    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset) == (128, 216)
-    assert ctypes.sizeof(fu._PlanArgs) == 304
+    assert fu._PlanArgs.om.offset == 40 + 6 * 8
+    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset, fu._PlanArgs.fz.offset) == (96, 184, 272)
+    assert ctypes.sizeof(fu._PlanArgs) == 360

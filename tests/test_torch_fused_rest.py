@@ -166,6 +166,37 @@ def test_dense_kernel_spectrum_matches_jax():
     assert _rel(fu._spectrum_dense(k5, SHAPE), fu._spectrum_sparse(k5, SHAPE)) <= PASS_RTOL
 
 
+@pytest.mark.parametrize("setting", ["allow_tf32", "fp32_precision", "medium"])
+def test_sparse_spectrum_contraction_runs_in_fp32(monkeypatch, setting):
+    """The z-sparse branch's einsum runs at full fp32 matmul precision
+    whatever the caller set (the JAX branch pins HIGHEST), and the caller's
+    setting is back afterwards.  chip_smoke.py holds the values on the card."""
+    matmul = torch.backends.cuda.matmul
+    before = (matmul.fp32_precision, torch.get_float32_matmul_precision())
+    einsum, seen = torch.einsum, []
+
+    def spy(*a):
+        seen.append((matmul.fp32_precision, torch.get_float32_matmul_precision()))
+        return einsum(*a)
+
+    monkeypatch.setattr(torch, "einsum", spy)
+    k5 = _t(gaussian_kernel((5, 5, 5), 1.0))
+    try:
+        if setting == "allow_tf32":
+            matmul.allow_tf32 = True
+        elif setting == "fp32_precision":
+            matmul.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("medium")
+        caller = matmul.fp32_precision
+        fu._spectrum_sparse(k5, SHAPE)
+        assert matmul.fp32_precision == caller
+    finally:
+        torch.set_float32_matmul_precision(before[1])
+        matmul.fp32_precision = before[0]
+    assert seen and all(s == ("ieee", "highest") for s in seen)
+
+
 def _inputs(scalar_weights, seed=0):
     rng = np.random.default_rng(seed)
     views = rng.gamma(2.0, 20.0, (V,) + SHAPE).astype(np.float32)
