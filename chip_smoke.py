@@ -13,7 +13,8 @@ Phases, each raising on failure (there is no CPU fallback):
    against its plain PyTorch version on the card, at the main path's shapes,
    with the error and the CUDA-event times (median) of both, and of the one
    PyTorch call that computes the same function where there is one (K2
-   ``torch.div``, K3 the complex ``*``): its ``library_ms``;
+   ``torch.div``, K3 the complex ``*``): its ``library_ms``; K2 bitwise,
+   also at an odd shape and on unaligned operands (its scalar loop);
 4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
    iterations under the gates of tests/test_golden_regression.py;
 5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``,
@@ -23,8 +24,7 @@ Phases, each raising on failure (there is no CPU fallback):
 8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
 9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
    their plain versions on the card at the 256³ and 512³ main-path shapes;
-   K4 (FFT stages) also against ``torch.fft.rfft2``; K6's FFT z stage timed
-   at 16 and 32 y columns a block;
+   K4 (FFT stages) also against ``torch.fft.rfft2``;
 10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
     with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
     it/s and the slope, and held against the fft engine after 10 iterations;
@@ -33,13 +33,14 @@ Phases, each raising on failure (there is no CPU fallback):
 12. fused 512³: phase 7's configuration through the fused engine (K4 44);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
-    of ``ops.fused.fused_limit`` (small shapes), K4 and K7 at lengths with
-    odd prime factors (the FFT stages' radix-3/5 and generic stages), K5 and
-    K6 at Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and shapes
-    past the limits refused before any launch;
+    of ``ops.fused.fused_limit`` (small shapes), K4, K7 and K8 at lengths
+    with odd prime factors (the FFT stages' radix-3/5 and generic stages),
+    K8 also at y splits R = 1, 2, 4, 8 with X = 40 and 264 and in place, K5
+    and K6 at Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and
+    shapes past the limits refused before any launch;
 15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
     256³ and 512³ (K5 also against ``torch.fft.fft`` over z, K7 against
-    ``torch.fft.irfft2``; K5 at 16 and 32 y columns a block), and the dense
+    ``torch.fft.irfft2``), and the dense
     spectrum forwarding (pass A + BF) against the z-sparse one for the bench
     kernels at 256³;
 16. carried chain: phases 10 and 12's configurations with
@@ -96,8 +97,8 @@ CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
 FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
 FFT_SOURCE = "libmultiviewnative_torch/ops/csrc/fft_stage.cuh"
-SOURCES = {name: FUSED_SOURCE for name in ("pass_cqa", "pass_cu", "pass_cua")}
-SOURCES.update({name: FFT_SOURCE for name in ("pass_a", "pass_bf", "pass_b", "pass_c")})
+SOURCES = {name: FUSED_SOURCE for name in ("pass_cu", "pass_cua")}
+SOURCES.update({name: FFT_SOURCE for name in ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa")})
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
@@ -114,8 +115,8 @@ KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply", "pass_a", "pass_bf
                 "pass_c", "pass_cqa", "pass_cu", "pass_cua")
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
-# so K1 and K2 are expected bitwise; PyTorch's own complex multiply may
-# contract to FMA, an ulp of |x||k| at most
+# so K1 is expected bitwise (K2 is held to 0); PyTorch's own complex
+# multiply may contract to FMA, an ulp of |x||k| at most
 TOLERANCE = 1e-6
 # the fused passes against their plain versions (cuBLAS fp32 matmuls): sums
 # of up to 2·Kxp products taken in another order, ~1e-6 of max|plain| seen on
@@ -123,7 +124,7 @@ TOLERANCE = 1e-6
 FUSED_TOLERANCE = 1e-5
 # (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at the
 # z stage's edge (736), a 5-way split z stage, an 8-way split y stage, X at
-# pass CQA's shared-memory bound, an unsplit Y at the FFT y stage's
+# pass CUA's shared-memory bound, an unsplit Y at the FFT y stage's
 # shared-memory bound (8 rows of 3632); then one step past each bound
 EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832), (8, 3632, 8))
 OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840), (8, 3640, 8))
@@ -134,6 +135,9 @@ GRAD_N = 16
 # lengths with odd prime factors for K4 and K7's FFT stages: X = 264 (8·3·11),
 # 808 (8·101), 832 (64·13); Y = 200 (8·5·5), 1016 (8·127), both at R = 1
 ODD_SHAPES = ((16, 200, 264), (8, 1016, 808), (8, 200, 832), (8, 1016, 264))
+# K8 (FFT stages throughout) at a y split of R = 1, 2, 4 and 8 with X of 40
+# (8·5) and 264, beside ODD_SHAPES
+CQA_SHAPES = ((8, 200, 40), (8, 256, 40), (8, 512, 40), (16, 1024, 264))
 # the H100 SXM's published peaks: HBM3 bytes/s and fp32 FLOP/s outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -309,7 +313,7 @@ def phase_kernels(torch, dev):
             torch, records, "quotient", f"{n}^3",
             lambda: ew.quotient(view, denom, out=out),
             lambda: ew.quotient_plain(view, denom),
-            3 * vox, library=lambda: torch.div(view, denom),
+            3 * vox, tol=0.0, library=lambda: torch.div(view, denom),
         )
         keep_timing(records, "quotient", n, t, 3 * vox, 2 * view.numel())
         del psi, integral, w, view, denom, out
@@ -344,7 +348,13 @@ def phase_kernels(torch, dev):
                  lambda: ew.spectral_multiply_plain(xo, xo, True), 24 * xo.numel())
     a, b = rand((7, 9, 13), 0.5, 2.0), rand((7, 9, 13), -1.0, 2.0)
     check_kernel(torch, records, "quotient", "odd (7, 9, 13)",
-                 lambda: ew.quotient(a, b), lambda: ew.quotient_plain(a, b), 12 * a.numel())
+                 lambda: ew.quotient(a, b), lambda: ew.quotient_plain(a, b), 12 * a.numel(),
+                 tol=0.0)
+    # 4 bytes past a 16-byte boundary: the scalar loop alone
+    ua, ub = rand((4099,), 0.5, 2.0)[1:], rand((4099,), 0.5, 2.0)[1:]
+    check_kernel(torch, records, "quotient", "unaligned (4098,)",
+                 lambda: ew.quotient(ua, ub), lambda: ew.quotient_plain(ua, ub), 12 * ua.numel(),
+                 tol=0.0)
     for lam in (0.0, LAM):
         check_kernel(torch, records, "rl_update", f"odd (7, 9, 13) lam={lam}",
                      lambda: ew.rl_update(a, b, b.abs(), lam, MIN_VALUE),
@@ -602,7 +612,7 @@ def phase_fused_kernels(torch, dev, records):
             ("pass_b", f"{label} conj={conj}",
              lambda: fu.pass_b(*u, kre, kim, plan, conj_k=conj, out=buf),
              lambda: fu.pass_b_plain(*u, kre, kim, c, conj), 2 * spec_in + spec, 0.0, None),
-            ("pass_cqa", label, lambda: fu.pass_cqa(*v, view, plan, out=buf),
+            ("pass_cqa", f"{label} FFT stages", lambda: fu.pass_cqa(*v, view, plan, out=buf),
              lambda: fu.pass_cqa_plain(*v, view, c), spec_in + vol + spec, 0.0, None),
             ("pass_cu", f"{label} {'scalar' if conj else 'voxel'}-w lam={LAM}",
              lambda: fu.pass_cu(*v, psi, weights, plan, LAM, MIN_VALUE, out=out),
@@ -746,7 +756,7 @@ def phase_fused_limits(torch, dev):
     from libmultiviewnative_torch.ops.fused_plan import fft_radices, make_fused_plan
     from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
-    log("# phase 14: fused kernels at the edges of their shape limits, and K4/K7 at odd lengths")
+    log("# phase 14: fused kernels at the edges of their shape limits, and K4/K7/K8 at odd lengths")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernel = torch.from_numpy(gaussian_kernel((3, 3, 3), 1.0)).to(dev)
     for shape in EDGE_SHAPES:
@@ -778,18 +788,30 @@ def phase_fused_limits(torch, dev):
                 f" (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
-    for shape in ODD_SHAPES:
+    for shape in ODD_SHAPES + CQA_SHAPES:
         Z, Y, X = shape
         plan = make_fused_plan(shape)
         c = fu.plan_tensors(plan, dev)
         psi = torch.rand((Z, X, Y), generator=gen, device=dev) * 99.0 + 1.0
+        view = torch.rand((Z, X, Y), generator=gen, device=dev) * 199.0 + 1.0
         v = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in range(2))
-        for name, got, want in (
-            ("pass_a", fu.pass_a(psi, plan), fu.pass_a_plain(psi, c)),
-            ("pass_c", fu.pass_c(*v, plan), fu.pass_c_plain(*v, c)),
-        ):
+        # K8's input: pass A of psi, so the blurred estimate is psi, away from 0
+        u = fu.pass_a_plain(psi, c)
+        inplace = tuple(t.clone() for t in u)
+        cqa = fu.pass_cqa_plain(*u, view, c)
+        checks = (
+            ("pass_cqa", fu.pass_cqa(*u, view, plan), cqa),
+            ("pass_cqa in place", fu.pass_cqa(*inplace, view, plan, out=inplace), cqa),
+        )
+        if shape in ODD_SHAPES:
+            checks += (
+                ("pass_a", fu.pass_a(psi, plan), fu.pass_a_plain(psi, c)),
+                ("pass_c", fu.pass_c(*v, plan), fu.pass_c_plain(*v, c)),
+            )
+        for name, got, want in checks:
             err, scale = compare(torch, f"{name} {shape}", got, want)
-            log(f"{name:13s} ZYX={shape} (FFT radices x {fft_radices(X)}, y {fft_radices(Y)}):"
+            log(f"{name:17s} ZYX={shape} R={plan.sy.R} (FFT radices x {fft_radices(X)},"
+                f" y {fft_radices(Y)}):"
                 f" max_abs_err {err:.3e} rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")

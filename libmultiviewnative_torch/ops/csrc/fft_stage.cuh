@@ -1,12 +1,14 @@
 // Shared-memory mixed-radix FFT stages for Hopper (sm_90a), fp32: the x and y
-// stages of the fused engine's passes A (K4) and C (K7), and the z stage of
-// passes B (K6) and BF (K5).
+// stages of the fused engine's passes A (K4), C (K7) and CQA (K8), and the z
+// stage of passes B (K6) and BF (K5).
 //
 // They replace the DFT-as-matrix-product stages of the TPU kernels
 // _pass_a_kernel / _pass_c_kernel (libmultiviewnative_tpu/ops/pallas/
 // fused_dft2.py:986, :1209, reached by _run_pass_a :1703 and _run_pass_c
-// :1825) and _pass_b_kernel / _pass_bf_kernel (the z stage below).  The TPU
-// computes a DFT as a product with a dense matrix because
+// :1825), _pass_cqa_kernel (reached by _run_pass_cqa :1854: K8 runs K7's
+// inverse y stage, one x stage that holds inverse, quotient and forward,
+// and K4's y stage) and _pass_b_kernel / _pass_bf_kernel (the z stage
+// below).  The TPU computes a DFT as a product with a dense matrix because
 // its matrix unit makes products cheap; fp32 CUDA cores do not, and an
 // O(N^2) DFT on them costs 5-9x the HBM time of the pass.  An FFT does
 // O(log N) work per value, so these stages are bound by HBM bytes: each
@@ -40,6 +42,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "rl_update.cuh"
 
 extern "C" {
 
@@ -340,42 +344,40 @@ constexpr int kXQuads = kXCols / 4;  // float4 loads per row of the tile
 
 inline size_t x_smem(int X) { return sizeof(float2) * X * kXSeq; }
 
-// K4 launch 1: t[k, z, cols] = sum_x xt[z, x, cols] W_X^{k x} for k < Kx.
+// Vector e of the block's tile of an (X, Y) plane: row e / kXQuads, columns
+// c0 + 4 (e % kXQuads) on; zeros past Y.
+__device__ __forceinline__ float4 tile_quad(const float* __restrict__ plane,
+                                            int e, int c0, int Y) {
+  const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+  return c < Y ? __ldg(reinterpret_cast<const float4*>(
+                     plane + static_cast<size_t>(x) * Y + c))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // The spectra A, B of the two real columns of sequence s come out of its
 // FFT F by the hermitian split A_k = (F_k + conj F_{X-k}) / 2,
-// B_k = (F_k - conj F_{X-k}) / 2i.  Rows k >= Kx of t are not written: the
-// y stage writes the pad rows of its output as zeros without reading them.
-__global__ void __launch_bounds__(kThreads)
-    x_forward_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
-                     const float* __restrict__ xt, const LmvnFft f, int Z,
-                     int Y, int Kx) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
-  const float* plane = xt + static_cast<size_t>(z) * X * Y;
-  batched<float4>(
-      X * kXQuads,
-      [&](int e) {
-        const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
-        return c < Y ? __ldg(reinterpret_cast<const float4*>(
-                           plane + static_cast<size_t>(x) * Y + c))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      },
-      [&](int e, float4 v) {
-        const int x = e / kXQuads, q = e % kXQuads;
-        *reinterpret_cast<float4*>(buf + __ldg(f.pos + x) * kXSeq + 2 * q) = v;
-      });
-  __syncthreads();
-  run_stages<kXSeq, false>(buf, f);
+// B_k = (F_k - conj F_{X-k}) / 2i, stored as rows k < Kx of the block's
+// (z, cols) column of t.  F_k sits at position k after run_stages, at pos[k]
+// after run_stages_dif (AT_POS).  Rows k >= Kx of t are not written: the y
+// stage writes the pad rows of its output as zeros without reading them.
+template <bool AT_POS>
+__device__ __forceinline__ void store_half_spectra(float* t_re, float* t_im,
+                                                   const float2* buf,
+                                                   const LmvnFft& f, int Z,
+                                                   int Y, int Kx, int c0,
+                                                   int z) {
+  const int X = f.n;
   for (int e = threadIdx.x; e < Kx * kXQuads; e += kThreads) {
     const int k = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
     if (c >= Y) continue;
     const int kn = k == 0 ? 0 : X - k;
+    const int at = AT_POS ? __ldg(f.pos + k) : k;
+    const int atn = AT_POS ? __ldg(f.pos + kn) : kn;
     float re[4], im[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float2 a = buf[k * kXSeq + 2 * q + h];
-      const float2 b = buf[kn * kXSeq + 2 * q + h];
+      const float2 a = buf[at * kXSeq + 2 * q + h];
+      const float2 b = buf[atn * kXSeq + 2 * q + h];
       re[2 * h] = (a.x + b.x) * 0.5f;
       im[2 * h] = (a.y - b.y) * 0.5f;
       re[2 * h + 1] = (a.y + b.y) * 0.5f;
@@ -387,19 +389,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K7 launch 2: out[z, x, cols] = scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x})
-// over k < Kx, w the hermitian doubling weights (1 at k = 0 and X/2, else 2),
-// scale = 1/X.  Two columns' half spectra A, B become one full spectrum
-// Z_k = A_k + i B_k, Z_{X-k} = conj A_k + i conj B_k, whose inverse FFT is
-// A's column plus i B's.  The imaginary parts of A and B at k = 0 and X/2
-// are dropped, as the zero sine columns of the plan's bxp drop them.
-__global__ void __launch_bounds__(kThreads)
-    x_inverse_kernel(float* __restrict__ out, const float* __restrict__ t_re,
-                     const float* __restrict__ t_im, const LmvnFft f, int Z,
-                     int Y, int Kx, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+// Two columns' half spectra A, B (rows k < Kx of the block's (z, cols)
+// column of t) become one full spectrum Z_k = A_k + i B_k,
+// Z_{X-k} = conj A_k + i conj B_k, stored digit-reversed (at pos[k]) for
+// run_stages<.., true>, whose inverse FFT is A's column plus i B's.  The
+// imaginary parts of A and B at k = 0 and X/2 are dropped, as the zero sine
+// columns of the plan's bxp drop them.  NC reads t through the read-only
+// cache, for a kernel that does not write t.
+template <bool NC>
+__device__ __forceinline__ void load_half_spectra(float2* buf,
+                                                  const float* t_re,
+                                                  const float* t_im,
+                                                  const LmvnFft& f, int Z,
+                                                  int Y, int Kx, int c0,
+                                                  int z) {
+  const int X = f.n;
   batched<Pair4>(
       Kx * kXQuads,
       [&](int e) {
@@ -407,8 +411,10 @@ __global__ void __launch_bounds__(kThreads)
         Pair4 v = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
         if (c < Y) {
           const size_t i = (static_cast<size_t>(k) * Z + z) * Y + c;
-          v.re = __ldg(reinterpret_cast<const float4*>(t_re + i));
-          v.im = __ldg(reinterpret_cast<const float4*>(t_im + i));
+          const float4* re = reinterpret_cast<const float4*>(t_re + i);
+          const float4* im = reinterpret_cast<const float4*>(t_im + i);
+          v.re = NC ? __ldg(re) : *re;
+          v.im = NC ? __ldg(im) : *im;
         }
         return v;
       },
@@ -424,6 +430,39 @@ __global__ void __launch_bounds__(kThreads)
           *reinterpret_cast<float4*>(buf + __ldg(f.pos + X - k) * kXSeq + 2 * q) =
               make_float4(re.x + im.y, re.y - im.x, re.z + im.w, re.w - im.z);
       });
+}
+
+// K4 launch 1: t[k, z, cols] = sum_x xt[z, x, cols] W_X^{k x} for k < Kx.
+__global__ void __launch_bounds__(kThreads)
+    x_forward_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
+                     const float* __restrict__ xt, const LmvnFft f, int Z,
+                     int Y, int Kx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  const float* plane = xt + static_cast<size_t>(z) * X * Y;
+  batched<float4>(
+      X * kXQuads, [&](int e) { return tile_quad(plane, e, c0, Y); },
+      [&](int e, float4 v) {
+        const int x = e / kXQuads, q = e % kXQuads;
+        *reinterpret_cast<float4*>(buf + __ldg(f.pos + x) * kXSeq + 2 * q) = v;
+      });
+  __syncthreads();
+  run_stages<kXSeq, false>(buf, f);
+  store_half_spectra<false>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
+}
+
+// K7 launch 2: out[z, x, cols] = scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x})
+// over k < Kx, w the hermitian doubling weights (1 at k = 0 and X/2, else 2),
+// scale = 1/X.
+__global__ void __launch_bounds__(kThreads)
+    x_inverse_kernel(float* __restrict__ out, const float* __restrict__ t_re,
+                     const float* __restrict__ t_im, const LmvnFft f, int Z,
+                     int Y, int Kx, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  load_half_spectra<true>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
   __syncthreads();
   run_stages<kXSeq, true>(buf, f);
   float* plane = out + static_cast<size_t>(z) * X * Y;
@@ -434,6 +473,46 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<float4*>(plane + static_cast<size_t>(x) * Y + c) =
         make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
   }
+}
+
+// K8 launch 2, pass CQA's x stage, in place on the scratch pair t, whose
+// (z, cols) column holds the half spectra of the blurred estimate (after
+// K8's inverse y stage).  In shared memory: x_inverse_kernel's load and
+// inverse stages leave x in natural order; blurred = value * scale
+// (scale = 1/X) and q = lmvn::quotient_one(view, blurred), K2's quotient,
+// replace it in place (columns past Y hold q = 0); run_stages_dif, the
+// transposed forward stages, take that natural order and leave frequency f
+// at pos[f], so no permutation runs between the two transforms; the
+// hermitian split of K4's x stage reads F_k and F_{X-k} there and stores
+// rows k < Kx over the column.  The block reads its whole column before its
+// first write and blocks own disjoint columns, so t is written in place (and
+// read past the read-only cache).
+__global__ void __launch_bounds__(kThreads)
+    x_cqa_kernel(float* t_re, float* t_im, const float* __restrict__ view,
+                 const LmvnFft f, int Z, int Y, int Kx, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  load_half_spectra<false>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
+  __syncthreads();
+  run_stages<kXSeq, true>(buf, f);
+  const float* plane = view + static_cast<size_t>(z) * X * Y;
+  batched<float4>(
+      X * kXQuads, [&](int e) { return tile_quad(plane, e, c0, Y); },
+      [&](int e, float4 v) {
+        const int x = e / kXQuads, q = e % kXQuads;
+        float4* at = reinterpret_cast<float4*>(buf + x * kXSeq + 2 * q);
+        const float4 b = *at;
+        *at = c0 + 4 * q < Y
+                  ? make_float4(lmvn::quotient_one(v.x, b.x * scale),
+                                lmvn::quotient_one(v.y, b.y * scale),
+                                lmvn::quotient_one(v.z, b.z * scale),
+                                lmvn::quotient_one(v.w, b.w * scale))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      });
+  __syncthreads();
+  run_stages_dif<kXSeq>(buf, f);
+  store_half_spectra<true>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
 }
 
 // ------------------------------------------------------------ y stages
@@ -646,6 +725,18 @@ inline int x_inverse(float* out, const float* t_re, const float* t_im,
   if (e != cudaSuccess) return static_cast<int>(e);
   x_inverse_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
       out, t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int x_cqa(float* t_re, float* t_im, const float* view,
+                 const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
+  const size_t smem = x_smem(f.n);
+  cudaError_t e = cudaFuncSetAttribute(
+      x_cqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  x_cqa_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
+      t_re, t_im, view, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,16 +17,17 @@
 //
 // Two designs live here.
 //
-// K4-K7 are shared-memory FFT stages (fft_stage.cuh): an x stage (a block
+// K4-K8 are shared-memory FFT stages (fft_stage.cuh): an x stage (a block
 // per (plane, 32 y columns), one complex FFT per pair of real columns), a
 // y stage (a block per few rows, one FFT per row, frequencies stored in the
 // split order) and a z stage (a block per (x-frequency, 16 y columns),
 // one FFT per column, K5's frequencies stored in the split order,
-// K6's multiplied by the kernel spectrum and transformed back).  They are
-// bound by HBM bytes: the inputs, a scratch pair written and read once, the
-// output.
+// K6's multiplied by the kernel spectrum and transformed back).  K8's x
+// stage holds the inverse x FFT, the quotient and the forward x FFT in one
+// block (x_cqa_kernel).  They are bound by HBM bytes: the inputs, a scratch
+// pair written and read once, the output.
 //
-// K8-K10 compute their DFTs as matrix products, so the FLOPs of
+// K9 and K10 compute their DFTs as matrix products, so the FLOPs of
 // those O(N^2) products, not the bytes their functions need, set their time:
 // two register-tiled fp32 GEMM cores on CUDA cores (no tensor cores: the
 // contract is full fp32):
@@ -46,7 +47,9 @@
 //   y stages are row-local (a row = the Y values of one (k, z)): one launch
 //     over all Kxp*Z rows (ystage_kernel, fft_stage.cuh y_kernel);
 //   x stages are column-local within a plane: a block per (plane, y-column
-//     tile) (xcqa_kernel, xcu_kernel, fft_stage.cuh x_*_kernel);
+//     tile) (xcqa_kernel, xcu_kernel, fft_stage.cuh x_*_kernel); pass CQA's
+//     keeps its column in shared memory from the inverse x FFT through the
+//     quotient to the forward x FFT, writing t in place;
 //   the z stage of passes B and BF is column-local within an x-frequency
 //     slice: a block per (k, y-column tile) keeps its columns in shared
 //     memory from the forward FFT through the product with the kernel
@@ -56,13 +59,12 @@
 // the FFT y stage needs none.
 // Launches per pass call (R > 1 / R == 1): A 2 (x stage into a scratch
 // spectrum, y stage), BF 1, B 1, C 2 (y stage into the scratch, x stage),
-// CQA 5/3 (y products into the scratch, combine, x-inverse + quotient +
-// x-forward in one block with the quotient in shared memory, combine, y
-// products), CU 3/2 (y products, combine, x-inverse + RL update), CUA 5/3
-// (CQA's sequence with the RL update in place of the quotient: psi' is
-// stored and also kept in shared memory for the x-forward).  The scratch
-// spectrum goes through HBM (a (Kxp, Z, Y) pair, 71 MB at 256^3); the
-// quotient and the integral volumes never do.
+// CQA 3 (C's y stage into the scratch, the x stage in place on it, A's y
+// stage), CU 3/2 (y products, combine, x-inverse + RL update), CUA 5/3
+// (y products, combine, x-inverse + RL update + x-forward in one block with
+// psi' stored and also kept in shared memory, combine, y products).  The
+// scratch spectrum goes through HBM (a (Kxp, Z, Y) pair, 71 MB at 256^3);
+// the quotient and the integral volumes never do.
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError().
 
@@ -473,26 +475,23 @@ __device__ __forceinline__ float load_s(const float* t_re, const float* t_im,
   return src[(static_cast<size_t>(k) * Z + z) * Y + col];
 }
 
-// K8 launch 2 (UPDATE false), a block per (y-column tile, plane z):
-//   blurred (X, cols) = bxp (X, 2Kxp) @ [t_re; t_im][:, z, cols]
-//   Q = src * (1 / blurred), src the view          (shared memory only)
+// K10 launch 3, a block per (y-column tile, plane z):
+//   integral (X, cols) = bxp (X, 2Kxp) @ [t_re; t_im][:, z, cols]
+//   Q = psi' = rl_one(psi, integral, w): K1's update; psi' is stored to out
+//     and its (X, cols) column stays in shared memory
 //   T[:, z, cols] = fxp (2Kxp, X) @ Q               (into t, in place)
-// K10 launch 3 (UPDATE true) is the same block with the RL update of K1 in
-// place of the quotient: Q = psi' = rl_one(src, integral, w), src psi; psi'
-// is stored to out and its (X, cols) column stays in shared memory for the
-// x-forward of the next view step's pass A.
+// so the x-forward of the next view step's pass A runs from the same block.
 // The block reads all of its (z, cols) column of t before it writes it, and
-// each element of src before it writes that element of out, so t may be
-// written in place and out may alias src.
+// each element of psi before it writes that element of out, so t may be
+// written in place and out may alias psi.
 constexpr int QBM = 64, QBN = 64, QTM = 4, QTN = 4;
 
 size_t xcqa_smem(int X) {
   return 2 * sizeof(RTile<QBM, QBN>) + sizeof(float) * X * QBN;
 }
 
-template <bool UPDATE>
 __global__ void __launch_bounds__(kThreads)
-    xcqa_kernel(float* t_re, float* t_im, const float* src, float* out,
+    xcqa_kernel(float* t_re, float* t_im, const float* psi, float* out,
                 const float* __restrict__ w, lmvn::RlParams rp,
                 const LmvnFusedPlan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -518,12 +517,8 @@ __global__ void __launch_bounds__(kThreads)
       float qv = 0.f;
       if (c < Y) {
         const size_t i = plane + static_cast<size_t>(x) * Y + c;
-        if constexpr (UPDATE) {
-          qv = lmvn::rl_one(src[i], v, w ? w[i] : rp.w_scalar, rp);
-          out[i] = qv;
-        } else {
-          qv = src[i] * (1.f / v);
-        }
+        qv = lmvn::rl_one(psi[i], v, w ? w[i] : rp.w_scalar, rp);
+        out[i] = qv;
       }
       q[x * QBN + n] = qv;
     });
@@ -614,18 +609,16 @@ int ystage(bool inv, float* out_re, float* out_im, const float* in_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The x stage of pass CQA (UPDATE false) or CUA (UPDATE true), in place on
-// the scratch pair t.
-template <bool UPDATE>
-int xcqa(float* tr, float* ti, const float* src, float* out, const float* w,
+// The x stage of pass CUA, in place on the scratch pair t.
+int xcqa(float* tr, float* ti, const float* psi, float* out, const float* w,
          lmvn::RlParams rp, const LmvnFusedPlan& p, cudaStream_t s) {
   const size_t smem = xcqa_smem(p.X);
   cudaError_t e = cudaFuncSetAttribute(
-      xcqa_kernel<UPDATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xcqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  xcqa_kernel<UPDATE><<<dim3(cdiv(p.Y, QBN), p.Z), kThreads, smem, s>>>(
-      tr, ti, src, out, w, rp, p);
+  xcqa_kernel<<<dim3(cdiv(p.Y, QBN), p.Z), kThreads, smem, s>>>(
+      tr, ti, psi, out, w, rp, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -633,9 +626,9 @@ int xcqa(float* tr, float* ti, const float* src, float* out, const float* w,
 // z stage itself fits up to Z = 1816 (16 columns of Z complex values in
 // 227 KB); a larger bound needs its own run at the new edge.
 constexpr int kMaxZ = 736;
-// The (X, 64) column of passes CQA and CUA, at most 1 KB under the opt-in
-// maximum: X <= 832, the edge these passes have run at (X = 840 would fill
-// the 227 KB exactly).
+// The (X, 64) column of pass CUA, at most 1 KB under the opt-in maximum:
+// X <= 832, the edge the passes have run at (X = 840 would fill the 227 KB
+// exactly).
 constexpr size_t kXcqaSmemMax = 232448 - 1024;
 
 // the checks the kernels rely on; cudaErrorInvalidValue otherwise
@@ -695,8 +688,10 @@ int lmvn_fused_pass_b(int device, const LmvnFusedPlan* p, void* o_re,
       static_cast<cudaStream_t>(stream));
 }
 
-// K8: u = pass A(view / pass C(v)).  t is a scratch pair distinct from v and
-// u; u may alias v.
+// K8: u = pass A(view · (1/pass C(v))), three FFT stages: K7's y stage into
+// the scratch pair t, the x stage in place on t, K4's y stage into u.  t is
+// a scratch pair distinct from v and u; u may alias v (v is read in full by
+// the first launch, u written by the last).
 int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
                         void* u_im, void* t_re, void* t_im, const void* v_re,
                         const void* v_im, const void* view, void* stream) {
@@ -705,15 +700,17 @@ int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = ystage(true, tr, ti, static_cast<const float*>(v_re),
-               static_cast<const float*>(v_im), *p, s);
-  if (!err) err = combine(true, tr, ti, *p, s);
+  const int rows = p->Kxp * p->Z, valid = p->Kx * p->Z;
+  err = lmvn_fft::y_stage<true>(tr, ti, static_cast<const float*>(v_re),
+                                static_cast<const float*>(v_im), p->fy, rows,
+                                valid, p->Ry, p->My, s);
   if (!err)
-    err = xcqa<false>(tr, ti, static_cast<const float*>(view), nullptr,
-                      nullptr, lmvn::RlParams{}, *p, s);
-  if (!err) err = combine(false, tr, ti, *p, s);
-  if (!err) err = ystage(false, static_cast<float*>(u_re),
-                         static_cast<float*>(u_im), tr, ti, *p, s);
+    err = lmvn_fft::x_cqa(tr, ti, static_cast<const float*>(view), p->fx, p->Z,
+                          p->Y, p->Kx, s);
+  if (!err)
+    err = lmvn_fft::y_stage<false>(static_cast<float*>(u_re),
+                                   static_cast<float*>(u_im), tr, ti, p->fy,
+                                   rows, valid, p->Ry, p->My, s);
   return err;
 }
 
@@ -790,9 +787,9 @@ int lmvn_fused_pass_cua(int device, const LmvnFusedPlan* p, void* out,
                static_cast<const float*>(v_im), *p, s);
   if (!err) err = combine(true, tr, ti, *p, s);
   if (!err)
-    err = xcqa<true>(tr, ti, static_cast<const float*>(psi),
-                     static_cast<float*>(out), static_cast<const float*>(w),
-                     lmvn::rl_params(w_scalar, lam, min_value), *p, s);
+    err = xcqa(tr, ti, static_cast<const float*>(psi),
+               static_cast<float*>(out), static_cast<const float*>(w),
+               lmvn::rl_params(w_scalar, lam, min_value), *p, s);
   if (!err) err = combine(false, tr, ti, *p, s);
   if (!err) err = ystage(false, static_cast<float*>(u_re),
                          static_cast<float*>(u_im), tr, ti, *p, s);

@@ -27,6 +27,8 @@ the next (:func:`fused_rl_step_carried`):
   C).  On the card, the two FFT stages of K4 run backwards.
 * K8 :func:`pass_cqa` replaces ``_run_pass_cqa`` (:1854): y-inverse, x-irfft,
   view · (1/blurred), x-rfft, y-DFT; the quotient volume is never stored.
+  On the card, K7's y stage, one x stage that holds the inverse x FFT, K2's
+  quotient and the forward x FFT in shared memory, and K4's y stage.
 * K9 :func:`pass_cu` replaces ``_run_pass_cu`` (:1909): y-inverse, x-irfft
   and the RL update of K1; the integral volume is never stored.
 * K10 :func:`pass_cua` replaces ``_run_pass_cua`` (:1950): K9, then pass A
@@ -40,11 +42,11 @@ K5-K7, ``ops/csrc/fft_stage.cuh``.
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
 tensor launches the kernel or raises.  Each pass call on the card adds one to
-:data:`launches`; a pass call is 2 (A and C), 1 (BF, B), 3 (CU) or 5 (CQA
-and CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 2 and 3
+:data:`launches`; a pass call is 2 (A and C), 1 (BF, B), 3 (CQA, CU) or 5
+(CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 3, 2 and 3
 when it is not.  All but BF and B write one scratch spectrum pair from
 ``torch.empty``.  The plain versions are the JAX package's matrix-product
-stages; the FFT stages of K4-K7 compute the same transforms.
+stages; the FFT stages of K4-K8 compute the same transforms.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ def reset_launches() -> None:
 
 # Shared memory per block of the kernels in ops/csrc/fused.cu and
 # fft_stage.cuh, in bytes (plan_ok there): the opt-in maximum, and the
-# bound of passes CQA and CUA 1 KB under it (kXcqaSmemMax).
+# bound of pass CUA 1 KB under it (kXcqaSmemMax).
 _FFT_SMEM_MAX = 232448
 _XCQA_SMEM_MAX = _FFT_SMEM_MAX - 1024
 # kMaxZ in fused.cu: the edge the z stage has run at (phase 14 of chip_smoke.py)
@@ -89,8 +91,8 @@ _CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
 
 
 def _xcqa_smem(X: int) -> int:
-    """Two RTile<64, 64> (16 x (68 + 68) floats), then the (X, 64) quotient
-    (pass CQA) or psi' (pass CUA) column."""
+    """Two RTile<64, 64> (16 x (68 + 68) floats), then pass CUA's (X, 64)
+    psi' column."""
     return 2 * 4 * 16 * (68 + 68) + 4 * X * 64
 
 
@@ -101,7 +103,7 @@ def _zstage_smem(Z: int) -> int:
 
 
 def _fft_y_smem(Y: int) -> int:
-    """The y stage of passes A and C (``y_smem`` in ``ops/csrc/
+    """The y stage of passes A, C and CQA (``y_smem`` in ``ops/csrc/
     fft_stage.cuh``): 16 rows of Y complex values up to 64 KB, else 8."""
     rows = 16 if 16 * 8 * Y <= 64 * 1024 else 8
     return rows * 8 * Y
@@ -117,12 +119,12 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     pass, since one plan serves them all:
 
     * a split y stage of R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are
-      not): the y stages of passes CQA, CU and CUA;
+      not): the y stages of passes CU and CUA;
     * Y <= 3632: 8 rows of Y complex values in one block's shared memory,
-      the FFT y stage of passes A and C.  Only an unsplit Y (R = 1, not a
-      multiple of 128) comes near it;
-    * X <= 832: the (X, 64) column in shared memory of passes CQA and CUA
-      (X = 840 would fill the opt-in maximum exactly; it is not run);
+      the FFT y stage of passes A, C and CQA.  Only an unsplit Y (R = 1, not
+      a multiple of 128) comes near it;
+    * X <= 832: the (X, 64) column in shared memory of pass CUA (X = 840
+      would fill the opt-in maximum exactly; it is not run);
     * Z <= 736: the edge the z stage of passes B and BF has run at.  Its
       FFT z stage holds 16 columns of Z complex values (:func:`_zstage_smem`,
       94 KB at 736) and would fit up to Z = 1816; a larger bound is run at
@@ -142,12 +144,12 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
         return f"Y={Y} splits into R={ry} blocks of 128; the y stage takes R in 1, 2, 4, 8"
     if _fft_y_smem(Y) > _FFT_SMEM_MAX:
         return (
-            f"Y={Y}: the FFT y stage of passes A and C needs {_fft_y_smem(Y)} B of shared "
+            f"Y={Y}: the FFT y stage of passes A, C and CQA needs {_fft_y_smem(Y)} B of shared "
             f"memory, over {_FFT_SMEM_MAX}"
         )
     if _xcqa_smem(X) > _XCQA_SMEM_MAX:
         return (
-            f"X={X}: passes CQA and CUA need {_xcqa_smem(X)} B of shared memory, "
+            f"X={X}: pass CUA needs {_xcqa_smem(X)} B of shared memory, "
             f"over {_XCQA_SMEM_MAX}"
         )
     if Z > _Z_MAX:
@@ -451,7 +453,7 @@ def _ptr(t):
 
 
 def _check_aligned(**tensors):
-    """The FFT stages of K4-K7 move 8- and 16-byte vectors: every tensor they
+    """The FFT stages of K4-K8 move 8- and 16-byte vectors: every tensor they
     read or write starts on a 16-byte boundary (a fresh allocation does)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
@@ -566,6 +568,7 @@ def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) ->
     _no_graph("pass_cqa", v_re, v_im, view_t)
     lib = _build.library()
     u_re, u_im = _outputs(out, plan, v_re)
+    _check_aligned(v_re=v_re, v_im=v_im, view_t=view_t, out_re=u_re, out_im=u_im)
     t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
     err = lib.lmvn_fused_pass_cqa(
         dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),

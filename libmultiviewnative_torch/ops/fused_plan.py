@@ -185,8 +185,8 @@ def split_perm(n: int, split: Tuple[int, int]) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- FFT stages
-# The port's own tables for the shared-memory FFT stages of passes A and C
-# (ops/csrc/fft_stage.cuh); the JAX package has no counterpart.
+# The port's own tables for the shared-memory FFT stages of passes A, BF, B,
+# C and CQA (ops/csrc/fft_stage.cuh); the JAX package has no counterpart.
 
 FFT_MAX_STAGES = 16  # kMaxStages in fft_stage.cuh
 

@@ -19,6 +19,12 @@ the kernels must agree with, and the plan they follow:
 * the emulation of the whole z stage (load, forward, the kernel spectrum
   gathered at ``split_freq``, inverse, store) reproduces the plain K5 and K6
   to the tolerance of the plain passes;
+* the emulation of the x and y stages as the kernels run them (the loads at
+  ``pos[]``, the hermitian edge rule and split, the split order of y)
+  reproduces the plain K4 and K7, and K8's three launches (K7's y stage,
+  the x stage that holds the inverse x FFT, K2's quotient and the
+  transposed forward stages, K4's y stage) reproduce the plain K8 and the
+  JAX package's pass CQA in Pallas interpret mode;
 * every length ``fused_limit`` admits on the card has a stage plan and a
   shared-memory size the kernels accept;
 * the ctypes mirror of the kernels' plan struct keeps the C layout.
@@ -28,10 +34,12 @@ import ctypes
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from libmultiviewnative_tpu.ops.pallas import fused_dft2 as fd
 from libmultiviewnative_torch.ops import fused as fu
 from libmultiviewnative_torch.ops import fused_plan as fp
 
@@ -228,6 +236,176 @@ def test_z_stage_emulation_reproduces_the_plain_passes(Z, conj_k):
     assert _pair_rel(got, fu.pass_b_plain(*ut, *kt, c, conj_k)) <= PAIR_RTOL
     got = _emulate_z_stage(plan, u, None, False, fwd_only=True)
     assert _pair_rel(got, fu.pass_bf_plain(*ut, c)) <= PAIR_RTOL
+
+
+def _c64(re, im):
+    out = np.empty(np.shape(re), np.complex64)
+    out.real, out.imag = re, im
+    return out
+
+
+def _emulate_y_stage(stages, rows, split, inverse):
+    """y_kernel on complex rows (g, Y).  Inverse: position j holds frequency
+    split_freq(j), loaded at pos[split_freq(j)]; the inverse stages; natural
+    y out times 1/Y.  Forward: natural y loaded at pos[y]; frequency
+    split_freq(j) stored at j."""
+    Y = stages.n
+    freq = fp.split_perm(Y, split)
+    buf = np.empty((Y, rows.shape[0]), np.complex64)
+    if inverse:
+        buf[stages.pos[freq]] = rows.T
+        return (_run_stages(stages, buf, True) * np.float32(1.0 / Y)).T
+    buf[stages.pos] = rows.T
+    return _run_stages(stages, buf, False)[freq].T
+
+
+def _pair_columns(vol):
+    """(X, Z, Y) real columns -> (X, Z·Y/2) sequences: column 2s the real
+    part of sequence s, column 2s + 1 its imaginary part."""
+    return _c64(vol[..., 0::2], vol[..., 1::2]).reshape(vol.shape[0], -1)
+
+
+def _unpair_columns(buf, Z, Y):
+    X = buf.shape[0]
+    vol = np.empty((X, Z, Y), np.float32)
+    vol[..., 0::2] = buf.real.reshape(X, Z, Y // 2)
+    vol[..., 1::2] = buf.imag.reshape(X, Z, Y // 2)
+    return vol
+
+
+def _load_half_spectra(stages, t):
+    """load_half_spectra: the (Kx, Z, Y) half spectra A (even columns) and B
+    (odd) of each column pair become Z_k = A_k + i B_k at pos[k] and
+    Z_{X-k} = conj A_k + i conj B_k at pos[X-k]; at k = 0 and X/2 the
+    imaginary parts are dropped and only pos[k] is written."""
+    X = stages.n
+    kx, Z, Y = t.shape
+    re, im = t.real, t.imag.copy()
+    k = np.arange(kx)
+    edge = (k == 0) | (2 * k == X)
+    im[edge] = 0.0
+    a_re, a_im, b_re, b_im = re[..., 0::2], im[..., 0::2], re[..., 1::2], im[..., 1::2]
+    buf = np.empty((X, Z * Y // 2), np.complex64)
+    buf[stages.pos[k]] = _c64(a_re - b_im, a_im + b_re).reshape(kx, -1)
+    buf[stages.pos[X - k[~edge]]] = _c64(a_re + b_im, b_re - a_im)[~edge].reshape(-1, Z * Y // 2)
+    return buf
+
+
+def _store_half_spectra(F, at, Z, Y):
+    """store_half_spectra: A_k = (F_k + conj F_{X-k}) / 2 into the even
+    columns, B_k = (F_k - conj F_{X-k}) / 2i into the odd ones, F_k read at
+    at[k], for k < Kx."""
+    X = F.shape[0]
+    kx = X // 2 + 1
+    k = np.arange(kx)
+    a, b = F[at[k]], F[at[(X - k) % X]]
+    out = np.empty((kx, Z, Y), np.complex64)
+    half = lambda v: (v * np.float32(0.5)).reshape(kx, Z, Y // 2)
+    out[..., 0::2] = _c64(half(a.real + b.real), half(a.imag - b.imag))
+    out[..., 1::2] = _c64(half(a.imag + b.imag), half(b.real - a.real))
+    return out
+
+
+def _fused_stages(plan):
+    """(Z, Y, X, Kx, y split, x stages, y stages) of a plan."""
+    Z, Y, X = plan.shape
+    return Z, Y, X, plan.kxh, (plan.sy.R, plan.sy.M), fp.make_fft_stages(X), fp.make_fft_stages(Y)
+
+
+def _y_inverse(plan, v):
+    """K7's and K8's first launch on a (re, im) pair: (Kx, Z, Y) complex, y
+    natural."""
+    Z, Y, _, kx, split, _, fy = _fused_stages(plan)
+    rows = _c64(v[0][:kx], v[1][:kx]).reshape(kx * Z, Y)
+    return _emulate_y_stage(fy, rows, split, True).reshape(kx, Z, Y)
+
+
+def _x_inverse(plan, t):
+    """K7's x stage up to its store: natural x, times 1/X, (X, Z, Y)."""
+    Z, Y, X, _, _, fx, _ = _fused_stages(plan)
+    buf = _run_stages(fx, _load_half_spectra(fx, t), True)
+    return _unpair_columns(buf, Z, Y) * np.float32(1.0 / X)
+
+
+def _y_forward(plan, t):
+    """K4's and K8's last launch: the (re, im) pair, pad rows zero."""
+    Z, Y, _, kx, split, _, fy = _fused_stages(plan)
+    u = _emulate_y_stage(fy, t.reshape(kx * Z, Y), split, False).reshape(kx, Z, Y)
+    out = np.zeros((2, plan.kxp, Z, Y), np.float32)
+    out[0, :kx], out[1, :kx] = u.real, u.imag
+    return out
+
+
+def _emulate_pass_a(plan, xt):
+    """K4's two launches on a (Z, X, Y) volume."""
+    Z, Y, X, _, _, fx, _ = _fused_stages(plan)
+    buf = np.empty((X, Z * Y // 2), np.complex64)
+    buf[fx.pos] = _pair_columns(xt.transpose(1, 0, 2))
+    F = _run_stages(fx, buf, False)
+    return _y_forward(plan, _store_half_spectra(F, np.arange(X), Z, Y))
+
+
+def _emulate_pass_c(plan, v):
+    """K7's two launches: the (Z, X, Y) volume."""
+    return _x_inverse(plan, _y_inverse(plan, v)).transpose(1, 0, 2)
+
+
+def _emulate_pass_cqa(plan, v, view):
+    """K8's three launches; the x stage keeps K7's blurred column, takes
+    lmvn::quotient_one against the view and runs the transposed forward
+    stages, whose frequency f sits at pos[f] for the split."""
+    Z, Y, _, _, _, fx, _ = _fused_stages(plan)
+    blurred = _x_inverse(plan, _y_inverse(plan, v))
+    q = view.transpose(1, 0, 2) * (np.float32(1.0) / blurred)
+    F = _run_stages_dif(fx, _pair_columns(q))
+    return _y_forward(plan, _store_half_spectra(F, fx.pos, Z, Y))
+
+
+def _cqa_inputs(shape, seed):
+    """psi and the view on [1, 100] and [1, 200].  K8 takes v = pass A of
+    psi, so the blurred estimate is psi and the quotient far from a pole."""
+    Z, Y, X = shape
+    rng = np.random.default_rng(seed)
+    psi = rng.uniform(1.0, 100.0, (Z, X, Y)).astype(np.float32)
+    view = rng.uniform(1.0, 200.0, (Z, X, Y)).astype(np.float32)
+    return psi, view
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_x_and_y_stage_emulation_reproduces_plain_k4_and_k7(shape):
+    plan, c = _plain(shape)
+    psi, _ = _cqa_inputs(shape, 3)
+    u = fu.pass_a_plain(torch.from_numpy(psi), c)
+    assert _pair_rel(_emulate_pass_a(plan, psi), u) <= PAIR_RTOL
+    v = [t.numpy() for t in u]
+    assert _pair_rel([_emulate_pass_c(plan, v)], [fu.pass_c_plain(*u, c)]) <= PAIR_RTOL
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_cqa_emulation_reproduces_plain_k8(shape):
+    """K8's three launches: K7's inverse y stage, the x stage (inverse x
+    FFT, blurred = value · 1/X, q = view · (1/blurred), the transposed
+    forward stages, the split read at pos[k] and pos[X−k]) and K4's forward
+    y stage, with the pad rows of the output zero."""
+    plan, c = _plain(shape)
+    psi, view = _cqa_inputs(shape, 4)
+    u = fu.pass_a_plain(torch.from_numpy(psi), c)
+    want = fu.pass_cqa_plain(*u, torch.from_numpy(view), c)
+    got = _emulate_pass_cqa(plan, [t.numpy() for t in u], view)
+    assert _pair_rel(got, want) <= PAIR_RTOL
+    assert not got[:, plan.kxh :].any()
+
+
+def test_cqa_emulation_matches_jax_pass_cqa():
+    """The same emulation against the JAX package's pass CQA (its Pallas
+    kernel in interpret mode, ``precision="highest"``) at 16³."""
+    shape = (16, 16, 16)
+    psi, view = _cqa_inputs(shape, 5)
+    plan_j = fd.make_fused_plan(shape)
+    a = fd._run_pass_a(jnp.asarray(psi), plan_j, 8, True, "highest")
+    want = fd._run_pass_cqa(*a, jnp.asarray(view), plan_j, 8, interpret=True, precision="highest")
+    got = _emulate_pass_cqa(fp.make_fused_plan(shape), [np.asarray(t) for t in a], view)
+    assert _pair_rel(got, [np.asarray(t) for t in want]) <= PAIR_RTOL
 
 
 @pytest.mark.parametrize("n", [8, 200, 256, 264, 808, 832, 1016, 1024])

@@ -286,7 +286,7 @@ def test_auto_still_means_fft_and_fused_guards():
         ((512, 512, 512), True),  # bench config 2: R = 4 split stages
         ((256, 256, 384), False),  # y splits 3 ways
         ((256, 256, 1024), True),  # y splits 8 ways
-        ((256, 1024, 256), False),  # X past pass CQA's shared memory
+        ((256, 1024, 256), False),  # X past pass CUA's shared memory
         ((1024, 256, 256), False),  # Z past the z stage's edge
         ((736, 832, 256), True),  # Z and X at their bounds
         ((744, 256, 256), False),

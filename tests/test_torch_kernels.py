@@ -98,6 +98,34 @@ def test_quotient_matches_pallas(vol):
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
+def test_quotient_is_reciprocal_then_multiply():
+    """K2's order, which K8's x stage shares: view · (1/integral), rounded
+    twice, not view / integral, rounded once.  The inputs are drawn until
+    the two orders differ on many elements; the plain version (and the
+    wrapper on the CPU) must equal the first bitwise."""
+    rng = np.random.default_rng(2)
+    view = rng.uniform(0.0, 200.0, 4096).astype(np.float32)
+    integral = rng.uniform(0.5, 1.5, 4096).astype(np.float32)
+    want = view * (np.float32(1.0) / integral)
+    assert (want != view / integral).sum() > 100
+    for got in (ew.quotient_plain(_t(view), _t(integral)), ew.quotient(_t(view), _t(integral))):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k2_and_k8_share_one_quotient():
+    """One device function computes the quotient for K2 (elementwise.cu)
+    and for K8's x stage (fft_stage.cuh): lmvn::quotient_one, reciprocal
+    then multiply; neither source spells out a quotient of its own."""
+    csrc = _build._CSRC
+    header = (csrc / "rl_update.cuh").read_text()
+    body = header.split("float quotient_one(float view, float integral) {")[1].split("}")[0]
+    assert body.strip() == "return view * (1.f / integral);"
+    for name, kernel in (("elementwise.cu", "lmvn_quotient"), ("fft_stage.cuh", "x_cqa_kernel")):
+        source = (csrc / name).read_text()
+        assert "lmvn::quotient_one" in source and kernel in source, name
+        assert "(1.f /" not in source, name
+
+
 def _cplx(rng, shape):
     return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
 
