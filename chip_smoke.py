@@ -24,7 +24,8 @@ Phases, each raising on failure (there is no CPU fallback):
 8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
 9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
    their plain versions on the card at the 256³ and 512³ main-path shapes;
-   K4 (FFT stages) also against ``torch.fft.rfft2``;
+   K4 also against ``torch.fft.rfft2``; K9 bitwise against K1 of K7's
+   output (``rl_update(psi, pass_c(v))``);
 10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
     with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
     it/s and the slope, and held against the fft engine after 10 iterations;
@@ -33,23 +34,26 @@ Phases, each raising on failure (there is no CPU fallback):
 12. fused 512³: phase 7's configuration through the fused engine (K4 44);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
-    of ``ops.fused.fused_limit`` (small shapes), K4, K7 and K8 at lengths
-    with odd prime factors (the FFT stages' radix-3/5 and generic stages),
-    K8 also at y splits R = 1, 2, 4, 8 with X = 40 and 264 and in place, K5
-    and K6 at Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and
-    shapes past the limits refused before any launch;
+    of ``ops.fused.fused_limit`` (small shapes: X = 1816, where the x stage
+    fills a block's shared memory, Y = 3632, Z = 736, and Y = 384, X = 840),
+    K4 and K7 at lengths with odd prime factors (the FFT stages' radix-3/5
+    and generic stages), K8, K9 and K10 there too and at every y split R
+    from 1 to 8 with X = 40 and 264, out of place and in place, K5 and K6 at
+    Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and shapes past
+    the limits (X = 1824, Y = 3640, Z = 744) refused before any launch;
 15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
     256³ and 512³ (K5 also against ``torch.fft.fft`` over z, K7 against
-    ``torch.fft.irfft2``), and the dense
+    ``torch.fft.irfft2``), K10's psi' bitwise against K9's, and the dense
     spectrum forwarding (pass A + BF) against the z-sparse one for the bench
     kernels at 256³;
 16. carried chain: phases 10 and 12's configurations with
     ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 9 per 256³
     call), it/s, slope, and psi against the plain chain (within 1e-5: K10's
-    pass A is the GEMM form, the plain chain's K4 the FFT stages);
+    forward x FFT runs the transposed stages, K4's the stages after a
+    digit-reversed load, so the two round apart);
 17. dense forwarding on the main path: 4 views at (32, 512, 512) through
     ``deconvolve(algorithm="fused")`` (K5 8 per call), against the fft
-    engine;
+    engine, each timed over one call after a warm-up;
 18. the interleaved rung at full width (benchmarks/bench_streamed.py's
     configuration: 4 views 512³, per-voxel weights, chunk_z 64) on both
     engines: s/iteration, launch counts, the copy and compute of one view
@@ -95,10 +99,9 @@ THIN_SHAPE = (32, 512, 512)  # both bench kernels take the dense forwarding
 CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
-FUSED_SOURCE = "libmultiviewnative_torch/ops/csrc/fused.cu"
 FFT_SOURCE = "libmultiviewnative_torch/ops/csrc/fft_stage.cuh"
-SOURCES = {name: FUSED_SOURCE for name in ("pass_cu", "pass_cua")}
-SOURCES.update({name: FFT_SOURCE for name in ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa")})
+SOURCES = {name: FFT_SOURCE
+           for name in ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")}
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
@@ -124,10 +127,12 @@ TOLERANCE = 1e-6
 FUSED_TOLERANCE = 1e-5
 # (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at the
 # z stage's edge (736), a 5-way split z stage, an 8-way split y stage, X at
-# pass CUA's shared-memory bound, an unsplit Y at the FFT y stage's
-# shared-memory bound (8 rows of 3632); then one step past each bound
-EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 832), (8, 3632, 8))
-OVER_SHAPES = ((744, 8, 8), (8, 384, 8), (8, 8, 840), (8, 3640, 8))
+# the FFT x stage's shared-memory bound (16 sequences of 1816), an unsplit Y
+# at the FFT y stage's (8 rows of 3632), a 3-way split y stage and X = 840;
+# then one step past each bound
+EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 1816), (8, 3632, 8),
+               (8, 384, 8), (8, 8, 840))
+OVER_SHAPES = ((744, 8, 8), (8, 8, 1824), (8, 3640, 8))
 # lengths for K5 and K6's FFT z stage: Z = 200 (8·5·5), 264 (8·3·11), 712
 # (8·89), 736 (32·23), with Y a whole, a partial and a single column tile
 Z_SHAPES = ((200, 64, 8), (264, 48, 16), (712, 40, 8), (736, 24, 16))
@@ -135,9 +140,11 @@ GRAD_N = 16
 # lengths with odd prime factors for K4 and K7's FFT stages: X = 264 (8·3·11),
 # 808 (8·101), 832 (64·13); Y = 200 (8·5·5), 1016 (8·127), both at R = 1
 ODD_SHAPES = ((16, 200, 264), (8, 1016, 808), (8, 200, 832), (8, 1016, 264))
-# K8 (FFT stages throughout) at a y split of R = 1, 2, 4 and 8 with X of 40
-# (8·5) and 264, beside ODD_SHAPES
-CQA_SHAPES = ((8, 200, 40), (8, 256, 40), (8, 512, 40), (16, 1024, 264))
+# K8, K9 and K10 (C's y stage, the x stage, A's y stage) at a y split of
+# R = 1, 2, 4 and 8, and of R = 3, 5, 6 and 7 with X of 40 (8·5) and 264,
+# beside ODD_SHAPES
+SPLIT_SHAPES = ((8, 200, 40), (8, 256, 40), (8, 512, 40), (16, 1024, 264)) + tuple(
+    (8, y, x) for y in (384, 640, 768, 896) for x in (40, 264))
 # the H100 SXM's published peaks: HBM3 bytes/s and fp32 FLOP/s outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -574,7 +581,7 @@ def check_fp32_matmuls(torch):
 
 
 def phase_fused_kernels(torch, dev, records):
-    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
     from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
 
     log("# phase 9: fused kernels vs plain versions on the card")
@@ -623,7 +630,14 @@ def phase_fused_kernels(torch, dev, records):
             t = check_kernel(torch, records, name, what, kernel_fn, plain_fn, nbytes,
                              atol=atol, tol=FUSED_TOLERANCE, library=library)
             keep_timing(records, name, size, t, nbytes, flops[name])
-        del psi, view, u, v, buf, out, kre, kim
+        # K9 runs K7's stages and K1's lmvn::rl_one on the value K7 stores
+        k9 = fu.pass_cu(*v, psi, weights, plan, LAM, MIN_VALUE)
+        k1_of_k7 = ew.rl_update(psi, fu.pass_c(*v, plan), weights, LAM, MIN_VALUE)
+        same = bool(torch.equal(k9, k1_of_k7))
+        log(f"pass_cu {label}: K9 equals K1 of K7's output bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"pass_cu {label} differs from rl_update(pass_c(v))")
+        del psi, view, u, v, buf, out, kre, kim, k9, k1_of_k7
         torch.cuda.empty_cache()
 
 
@@ -756,7 +770,8 @@ def phase_fused_limits(torch, dev):
     from libmultiviewnative_torch.ops.fused_plan import fft_radices, make_fused_plan
     from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
-    log("# phase 14: fused kernels at the edges of their shape limits, and K4/K7/K8 at odd lengths")
+    log("# phase 14: fused kernels at the edges of their shape limits, K4/K7 at odd lengths,"
+        " K8-K10 there and at every y split")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernel = torch.from_numpy(gaussian_kernel((3, 3, 3), 1.0)).to(dev)
     for shape in EDGE_SHAPES:
@@ -788,20 +803,33 @@ def phase_fused_limits(torch, dev):
                 f" (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
-    for shape in ODD_SHAPES + CQA_SHAPES:
+    for shape in ODD_SHAPES + SPLIT_SHAPES:
         Z, Y, X = shape
         plan = make_fused_plan(shape)
         c = fu.plan_tensors(plan, dev)
         psi = torch.rand((Z, X, Y), generator=gen, device=dev) * 99.0 + 1.0
         view = torch.rand((Z, X, Y), generator=gen, device=dev) * 199.0 + 1.0
+        w = torch.rand((Z, X, Y), generator=gen, device=dev) * 0.5
         v = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in range(2))
-        # K8's input: pass A of psi, so the blurred estimate is psi, away from 0
+        # the input of K8, K9 and K10: pass A of psi, so the blurred estimate
+        # and the integral are psi, away from 0
         u = fu.pass_a_plain(psi, c)
-        inplace = tuple(t.clone() for t in u)
         cqa = fu.pass_cqa_plain(*u, view, c)
+        cu, cua_u = fu.pass_cua_plain(*u, psi, w, c, 0.0, MIN_VALUE)  # K10's psi' is K9's
+        # in place: K8's u over v, K9's psi' over psi, K10's both
+        u_in, p_in, p_in2, u_in2 = (tuple(t.clone() for t in u), psi.clone(), psi.clone(),
+                                    tuple(t.clone() for t in u))
+        k10_in = fu.pass_cua(*u_in2, p_in2, w, plan, 0.0, MIN_VALUE, out=p_in2, u_out=u_in2)
+        k10 = fu.pass_cua(*u, psi, w, plan, 0.0, MIN_VALUE)
         checks = (
             ("pass_cqa", fu.pass_cqa(*u, view, plan), cqa),
-            ("pass_cqa in place", fu.pass_cqa(*inplace, view, plan, out=inplace), cqa),
+            ("pass_cqa in place", fu.pass_cqa(*u_in, view, plan, out=u_in), cqa),
+            ("pass_cu", fu.pass_cu(*u, psi, w, plan, 0.0, MIN_VALUE), cu),
+            ("pass_cu in place", fu.pass_cu(*u, p_in, w, plan, 0.0, MIN_VALUE, out=p_in), cu),
+            ("pass_cua psi'", k10[0], cu),
+            ("pass_cua u", k10[1], cua_u),
+            ("pass_cua in place psi'", k10_in[0], cu),
+            ("pass_cua in place u", k10_in[1], cua_u),
         )
         if shape in ODD_SHAPES:
             checks += (
@@ -810,7 +838,7 @@ def phase_fused_limits(torch, dev):
             )
         for name, got, want in checks:
             err, scale = compare(torch, f"{name} {shape}", got, want)
-            log(f"{name:17s} ZYX={shape} R={plan.sy.R} (FFT radices x {fft_radices(X)},"
+            log(f"{name:22s} ZYX={shape} R={plan.sy.R} (FFT radices x {fft_radices(X)},"
                 f" y {fft_radices(Y)}):"
                 f" max_abs_err {err:.3e} rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
@@ -914,7 +942,13 @@ def phase_rest_kernels(torch, dev, records):
                              atol=atol, tol=FUSED_TOLERANCE,
                              groups=groups or (lambda o: (o,)), library=library)
             keep_timing(records, name, size, t, nbytes, flops[name])
-        del psi, v, uk, out, buf, kre, kim, weights, uk_c, natural
+        # K10's psi' comes out of the same x stage and update as K9's
+        k10, _ = fu.pass_cua(*v, psi, weights, plan, lam, MIN_VALUE)
+        same = bool(torch.equal(k10, fu.pass_cu(*v, psi, weights, plan, lam, MIN_VALUE)))
+        log(f"pass_cua {label}: K10's psi' equals K9's bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"pass_cua {label}: psi' differs from pass_cu's")
+        del psi, v, uk, out, buf, kre, kim, weights, uk_c, natural, k10
         torch.cuda.empty_cache()
 
     shape = (HEADLINE_N,) * 3
@@ -965,8 +999,8 @@ def phase_carried(torch, dev, rng, launches_out):
             os.environ["LMVN_FUSED_CARRY"] = "0"
             plain = run_n(ITERS)
             diff = float((carried - plain).abs().max()) / float(plain.abs().max())
-            # not bitwise: K10's pass A is the GEMM form, the plain chain's
-            # K4 the FFT stages
+            # not bitwise: K10's forward x FFT runs the transposed stages,
+            # the plain chain's K4 the stages after a digit-reversed load
             log(f"carried vs plain chain {label} after {ITERS} iterations: max|diff|/max|psi| ="
                 f" {diff:.3e} (tol 1e-5)")
             if not diff <= 1e-5:
@@ -1008,10 +1042,15 @@ def phase_thin(torch, dev, rng, launches_out):
                            "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, f"fused {THIN_SHAPE}")
     launches_out["pass_bf"] = counts["pass_bf"]
     check_output(torch, out, THIN_SHAPE, f"fused {THIN_SHAPE}")
+    run("fft")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fft = run("fft")
+    torch.cuda.synchronize()
+    fft_seconds = time.perf_counter() - t0
     diff = float((out - fft).abs().max()) / float(fft.abs().max())
-    log(f"fused {THIN_SHAPE}: {ITERS / seconds!r} it/s in one call; fused vs fft after {ITERS}"
-        f" iterations: max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
+    log(f"fused {THIN_SHAPE}: {ITERS / seconds!r} it/s in one call, fft {ITERS / fft_seconds!r};"
+        f" fused vs fft after {ITERS} iterations: max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
     if not diff <= 1e-3:
         raise AssertionError(f"fused (dense forwarding) and fft engines disagree: {diff:.3e}")
 

@@ -55,7 +55,7 @@ __device__ __forceinline__ size_t grid_stride() {
 }
 
 // ---------------------------------------------------------------- K1
-// the update itself is lmvn::rl_one (rl_update.cuh), shared with K9
+// the update itself is lmvn::rl_one (rl_update.cuh), shared with K9 and K10
 using lmvn::RlParams;
 using lmvn::rl_one;
 

@@ -1,13 +1,15 @@
 // Shared-memory mixed-radix FFT stages for Hopper (sm_90a), fp32: the x and y
-// stages of the fused engine's passes A (K4), C (K7) and CQA (K8), and the z
-// stage of passes B (K6) and BF (K5).
+// stages of the fused engine's passes A (K4), C (K7), CQA (K8), CU (K9) and
+// CUA (K10), and the z stage of passes B (K6) and BF (K5).
 //
 // They replace the DFT-as-matrix-product stages of the TPU kernels
 // _pass_a_kernel / _pass_c_kernel (libmultiviewnative_tpu/ops/pallas/
 // fused_dft2.py:986, :1209, reached by _run_pass_a :1703 and _run_pass_c
-// :1825), _pass_cqa_kernel (reached by _run_pass_cqa :1854: K8 runs K7's
-// inverse y stage, one x stage that holds inverse, quotient and forward,
-// and K4's y stage) and _pass_b_kernel / _pass_bf_kernel (the z stage
+// :1825), _pass_cqa_kernel, _pass_cu_kernel and _pass_cua_kernel (reached by
+// _run_pass_cqa :1854, _run_pass_cu :1909 and _run_pass_cua :1950: each runs
+// K7's inverse y stage, then one x stage that holds the inverse, the
+// pointwise step and, for CQA and CUA, the forward, and for those two K4's
+// y stage) and _pass_b_kernel / _pass_bf_kernel (the z stage
 // below).  The TPU computes a DFT as a product with a dense matrix because
 // its matrix unit makes products cheap; fp32 CUDA cores do not, and an
 // O(N^2) DFT on them costs 5-9x the HBM time of the pass.  An FFT does
@@ -452,67 +454,114 @@ __global__ void __launch_bounds__(kThreads)
   store_half_spectra<false>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
 }
 
-// K7 launch 2: out[z, x, cols] = scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x})
-// over k < Kx, w the hermitian doubling weights (1 at k = 0 and X/2, else 2),
-// scale = 1/X.
-__global__ void __launch_bounds__(kThreads)
-    x_inverse_kernel(float* __restrict__ out, const float* __restrict__ t_re,
-                     const float* __restrict__ t_im, const LmvnFft f, int Z,
-                     int Y, int Kx, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
-  load_half_spectra<true>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
-  __syncthreads();
-  run_stages<kXSeq, true>(buf, f);
-  float* plane = out + static_cast<size_t>(z) * X * Y;
-  for (int e = threadIdx.x; e < X * kXQuads; e += kThreads) {
-    const int x = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
-    if (c >= Y) continue;
-    const float4 v = *reinterpret_cast<const float4*>(buf + x * kXSeq + 2 * q);
-    *reinterpret_cast<float4*>(plane + static_cast<size_t>(x) * Y + c) =
-        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
-  }
-}
+// The x stages that start from half spectra, a block per (y-column tile of
+// kXCols, plane z): K7's, K8's, K9's and K10's.  load_half_spectra and the
+// inverse stages leave x in natural order in shared memory, where the value
+// K7 stores, value * scale (scale = 1/X: out[z, x, cols] =
+// scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x}) over k < Kx, w the hermitian
+// doubling weights), meets the pointwise op of the pass:
+//   K7   StoreOp      out = value                              FORWARD false
+//   K9   RlUpdateOp   out = psi' = lmvn::rl_one(psi, value, w)  FORWARD false
+//   K8   QuotientOp   q = lmvn::quotient_one(view, value)       FORWARD true
+//   K10  RlUpdateOp   psi' as K9's, stored to out               FORWARD true
+// K9 thus computes K1 of K7's output with the same operations, bit for bit,
+// and the integral volume is never stored.  FORWARD: the op's result
+// replaces the value in shared memory; run_stages_dif, the transposed
+// forward stages, take that natural order and leave frequency f at pos[f],
+// so no permutation runs between the two transforms; the hermitian split of
+// K4's x stage reads F_k and F_{X-k} there and stores rows k < Kx over the
+// block's column of t.  The block reads its whole column before its first
+// write and blocks own disjoint columns, so t is written in place (and then
+// read past the read-only cache).  Columns past Y load as zero half spectra,
+// hold zeros after the inverse, and are skipped by the op.
+//
+// An op reads its operands of the 4 columns at volume offset i (load), then
+// maps the 4 values there to its result (apply), storing what it stores.
+// The loads of kBatch vectors are issued before the first apply.
 
-// K8 launch 2, pass CQA's x stage, in place on the scratch pair t, whose
-// (z, cols) column holds the half spectra of the blurred estimate (after
-// K8's inverse y stage).  In shared memory: x_inverse_kernel's load and
-// inverse stages leave x in natural order; blurred = value * scale
-// (scale = 1/X) and q = lmvn::quotient_one(view, blurred), K2's quotient,
-// replace it in place (columns past Y hold q = 0); run_stages_dif, the
-// transposed forward stages, take that natural order and leave frequency f
-// at pos[f], so no permutation runs between the two transforms; the
-// hermitian split of K4's x stage reads F_k and F_{X-k} there and stores
-// rows k < Kx over the column.  The block reads its whole column before its
-// first write and blocks own disjoint columns, so t is written in place (and
-// read past the read-only cache).
+struct StoreOp {  // K7
+  float* out;
+  struct In {};
+  __device__ In load(size_t) const { return {}; }
+  __device__ float4 apply(In, float4 v, size_t i) const {
+    *reinterpret_cast<float4*>(out + i) = v;
+    return v;
+  }
+};
+
+struct QuotientOp {  // K8: K2's quotient against the view
+  const float* view;
+  using In = float4;
+  __device__ In load(size_t i) const {
+    return __ldg(reinterpret_cast<const float4*>(view + i));
+  }
+  __device__ float4 apply(In d, float4 v, size_t) const {
+    return make_float4(lmvn::quotient_one(d.x, v.x), lmvn::quotient_one(d.y, v.y),
+                       lmvn::quotient_one(d.z, v.z), lmvn::quotient_one(d.w, v.w));
+  }
+};
+
+// K9, K10: K1's update.  out may alias psi, so neither is __restrict__ and
+// psi bypasses the read-only cache; each thread reads its psi vector before
+// it writes the same vector of out.  w == NULL selects rp.w_scalar.
+struct RlUpdateOp {
+  const float* psi;
+  float* out;
+  const float* w;
+  lmvn::RlParams rp;
+  struct In {
+    float4 psi, w;
+  };
+  __device__ In load(size_t i) const {
+    In in;
+    in.psi = *reinterpret_cast<const float4*>(psi + i);
+    in.w = w ? __ldg(reinterpret_cast<const float4*>(w + i))
+             : make_float4(rp.w_scalar, rp.w_scalar, rp.w_scalar, rp.w_scalar);
+    return in;
+  }
+  __device__ float4 apply(In in, float4 v, size_t i) const {
+    const float4 r = make_float4(lmvn::rl_one(in.psi.x, v.x, in.w.x, rp),
+                                 lmvn::rl_one(in.psi.y, v.y, in.w.y, rp),
+                                 lmvn::rl_one(in.psi.z, v.z, in.w.z, rp),
+                                 lmvn::rl_one(in.psi.w, v.w, in.w.w, rp));
+    *reinterpret_cast<float4*>(out + i) = r;
+    return r;
+  }
+};
+
+template <bool FORWARD, class Op>
 __global__ void __launch_bounds__(kThreads)
-    x_cqa_kernel(float* t_re, float* t_im, const float* __restrict__ view,
-                 const LmvnFft f, int Z, int Y, int Kx, float scale) {
+    x_stage_kernel(float* t_re, float* t_im, const LmvnFft f, int Z, int Y,
+                   int Kx, float scale, const Op op) {
+  using In = typename Op::In;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
   const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
-  load_half_spectra<false>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
+  load_half_spectra<!FORWARD>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
   __syncthreads();
   run_stages<kXSeq, true>(buf, f);
-  const float* plane = view + static_cast<size_t>(z) * X * Y;
-  batched<float4>(
-      X * kXQuads, [&](int e) { return tile_quad(plane, e, c0, Y); },
-      [&](int e, float4 v) {
-        const int x = e / kXQuads, q = e % kXQuads;
+  const size_t plane = static_cast<size_t>(z) * X * Y;
+  batched<In>(
+      X * kXQuads,
+      [&](int e) {
+        const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+        return c < Y ? op.load(plane + static_cast<size_t>(x) * Y + c) : In{};
+      },
+      [&](int e, In in) {
+        const int x = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
+        if (c >= Y) return;
         float4* at = reinterpret_cast<float4*>(buf + x * kXSeq + 2 * q);
-        const float4 b = *at;
-        *at = c0 + 4 * q < Y
-                  ? make_float4(lmvn::quotient_one(v.x, b.x * scale),
-                                lmvn::quotient_one(v.y, b.y * scale),
-                                lmvn::quotient_one(v.z, b.z * scale),
-                                lmvn::quotient_one(v.w, b.w * scale))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v = *at;
+        const float4 r = op.apply(
+            in, make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale),
+            plane + static_cast<size_t>(x) * Y + c);
+        if (FORWARD) *at = r;
       });
-  __syncthreads();
-  run_stages_dif<kXSeq>(buf, f);
-  store_half_spectra<true>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
+  if constexpr (FORWARD) {
+    __syncthreads();
+    run_stages_dif<kXSeq>(buf, f);
+    store_half_spectra<true>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
+  }
 }
 
 // ------------------------------------------------------------ y stages
@@ -716,27 +765,18 @@ inline int x_forward(float* t_re, float* t_im, const float* xt,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int x_inverse(float* out, const float* t_re, const float* t_im,
-                     const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
+// The x stage of K7, K8, K9 or K10 on the scratch pair t (in place when
+// FORWARD).
+template <bool FORWARD, class Op>
+inline int x_stage(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y,
+                   int Kx, const Op& op, cudaStream_t s) {
   const size_t smem = x_smem(f.n);
   cudaError_t e = cudaFuncSetAttribute(
-      x_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      x_stage_kernel<FORWARD, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  x_inverse_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
-      out, t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n));
-  return static_cast<int>(cudaGetLastError());
-}
-
-inline int x_cqa(float* t_re, float* t_im, const float* view,
-                 const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
-  const size_t smem = x_smem(f.n);
-  cudaError_t e = cudaFuncSetAttribute(
-      x_cqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  x_cqa_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
-      t_re, t_im, view, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n));
+  x_stage_kernel<FORWARD, Op><<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
+      t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n), op);
   return static_cast<int>(cudaGetLastError());
 }
 

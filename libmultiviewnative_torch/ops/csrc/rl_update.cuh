@@ -1,8 +1,8 @@
 // The Richardson-Lucy update and the quotient of one voxel.  The update is
-// shared by K1 (elementwise.cu, lmvn_rl_update) and K9 (fused.cu, pass CU),
-// the quotient by K2 (elementwise.cu, lmvn_quotient) and K8's x stage
-// (fft_stage.cuh, x_cqa_kernel), so that for the same integral each pair
-// gives bitwise the same value.
+// shared by K1 (elementwise.cu, lmvn_rl_update) and the x stage of K9 and
+// K10 (fft_stage.cuh, x_stage_kernel with RlUpdateOp), the quotient by K2
+// (elementwise.cu, lmvn_quotient) and K8's x stage (QuotientOp), so that
+// for the same integral each gives bitwise the same value.
 //
 // The quotient: view * (1 / integral), reciprocal then multiply
 // (inc/cpu_kernels.h:20-26, core/kernels.py compute_quotient).

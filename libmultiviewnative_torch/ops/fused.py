@@ -30,23 +30,26 @@ the next (:func:`fused_rl_step_carried`):
   On the card, K7's y stage, one x stage that holds the inverse x FFT, K2's
   quotient and the forward x FFT in shared memory, and K4's y stage.
 * K9 :func:`pass_cu` replaces ``_run_pass_cu`` (:1909): y-inverse, x-irfft
-  and the RL update of K1; the integral volume is never stored.
+  and the RL update of K1; the integral volume is never stored.  On the
+  card, K7's two stages with K1's update in place of K7's store, so K9 is
+  K1 of K7's output bit for bit.
 * K10 :func:`pass_cua` replaces ``_run_pass_cua`` (:1950): K9, then pass A
-  of psi' from the same block, which keeps psi''s column in shared memory.
+  of psi'.  On the card, K8's three launches with K1's update in place of
+  the quotient: psi' is stored and kept in shared memory for the forward x
+  FFT.
 
 Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
 the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
-k in [Kx, Kxp) zero.  The kernels are in ``ops/csrc/fused.cu`` and, for K4 and
-K5-K7, ``ops/csrc/fft_stage.cuh``.
+k in [Kx, Kxp) zero.  The kernels are the FFT stages of
+``ops/csrc/fft_stage.cuh``, launched from the entries of ``ops/csrc/fused.cu``.
 
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
 tensor launches the kernel or raises.  Each pass call on the card adds one to
-:data:`launches`; a pass call is 2 (A and C), 1 (BF, B), 3 (CQA, CU) or 5
-(CUA) CUDA launches when the y stage is split (R > 1), and 2, 1, 3, 2 and 3
-when it is not.  All but BF and B write one scratch spectrum pair from
+:data:`launches`; a pass call is 2 (A, C, CU), 1 (BF, B) or 3 (CQA, CUA)
+CUDA launches.  All but BF and B write one scratch spectrum pair from
 ``torch.empty``.  The plain versions are the JAX package's matrix-product
-stages; the FFT stages of K4-K8 compute the same transforms.
+stages; the FFT stages compute the same transforms.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from ..core.wrap import wrap_kernel
 from . import _build
 from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
-    FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, pick_split, split_perm,
+    FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, split_perm,
 )
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -80,20 +83,18 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-# Shared memory per block of the kernels in ops/csrc/fused.cu and
-# fft_stage.cuh, in bytes (plan_ok there): the opt-in maximum, and the
-# bound of pass CUA 1 KB under it (kXcqaSmemMax).
+# The opt-in maximum of one block's shared memory, in bytes (kSmemMax in
+# ops/csrc/fused.cu, which plan_ok there holds every FFT stage to)
 _FFT_SMEM_MAX = 232448
-_XCQA_SMEM_MAX = _FFT_SMEM_MAX - 1024
 # kMaxZ in fused.cu: the edge the z stage has run at (phase 14 of chip_smoke.py)
 _Z_MAX = 736
 _CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
 
 
-def _xcqa_smem(X: int) -> int:
-    """Two RTile<64, 64> (16 x (68 + 68) floats), then pass CUA's (X, 64)
-    psi' column."""
-    return 2 * 4 * 16 * (68 + 68) + 4 * X * 64
+def _x_smem(X: int) -> int:
+    """The x stage of every pass but B and BF (``x_smem`` in ``ops/csrc/
+    fft_stage.cuh``): 16 sequences of X complex values."""
+    return 16 * 8 * X
 
 
 def _zstage_smem(Z: int) -> int:
@@ -103,7 +104,7 @@ def _zstage_smem(Z: int) -> int:
 
 
 def _fft_y_smem(Y: int) -> int:
-    """The y stage of passes A, C and CQA (``y_smem`` in ``ops/csrc/
+    """The y stage of every pass but B and BF (``y_smem`` in ``ops/csrc/
     fft_stage.cuh``): 16 rows of Y complex values up to 64 KB, else 8."""
     rows = 16 if 16 * 8 * Y <= 64 * 1024 else 8
     return rows * 8 * Y
@@ -118,40 +119,32 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     kernels (``plan_ok`` in ``ops/csrc/fused.cu``), which hold for every
     pass, since one plan serves them all:
 
-    * a split y stage of R in {1, 2, 4, 8} blocks (Y = 384, 640, 768 are
-      not): the y stages of passes CU and CUA;
     * Y <= 3632: 8 rows of Y complex values in one block's shared memory,
-      the FFT y stage of passes A, C and CQA.  Only an unsplit Y (R = 1, not
-      a multiple of 128) comes near it;
-    * X <= 832: the (X, 64) column in shared memory of pass CUA (X = 840
-      would fill the opt-in maximum exactly; it is not run);
+      the FFT y stage of every pass but B and BF.  Any split of Y (R blocks
+      of 128, R = 1 below 256) is served;
+    * X <= 1816: 16 sequences of X complex values in one block's shared
+      memory, the FFT x stage of every pass but B and BF (X = 1816 fills the
+      opt-in maximum exactly);
     * Z <= 736: the edge the z stage of passes B and BF has run at.  Its
       FFT z stage holds 16 columns of Z complex values (:func:`_zstage_smem`,
       94 KB at 736) and would fit up to Z = 1816; a larger bound is run at
       its new edge first.
 
-    :func:`.fused_plan.pick_split`'s M = 128 meets the kernels' other
-    conditions on M.  The FFT stages' own conditions follow from these: the
-    x stage's 16 columns of X fit (X <= 1816), and every prime factor of X,
-    Y and Z, a generic stage's radix, is at most 454, under its 1024."""
+    The FFT stages' other conditions follow from these: every prime factor
+    of X, Y and Z, a generic stage's radix, is at most 454, under its 1024,
+    and each length has at most 16 stages."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
     if device is None or torch.device(device).type != "cuda":
         return None
-    ry = pick_split(Y)[0]
-    if ry not in (1, 2, 4, 8):
-        return f"Y={Y} splits into R={ry} blocks of 128; the y stage takes R in 1, 2, 4, 8"
     if _fft_y_smem(Y) > _FFT_SMEM_MAX:
         return (
-            f"Y={Y}: the FFT y stage of passes A, C and CQA needs {_fft_y_smem(Y)} B of shared "
-            f"memory, over {_FFT_SMEM_MAX}"
+            f"Y={Y}: the FFT y stage needs {_fft_y_smem(Y)} B of shared memory, over "
+            f"{_FFT_SMEM_MAX}"
         )
-    if _xcqa_smem(X) > _XCQA_SMEM_MAX:
-        return (
-            f"X={X}: pass CUA needs {_xcqa_smem(X)} B of shared memory, "
-            f"over {_XCQA_SMEM_MAX}"
-        )
+    if _x_smem(X) > _FFT_SMEM_MAX:
+        return f"X={X}: the FFT x stage needs {_x_smem(X)} B of shared memory, over {_FFT_SMEM_MAX}"
     if Z > _Z_MAX:
         return f"Z={Z}: the z stage of passes B and BF has run up to Z={_Z_MAX}"
     return None
@@ -191,14 +184,8 @@ class _PlanArgs(ctypes.Structure):
     """``LmvnFusedPlan`` of ``ops/csrc/fused.cu``, field by field."""
 
     _fields_ = [
-        (n, ctypes.c_int) for n in ("Z", "X", "Y", "Kx", "Kxp", "Ry", "My", "Rz", "Mz", "pad_")
-    ] + [
-        (n, ctypes.c_void_p)
-        for n in ("fxp", "bxp", "wfy_re", "wfy_im", "wiy_re", "wiy_im", "om")
+        (n, ctypes.c_int) for n in ("Z", "X", "Y", "Kx", "Kxp", "Ry", "My", "Rz", "Mz")
     ] + [("fx", _FftArgs), ("fy", _FftArgs), ("fz", _FftArgs)]
-
-
-_OMEGA_FLOATS = 128  # per table: 2·R·R floats for R <= 8
 
 
 class PlanTensors:
@@ -221,11 +208,6 @@ class PlanTensors:
         self.args = None
         if device.type != "cuda":
             return
-        tables = []
-        for om in (plan.sy.omf, plan.sy.omi):
-            flat = np.stack([om.real, om.imag], axis=-1).astype(np.float32).reshape(-1)
-            tables.append(np.pad(flat, (0, _OMEGA_FLOATS - flat.size)))
-        self.om = t(np.concatenate(tables))
         ptr = lambda x: x.data_ptr()
         self.fft = []  # (tw, pos) tensors of the x, y and z FFT stages, kept alive
         ffts = []
@@ -237,10 +219,7 @@ class PlanTensors:
             radix = (ctypes.c_int * FFT_MAX_STAGES)(*st.radices)
             ffts.append(_FftArgs(n, len(st.radices), radix, ptr(tw), ptr(pos)))
         self.args = _PlanArgs(
-            Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, 0,
-            ptr(self.fxp), ptr(self.bxp),
-            ptr(self.wfy[0]), ptr(self.wfy[1]), ptr(self.wiy[0]), ptr(self.wiy[1]),
-            ptr(self.om), *ffts,
+            Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, *ffts,
         )
 
 
@@ -453,8 +432,8 @@ def _ptr(t):
 
 
 def _check_aligned(**tensors):
-    """The FFT stages of K4-K8 move 8- and 16-byte vectors: every tensor they
-    read or write starts on a 16-byte boundary (a fresh allocation does)."""
+    """The FFT stages move 8- and 16-byte vectors: every tensor they read or
+    write starts on a 16-byte boundary (a fresh allocation does)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for the CUDA pass")
@@ -604,6 +583,8 @@ def pass_cu(
     lib = _build.library()
     if out is None:
         out = torch.empty_like(psi_t)
+    _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out,
+                   **({"weights": weights} if per_voxel else {}))
     t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
     err = lib.lmvn_fused_pass_cu(
         dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(t_re), _ptr(t_im),
@@ -645,6 +626,8 @@ def pass_cua(
     if out is None:
         out = torch.empty_like(psi_t)
     u_re, u_im = _outputs(u_out, plan, v_re)
+    _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out, u_re=u_re, u_im=u_im,
+                   **({"weights": weights} if per_voxel else {}))
     t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
     err = lib.lmvn_fused_pass_cua(
         dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(u_re), _ptr(u_im),

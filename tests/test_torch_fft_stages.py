@@ -1,5 +1,6 @@
-"""The function the FFT stages of K4 (pass A), K7 (pass C), K6 (pass B) and
-K5 (pass BF) compute, and the tables they read.
+"""The function the FFT stages of K4 (pass A), K7 (pass C), K8 (pass CQA),
+K9 (pass CU), K10 (pass CUA), K6 (pass B) and K5 (pass BF) compute, and the
+tables they read.
 
 On the card, these passes run as shared-memory mixed-radix FFT stages
 (ops/csrc/fft_stage.cuh), which cannot run here.  So these tests hold what
@@ -13,7 +14,7 @@ the kernels must agree with, and the plan they follow:
 * a numpy emulation of the kernels' in-place decimation-in-time stages,
   reading the tables of ``fused_plan.make_fft_stages`` as the kernels do,
   reproduces ``np.fft.fft`` (and its unscaled inverse) to 1e-6 of max|·| at
-  every X the fused engine serves (8 to 832) and at Y of 200, 1016 and the
+  every X the fused engine serves (8 to 1816) and at Y of 200, 1016 and the
   split lengths; so does the emulation of the z stage's transposed forward
   stages (natural order in, frequency f at ``pos[f]`` out);
 * the emulation of the whole z stage (load, forward, the kernel spectrum
@@ -21,10 +22,16 @@ the kernels must agree with, and the plan they follow:
   to the tolerance of the plain passes;
 * the emulation of the x and y stages as the kernels run them (the loads at
   ``pos[]``, the hermitian edge rule and split, the split order of y)
-  reproduces the plain K4 and K7, and K8's three launches (K7's y stage,
+  reproduces the plain K4 and K7; K8's three launches (K7's y stage,
   the x stage that holds the inverse x FFT, K2's quotient and the
-  transposed forward stages, K4's y stage) reproduce the plain K8 and the
-  JAX package's pass CQA in Pallas interpret mode;
+  transposed forward stages, K4's y stage) reproduce the plain K8, K9's two
+  (K7's with K1's update in place of its store) the plain K9, and K10's
+  three (K8's with K1's update in place of the quotient) the plain K10, with
+  per-voxel and scalar weights at λ 0 and 0.006; each also reproduces the
+  JAX package's pass in Pallas interpret mode at 16³.  psi' at λ > 0 is
+  held to rtol 2e-4, atol 5e-5, as tests/test_torch_kernels.py holds K1:
+  PyTorch's CPU sqrt is an ulp off numpy's on some inputs near 1, which
+  the Tikhonov step's cancellation amplifies;
 * every length ``fused_limit`` admits on the card has a stage plan and a
   shared-memory size the kernels accept;
 * the ctypes mirror of the kernels' plan struct keeps the C layout.
@@ -50,7 +57,7 @@ FFT_RTOL = 1e-6
 # (Z, Y, X): R = 1 with a lane-misaligned X, R = 2, R = 4, odd prime
 # factors in both lengths (200 = 8·25, 264 = 8·3·11)
 SHAPES = [(8, 24, 40), (8, 256, 16), (8, 512, 24), (8, 200, 264)]
-X_LENGTHS = [8 * i for i in range(1, 105)]
+X_LENGTHS = [8 * i for i in range(1, 228)]
 Y_LENGTHS = [200, 256, 512, 968, 1016, 1024]
 
 
@@ -350,15 +357,48 @@ def _emulate_pass_c(plan, v):
     return _x_inverse(plan, _y_inverse(plan, v)).transpose(1, 0, 2)
 
 
-def _emulate_pass_cqa(plan, v, view):
-    """K8's three launches; the x stage keeps K7's blurred column, takes
-    lmvn::quotient_one against the view and runs the transposed forward
-    stages, whose frequency f sits at pos[f] for the split."""
+def _forward_half(plan, vol):
+    """The forward half of K8's and K10's x stage, then their last launch:
+    the transposed forward stages on the (X, Z, Y) values in natural order,
+    whose frequency f sits at pos[f] for the split, and K4's y stage."""
     Z, Y, _, _, _, fx, _ = _fused_stages(plan)
-    blurred = _x_inverse(plan, _y_inverse(plan, v))
-    q = view.transpose(1, 0, 2) * (np.float32(1.0) / blurred)
-    F = _run_stages_dif(fx, _pair_columns(q))
+    F = _run_stages_dif(fx, _pair_columns(vol))
     return _y_forward(plan, _store_half_spectra(F, fx.pos, Z, Y))
+
+
+def _emulate_pass_cqa(plan, v, view):
+    """K8's three launches; the x stage keeps K7's blurred column and takes
+    lmvn::quotient_one against the view before the forward half."""
+    blurred = _x_inverse(plan, _y_inverse(plan, v))
+    return _forward_half(plan, view.transpose(1, 0, 2) * (np.float32(1.0) / blurred))
+
+
+def _rl_one(psi, integral, w, lam, min_value):
+    """lmvn::rl_one (ops/csrc/rl_update.cuh) in float32, in its order:
+    value = psi·integral; Tikhonov (1/λ)·(sqrt(1 + (2λ)·value) − 1) where
+    λ > 0; min_value where value <= 0 or the result is not finite, else at
+    least min_value; psi' = w·(next − psi) + psi."""
+    f32 = np.float32
+    min_value = f32(min_value)
+    value = psi * integral
+    t = value
+    if lam > 0:
+        with np.errstate(invalid="ignore"):
+            t = (f32(1.0) / f32(lam)) * (np.sqrt(f32(1.0) + (f32(2.0) * f32(lam)) * value) - f32(1.0))
+    value = np.where(value > 0, t, min_value)
+    nxt = np.where(np.isnan(value) | np.isinf(value), min_value, np.maximum(value, min_value))
+    return (f32(w) * (nxt - psi) + psi).astype(np.float32)
+
+
+def _emulate_pass_cu(plan, v, psi, w, lam, min_value):
+    """K9's two launches: K7's, with rl_one on the value K7 stores."""
+    return _rl_one(psi, _emulate_pass_c(plan, v), w, lam, min_value)
+
+
+def _emulate_pass_cua(plan, v, psi, w, lam, min_value):
+    """K10's three launches: K9's psi', kept for the forward half."""
+    new = _emulate_pass_cu(plan, v, psi, w, lam, min_value)
+    return new, _forward_half(plan, new.transpose(1, 0, 2))
 
 
 def _cqa_inputs(shape, seed):
@@ -394,6 +434,84 @@ def test_cqa_emulation_reproduces_plain_k8(shape):
     got = _emulate_pass_cqa(plan, [t.numpy() for t in u], view)
     assert _pair_rel(got, want) <= PAIR_RTOL
     assert not got[:, plan.kxh :].any()
+
+
+def _rl_inputs(shape, seed):
+    """psi on [1, 100], an integral-like g on [-0.2, 2] (some values <= 0:
+    the clamp), weights on [0, 0.5].  K9 and K10 take v = pass A of g, so
+    the integral is g."""
+    Z, Y, X = shape
+    rng = np.random.default_rng(seed)
+    psi = rng.uniform(1.0, 100.0, (Z, X, Y)).astype(np.float32)
+    g = rng.uniform(-0.2, 2.0, (Z, X, Y)).astype(np.float32)
+    w = rng.uniform(0.0, 0.5, (Z, X, Y)).astype(np.float32)
+    return psi, g, w
+
+
+def _assert_psi(got, want, lam):
+    want = np.asarray(want)
+    if lam > 0:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
+    else:
+        assert _pair_rel([got], [want]) <= PAIR_RTOL
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.006])
+@pytest.mark.parametrize("weights", ["voxel", "scalar"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_cu_emulation_reproduces_plain_k9(shape, weights, lam):
+    """K9's two launches: K7's inverse y stage, then K7's x stage (the loads
+    at pos[], the edge rule, the inverse stages, value · 1/X) with
+    lmvn::rl_one against psi and w in place of K7's store."""
+    plan, c = _plain(shape)
+    psi, g, w = _rl_inputs(shape, 6)
+    wt = w if weights == "voxel" else np.float32(0.25)
+    v = fu.pass_a_plain(torch.from_numpy(g), c)
+    want = fu.pass_cu_plain(*v, torch.from_numpy(psi), torch.from_numpy(w) if weights == "voxel"
+                            else 0.25, c, lam, 1e-4)
+    _assert_psi(_emulate_pass_cu(plan, [t.numpy() for t in v], psi, wt, lam, 1e-4), want, lam)
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.006])
+@pytest.mark.parametrize("weights", ["voxel", "scalar"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_cua_emulation_reproduces_plain_k10(shape, weights, lam):
+    """K10's three launches: K9's, with psi' kept for the transposed forward
+    stages, the split read at pos[k] and pos[X−k], and K4's y stage; the pad
+    rows of u zero."""
+    plan, c = _plain(shape)
+    psi, g, w = _rl_inputs(shape, 7)
+    wt = w if weights == "voxel" else np.float32(0.25)
+    v = fu.pass_a_plain(torch.from_numpy(g), c)
+    want_psi, want_u = fu.pass_cua_plain(
+        *v, torch.from_numpy(psi), torch.from_numpy(w) if weights == "voxel" else 0.25, c, lam,
+        1e-4)
+    got_psi, got_u = _emulate_pass_cua(plan, [t.numpy() for t in v], psi, wt, lam, 1e-4)
+    _assert_psi(got_psi, want_psi, lam)
+    assert _pair_rel(got_u, want_u) <= PAIR_RTOL
+    assert not got_u[:, plan.kxh :].any()
+
+
+@pytest.mark.parametrize("which", ["cu", "cua"])
+def test_cu_and_cua_emulation_match_jax(which):
+    """The same emulations against the JAX package's pass CU (per-voxel
+    weights, λ 0.006) and pass CUA (scalar weight, λ 0) in Pallas
+    interpret mode at 16³."""
+    shape = (16, 16, 16)
+    psi, g, w = _rl_inputs(shape, 8)
+    plan_j = fd.make_fused_plan(shape)
+    run = dict(interpret=True, precision="highest")
+    a = fd._run_pass_a(jnp.asarray(g), plan_j, 8, True, "highest")
+    v, plan = [np.asarray(t) for t in a], fp.make_fused_plan(shape)
+    if which == "cu":
+        want = fd._run_pass_cu(*a, jnp.asarray(psi), jnp.asarray(w), plan_j, 8, 0.006, 1e-4, **run)
+        _assert_psi(_emulate_pass_cu(plan, v, psi, w, 0.006, 1e-4), want, 0.006)
+        return
+    want_psi, *want_u = fd._run_pass_cua(*a, jnp.asarray(psi), jnp.asarray(0.25), plan_j, 8, 0.0,
+                                         1e-4, **run)
+    got_psi, got_u = _emulate_pass_cua(plan, v, psi, np.float32(0.25), 0.0, 1e-4)
+    _assert_psi(got_psi, want_psi, 0.0)
+    assert _pair_rel(got_u, [np.asarray(t) for t in want_u]) <= PAIR_RTOL
 
 
 def test_cqa_emulation_matches_jax_pass_cqa():
@@ -454,7 +572,7 @@ def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
         rows = 16 if axis == "X" or 16 * 8 * n <= 64 * 1024 else 8
         assert rows * 8 * n <= smem_max, n
     if axis == "X":
-        assert admitted[-1] == 832
+        assert admitted[-1] == 1816
     elif axis == "Y":
         assert 1024 in admitted and admitted[-1] == 3632 and 8248 not in admitted
     else:
@@ -463,10 +581,10 @@ def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
 
 def test_plan_struct_mirrors_the_c_layout():
     """``LmvnFft`` (fft_stage.cuh): two ints, int radix[16], two pointers;
-    ``LmvnFusedPlan`` (fused.cu): ten ints, seven pointers, then fx, fy and
-    fz."""
+    ``LmvnFusedPlan`` (fused.cu): nine ints, then fx, fy and fz, the first
+    on the next 8-byte boundary."""
     assert ctypes.sizeof(fu._FftArgs) == 88
     assert (fu._FftArgs.radix.offset, fu._FftArgs.tw.offset, fu._FftArgs.pos.offset) == (8, 72, 80)
-    assert fu._PlanArgs.om.offset == 40 + 6 * 8
-    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset, fu._PlanArgs.fz.offset) == (96, 184, 272)
-    assert ctypes.sizeof(fu._PlanArgs) == 360
+    assert fu._PlanArgs.Mz.offset == 32
+    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset, fu._PlanArgs.fz.offset) == (40, 128, 216)
+    assert ctypes.sizeof(fu._PlanArgs) == 304

@@ -3,7 +3,7 @@
 interpret mode at ``precision="highest"`` as tests/test_pallas_ops.py runs it.
 
 On the CPU every pass wrapper runs its plain PyTorch version; the CUDA
-kernels (ops/csrc/fused.cu) are held against the same plain versions on the
+kernels (ops/csrc/fused.cu, fft_stage.cuh) are held against the same plain versions on the
 card by chip_smoke.py.
 
 Tolerances:
@@ -284,13 +284,17 @@ def test_auto_still_means_fft_and_fused_guards():
     "zxy, on_card",
     [
         ((512, 512, 512), True),  # bench config 2: R = 4 split stages
-        ((256, 256, 384), False),  # y splits 3 ways
+        ((256, 256, 384), True),  # y splits 3 ways
+        ((256, 256, 640), True),  # 5 ways
+        ((256, 256, 896), True),  # 7 ways
         ((256, 256, 1024), True),  # y splits 8 ways
-        ((256, 1024, 256), False),  # X past pass CUA's shared memory
+        ((256, 1024, 256), True),
         ((1024, 256, 256), False),  # Z past the z stage's edge
-        ((736, 832, 256), True),  # Z and X at their bounds
+        ((736, 832, 256), True),
         ((744, 256, 256), False),
-        ((256, 840, 256), False),
+        ((256, 840, 256), True),
+        ((16, 1816, 256), True),  # 16 sequences of the FFT x stage fill shared memory
+        ((16, 1824, 256), False),
         ((8, 8, 3632), True),  # R = 1: 8 rows of the FFT y stage fill shared memory
         ((8, 8, 3640), False),
     ],

@@ -4,7 +4,7 @@ it: K5 pass BF, K7 pass C, K10 pass CUA, the standalone fused convolve, the
 dense spectrum forwarding and the carried chain (``LMVN_FUSED_CARRY=1``).
 
 On the CPU every pass wrapper runs its plain PyTorch version; the CUDA
-kernels (ops/csrc/fused.cu) are held against the same plain versions on the
+kernels (ops/csrc/fused.cu, fft_stage.cuh) are held against the same plain versions on the
 card by chip_smoke.py (phases 14-17).
 
 Tolerances, as tests/test_torch_fused.py states them:

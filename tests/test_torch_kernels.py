@@ -114,16 +114,31 @@ def test_quotient_is_reciprocal_then_multiply():
 
 def test_k2_and_k8_share_one_quotient():
     """One device function computes the quotient for K2 (elementwise.cu)
-    and for K8's x stage (fft_stage.cuh): lmvn::quotient_one, reciprocal
-    then multiply; neither source spells out a quotient of its own."""
+    and for K8's x stage (fft_stage.cuh, its QuotientOp): lmvn::quotient_one,
+    reciprocal then multiply; neither source spells out a quotient of its
+    own."""
     csrc = _build._CSRC
     header = (csrc / "rl_update.cuh").read_text()
     body = header.split("float quotient_one(float view, float integral) {")[1].split("}")[0]
     assert body.strip() == "return view * (1.f / integral);"
-    for name, kernel in (("elementwise.cu", "lmvn_quotient"), ("fft_stage.cuh", "x_cqa_kernel")):
+    for name, kernel in (("elementwise.cu", "lmvn_quotient"), ("fft_stage.cuh", "QuotientOp")):
         source = (csrc / name).read_text()
         assert "lmvn::quotient_one" in source and kernel in source, name
         assert "(1.f /" not in source, name
+
+
+def test_k1_k9_and_k10_share_one_update():
+    """One device function computes the RL update for K1 (elementwise.cu)
+    and for the x stage of K9 and K10 (fft_stage.cuh, its RlUpdateOp):
+    lmvn::rl_one.  So K9 of a spectrum is K1 of K7's output bit for bit (the
+    x stage hands rl_one the value K7 stores), which chip_smoke.py checks on
+    the card; neither source spells out an update of its own."""
+    csrc = _build._CSRC
+    assert "float rl_one(float psi, float integral, float w," in (csrc / "rl_update.cuh").read_text()
+    for name, kernel in (("elementwise.cu", "lmvn_rl_update"), ("fft_stage.cuh", "RlUpdateOp")):
+        source = (csrc / name).read_text()
+        assert "rl_one(" in source and kernel in source, name
+        assert "sqrtf(" not in source, name
 
 
 def _cplx(rng, shape):
