@@ -17,10 +17,11 @@ Phases, each raising on failure (there is no CPU fallback):
    also at an odd shape and on unaligned operands (its scalar loop);
 4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
    iterations under the gates of tests/test_golden_regression.py;
-5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``,
-   with the launch counts of one call (40/40/80), it/s and the slope;
+5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``
+   on the fft engine, with the launch counts of one call (40/40/80), it/s and
+   the slope;
 6. prepared: the same data through prepare_workspace + deconvolve_prepared;
-7. 512³: 4 views with adjoint_kernel2 and scalar weights;
+7. 512³: 4 views with adjoint_kernel2 and scalar weights, fft engine;
 8. cross-check: CUDA against the port's CPU path at 4 views × 64³;
 9. fused kernels: K4 pass A, K6 pass B, K8 pass CQA and K9 pass CU against
    their plain versions on the card at the 256³ and 512³ main-path shapes;
@@ -65,7 +66,28 @@ Phases, each raising on failure (there is no CPU fallback):
     in the backward for each K3 product of the forward; a tensor λ that
     requires grad, and a fused pass on such an operand, raise; and the
     z-sparse spectrum forwarding under a caller's TF32 setting against its
-    fp32 result.
+    fp32 result;
+20. dft engine: phase 5's data through ``deconvolve(algorithm="dft")``
+    (K1 40, K2 40, K3 0 per call), it/s and slope, psi against the fft engine
+    after 10 iterations (1e-3); 512³ adjoint on the FullDFTPlan at 3
+    iterations; CUDA against the port's CPU dft path at 4 × 64³ (1e-4);
+21. direct engine: 4 views 64³ with 5³ kernels (shift-and-add) and 9³
+    kernels (cuDNN ``conv3d``) against the fft engine (1e-4), and the conv
+    under a caller's ``cudnn.allow_tf32 = True`` against the fp32
+    shift-and-add (1e-5), the caller's setting kept;
+22. the ``auto`` table: fft, dft and fused in turns at 4 views 64³ and 128³,
+    the 256³ headline and its prepared path, 512³ adjoint and (32, 512,
+    512), medians of two turns beside ``resolve_algorithm``'s pick
+    (printed, not asserted);
+23. the dispatch ladder: ``deconvolve_auto`` at 4 views 512³ with per-voxel
+    weights on pinned host tensors, 3 iterations, on its natural rung (in-core) and
+    on the interleaved and the streamed rung forced by ``headroom`` (from the
+    port's own estimates and ``device_capacity_bytes``), each shown by its
+    ``LMVN_TRACE`` line and held against in-core at rtol 2e-5, atol 2e-4,
+    with s/iteration and peak memory;
+24. models: ``RichardsonLucy().run`` on the headline data equals
+    ``deconvolve_auto`` bit for bit; ``WienerFilter`` on the card against
+    the CPU path (1e-4).
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -446,33 +468,45 @@ def check_output(torch, out, shape, what):
 def headline_data(torch, dev, rng):
     """bench.py's config 1: 4 views of gamma(2, 20) data at 256³, per-voxel
     weights 1/V, psi0 the mean."""
+    return cube_data(torch, dev, rng, HEADLINE_N)
+
+
+def cube_data(torch, dev, rng, n):
+    """4 views of gamma(2, 20) data at n³ with the bench kernels, per-voxel
+    weights 1/V, psi0 the mean."""
+    return shaped_data(torch, dev, rng, (n,) * 3)
+
+
+def shaped_data(torch, dev, rng, shape):
+    """4 views of gamma(2, 20) data of ``shape`` with the bench kernels,
+    per-voxel weights 1/V, psi0 the mean."""
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
-    shape = (HEADLINE_N,) * 3
     k1, k2 = bench_kernels()
     views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)).to(dev)
-    data = MultiViewData(
-        views=views,
-        kernel1=torch.from_numpy(k1).to(dev),
-        kernel2=torch.from_numpy(k2).to(dev),
-        weights=torch.full((V,) + shape, 1.0 / V, device=dev),
-    )
+    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
+                         torch.full((V,) + shape, 1.0 / V, device=dev))
     return data, torch.full(shape, float(views.mean()), device=dev)
+
+
+def thin_data(torch, dev, rng):
+    """Phase 17's stack, (32, 512, 512), where both bench kernels take the
+    dense forwarding."""
+    return shaped_data(torch, dev, rng, THIN_SHAPE)
 
 
 def phase_headline(torch, dev, rng, launches_out):
     from libmultiviewnative_torch.deconv.rl import (
-        deconvolve, deconvolve_prepared, prepare_workspace, resolve_algorithm,
+        deconvolve, deconvolve_prepared, prepare_workspace,
     )
     from libmultiviewnative_torch.ops import elementwise as ew
 
-    log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='auto'"
-        f" (runs {resolve_algorithm('auto')!r})")
+    log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='fft'")
     shape = (HEADLINE_N,) * 3
     data, psi0 = headline_data(torch, dev, rng)
 
     def run_n(n):
-        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fft")
 
     torch.cuda.synchronize()
     ew.reset_launches()
@@ -488,7 +522,7 @@ def phase_headline(torch, dev, rng, launches_out):
     log(f"headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
 
     log("# phase 6: prepared, the same data through prepare_workspace + deconvolve_prepared")
-    prepared = prepare_workspace(data, shape, algorithm="auto")
+    prepared = prepare_workspace(data, shape, algorithm="fft")
 
     def run_prepared_n(n):
         return deconvolve_prepared(psi0, data, prepared, n, lam=LAM, min_value=MIN_VALUE)
@@ -504,15 +538,16 @@ def phase_headline(torch, dev, rng, launches_out):
 
 
 def big_data(torch, dev, rng):
-    """Phase 7's 512³ data: 4 views of gamma(2, 20), bench kernel1 (used as
-    its own adjoint), scalar weights 1/V, psi0 the mean."""
+    """Phase 7's 512³ data: 4 views of gamma(2, 20) drawn on the card from a
+    seed of ``rng``, bench kernel1 (used as its own adjoint), scalar weights
+    1/V, psi0 the mean."""
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
     shape = (BIG_N,) * 3
     k1, _ = bench_kernels()
-    views = torch.empty((V,) + shape, device=dev)
-    for v in range(V):  # one view at a time bounds the host's float64 draw
-        views[v] = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32))
+    torch.manual_seed(int(rng.integers(2**31)))
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev), torch.tensor(1 / 20, device=dev))
+    views = gamma.sample((V,) + shape)
     k1_t = torch.from_numpy(k1).to(dev)
     data = MultiViewData(views, k1_t, k1_t, torch.full((V,), 1.0 / V, device=dev))
     return data, torch.full(shape, float(views.mean()), device=dev)
@@ -526,7 +561,7 @@ def phase_512(torch, dev, rng):
     data, psi0 = big_data(torch, dev, rng)
 
     def run_n(n):
-        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="auto",
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fft",
                           adjoint_kernel2=True)
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1017,15 +1052,10 @@ def phase_carried(torch, dev, rng, launches_out):
 
 def phase_thin(torch, dev, rng, launches_out):
     from libmultiviewnative_torch.deconv.rl import deconvolve
-    from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
     log(f"# phase 17: dense spectrum forwarding on the main path, 4 views at {THIN_SHAPE},"
         " algorithm='fused'")
-    k1, k2 = bench_kernels()
-    views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + THIN_SHAPE).astype(np.float32)).to(dev)
-    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
-                         torch.full((V,) + THIN_SHAPE, 1.0 / V, device=dev))
-    psi0 = torch.full(THIN_SHAPE, float(views.mean()), device=dev)
+    data, psi0 = thin_data(torch, dev, rng)
 
     def run(engine):
         return deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
@@ -1274,6 +1304,323 @@ def phase_grad(torch, dev):
             " against fp32): the check cannot see TF32")
 
 
+def timed_call(torch, fn):
+    """Seconds of one call that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_dft(torch, dev, rng):
+    """The matmul-DFT engine on the main path, its FullDFTPlan at 512³, and
+    CUDA against the port's CPU path."""
+    from libmultiviewnative_torch.core.dft import FullDFTPlan, make_plan
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import Workspace, initial_psi
+    from libmultiviewnative_torch.utils.synthetic import multiview_data
+
+    log(f"# phase 20: dft engine, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='dft'")
+    check_fp32_matmuls(torch)
+    shape = (HEADLINE_N,) * 3
+    data, psi0 = headline_data(torch, dev, rng)
+
+    def run_n(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="dft")
+
+    run_n(1)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = run_n(ITERS)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), {"rl_update": V * ITERS, "quotient": V * ITERS}, "dft headline")
+    check_output(torch, out, shape, "dft headline")
+    value, slope = rate(torch, run_n, reps=2)
+    log(f"dft headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
+    fft = deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="fft")
+    diff = float((out - fft).abs().max()) / float(fft.abs().max())
+    log(f"dft vs fft after {ITERS} iterations: max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"dft and fft engines disagree: {diff:.3e}")
+    del data, psi0, out, fft
+    torch.cuda.empty_cache()
+
+    big = (BIG_N,) * 3
+    if isinstance(make_plan(big, dev), FullDFTPlan) != (BIG_N > 256):
+        raise AssertionError(f"{big}: the FullDFTPlan serves every axis over 256, only those")
+    data, psi0 = big_data(torch, dev, rng)
+
+    def run_big(n):
+        return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="dft",
+                          adjoint_kernel2=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, t3 = timed_call(torch, lambda: run_big(3))
+    check_output(torch, out, big, f"dft {BIG_N}^3")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"dft 4view {BIG_N}^3 adjoint (FullDFTPlan): 3 iterations in {t3!r} s (the first call,"
+        f" plans included), peak {peak:.2f} GiB")
+    del data, psi0, out
+    torch.cuda.empty_cache()
+
+    ws = Workspace.from_views(
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1),
+        device="cpu",
+    )
+    psi_c = initial_psi(ws.data)
+    kw = dict(lam=LAM, min_value=MIN_VALUE, algorithm="dft")
+    cpu = deconvolve(psi_c, ws.data, 2, **kw)
+    gpu = deconvolve(psi_c.to(dev), ws.data.to(dev), 2, **kw).cpu()
+    err = float((gpu - cpu).abs().max()) / float(cpu.abs().max())
+    log(f"dft cuda vs cpu at 4 x {CROSS_N}^3, 2 iterations: max|diff|/max|psi| = {err:.3e}"
+        " (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"dft CUDA and CPU paths disagree: {err:.3e}")
+    return {"dft_headline": (value, slope), "dft_big_3_iterations_s": t3}
+
+
+def phase_direct(torch, dev):
+    """The direct engine at 64³: the shift-and-add stencil (5³) and cuDNN's
+    conv3d (9³) against the fft engine, and the conv held to fp32 under a
+    caller's ``cudnn.allow_tf32 = True``."""
+    import contextlib
+
+    from libmultiviewnative_torch.core import convolve as cv
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import Workspace, initial_psi
+    from libmultiviewnative_torch.utils.synthetic import multiview_data
+
+    log(f"# phase 21: direct engine, 4 views at {CROSS_N}^3, 2 iterations")
+    iters = 2
+    for k in (5, 9):
+        ws = Workspace.from_views(
+            multiview_data(V, (CROSS_N,) * 3, (k,) * 3, (k,) * 3, kernel="gaussian", seed=2),
+            device=dev,
+        )
+        psi0 = initial_psi(ws.data)
+
+        def run(engine):
+            return deconvolve(psi0, ws.data, iters, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
+
+        run("direct")
+        torch.cuda.synchronize()
+        reset_counts()
+        out, seconds = timed_call(torch, lambda: run("direct"))
+        expect_counts(read_counts(), {"rl_update": V * iters, "quotient": V * iters},
+                      f"direct {k}^3")
+        fft, fft_seconds = timed_call(torch, lambda: run("fft"))
+        diff = float((out - fft).abs().max()) / float(fft.abs().max())
+        path = "shift-and-add" if k**3 <= cv._STENCIL_TAP_LIMIT else "conv3d"
+        log(f"direct {k}^3 ({path}): {seconds / iters!r} s/iteration in one call, fft"
+            f" {fft_seconds / iters!r}; direct vs fft: max|diff|/max|psi| = {diff:.3e} (tol 1e-4)")
+        if not diff <= 1e-4:
+            raise AssertionError(f"direct ({path}) and fft engines disagree: {diff:.3e}")
+
+    cudnn = torch.backends.cudnn
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand((CROSS_N,) * 3, generator=gen, device=dev) * 100.0
+    kern = torch.rand((9, 9, 9), generator=gen, device=dev)
+    exact = cv.direct_convolve3d(x, kern, stencil="rolls")  # fp32 multiply-adds
+    saved = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        got = cv.direct_convolve3d(x, kern, stencil="conv")
+        kept = cudnn.allow_tf32
+        guard = cv.fp32_convs
+        cv.fp32_convs = contextlib.nullcontext  # what the pin prevents
+        try:
+            unpinned = cv.direct_convolve3d(x, kern, stencil="conv")
+        finally:
+            cv.fp32_convs = guard
+    finally:
+        cudnn.allow_tf32 = saved
+    err, scale = compare(torch, "conv3d under allow_tf32", got, exact)
+    loose, _ = compare(torch, "conv3d, TF32 allowed", unpinned, exact)
+    log(f"direct conv3d 9^3 at {CROSS_N}^3 with cudnn.allow_tf32 = True: max|diff|/max = "
+        f"{err / scale:.3e} against the fp32 shift-and-add (tol 1e-5); the caller's setting kept:"
+        f" {kept}; the same conv left to the caller's setting: {loose / scale:.3e} (logged only:"
+        " cuDNN may run fp32 there anyway)")
+    if not (err <= 1e-5 * scale and kept):
+        raise AssertionError(f"the direct conv left fp32 under allow_tf32: {err / scale:.3e}")
+
+
+# phase 22's rows: (label, data maker, deconvolve keywords, prepared,
+# iterations a call); 3 at 512³, where the dft engine takes a second an
+# iteration and the per-call constants are under 2 % of a call
+AUTO_ROWS = (
+    ("4 views 64^3", lambda t, d, r: cube_data(t, d, r, 64), {}, False, ITERS),
+    ("4 views 128^3", lambda t, d, r: cube_data(t, d, r, 128), {}, False, ITERS),
+    (f"4 views {HEADLINE_N}^3 headline", headline_data, {}, False, ITERS),
+    (f"4 views {HEADLINE_N}^3 prepared", headline_data, {}, True, ITERS),
+    (f"4 views {BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, False, 3),
+    (f"4 views {THIN_SHAPE}", thin_data, {}, False, ITERS),
+)
+AUTO_ENGINES = ("fft", "dft", "fused")
+
+
+def phase_auto_table(torch, dev, rng):
+    """fft, dft and fused in turns (fft, dft, fused, fused, dft, fft), one
+    timed call per turn after a warm-up, at each row of AUTO_ROWS; the median
+    of the two turns (it/s: iterations over the call's seconds) beside
+    ``resolve_algorithm``'s pick.  Printed, not asserted: the evidence for
+    the committed rule."""
+    from libmultiviewnative_torch.deconv import rl
+
+    log("# phase 22: the auto table, fft / dft / fused in turns, it/s of one call")
+    table = {}
+    for label, make, kw, prepared, iters in AUTO_ROWS:
+        data, psi0 = make(torch, dev, rng)
+        shape = tuple(psi0.shape)
+        spectra = {}
+        if prepared:
+            for engine in AUTO_ENGINES:
+                spectra[engine] = rl.prepare_workspace(data, shape, algorithm=engine)
+
+        def call(engine):
+            if prepared:
+                return rl.deconvolve_prepared(psi0, data, spectra[engine], iters, lam=LAM,
+                                              min_value=MIN_VALUE)
+            return rl.deconvolve(psi0, data, iters, lam=LAM, min_value=MIN_VALUE,
+                                 algorithm=engine, **kw)
+
+        turns = {engine: [] for engine in AUTO_ENGINES}
+        for engine in AUTO_ENGINES:
+            call(engine)  # warm-up: plans, cuFFT plans, cuBLAS handles
+        for engine in AUTO_ENGINES + AUTO_ENGINES[::-1]:
+            _, seconds = timed_call(torch, lambda: call(engine))
+            turns[engine].append(iters / seconds)
+        rates = {engine: statistics.median(t) for engine, t in turns.items()}
+        pick = rl.resolve_algorithm("auto", shape, dev)
+        best = max(rates, key=rates.get)
+        spread = {engine: abs(t[0] - t[1]) / statistics.median(t) for engine, t in turns.items()}
+        log(f"auto table {label}, {iters} iterations a call: " + ", ".join(
+            f"{e} {rates[e]!r} it/s (turns {turns[e][0]:.2f}, {turns[e][1]:.2f})"
+            for e in AUTO_ENGINES)
+            + f"; fastest {best}, auto picks {pick} ({rates[pick] / rates[best]:.3f} of the"
+              " fastest)")
+        table[label] = {"it_s": rates, "turns": turns, "spread": spread, "pick": pick,
+                        "fastest": best}
+        del data, psi0, spectra
+        torch.cuda.empty_cache()
+    log("auto table: " + json.dumps(table))
+    return table
+
+
+def phase_ladder(torch, dev):
+    """``deconvolve_auto`` at 4 views 512³ with per-voxel weights on each rung
+    of the ladder: its natural decision, then the interleaved and the
+    streamed rung forced by ``headroom``, each against in-core sequential."""
+    import contextlib
+    import io
+
+    from libmultiviewnative_torch.deconv import dispatch
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+
+    shape = (BIG_N,) * 3
+    iters = 3
+    log(f"# phase 23: the dispatch ladder, 4 views at {BIG_N}^3, per-voxel weights 1/V,"
+        f" {iters} iterations, lam {LAM}")
+    torch.manual_seed(23)
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev), torch.tensor(1 / 20, device=dev))
+    k1, k2 = bench_kernels()
+    # the stacks live on the host, as a caller with a stack larger than the
+    # card holds them, pinned once as one streaming many stacks keeps them;
+    # the in-core rung moves them to the card
+    data = MultiViewData(
+        torch.stack([gamma.sample(shape).cpu() for _ in range(V)]).pin_memory(),
+        torch.from_numpy(k1), torch.from_numpy(k2),
+        torch.full((V,) + shape, 1.0 / V).pin_memory(),
+    )
+    psi0 = torch.full(shape, float(data.views[0].mean()))
+    capacity = dispatch.device_capacity_bytes(dev)
+    est = dispatch.estimate_workspace_bytes(data, "auto", dev)
+    est_il = dispatch.estimate_interleaved_bytes(data, "auto", dev)
+    log(f"device capacity {capacity >> 20} MiB; in-core estimate {est >> 20} MiB, interleaved"
+        f" {est_il >> 20} MiB")
+    headrooms = {"in-core": 0.9, "interleaved": (est_il + est) / 2 / capacity,
+                 "streamed": est_il / 2 / capacity}
+    saved = os.environ.get("LMVN_TRACE")
+    os.environ["LMVN_TRACE"] = "1"
+    results, incore = {}, None
+    try:
+        for rung, headroom in headrooms.items():
+            def run(n):
+                return dispatch.deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
+                                                headroom=headroom, device=dev)
+
+            lines = io.StringIO()
+            with contextlib.redirect_stdout(lines):
+                run(1)  # warm-up: plans, first pinning, the allocator's pools
+                _, t1 = timed_call(torch, lambda: run(1))
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, t3 = timed_call(torch, lambda: run(iters))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            step = (t3 - t1) / (iters - 1)
+            trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
+            log(f"ladder headroom {headroom:.4f}: " + " | ".join(trace))
+            if not any(f"dispatch: {rung} on one device" in ln for ln in trace):
+                raise AssertionError(f"headroom {headroom:.4f} did not select the {rung} rung")
+            if out.device.type != "cpu":
+                raise AssertionError(f"the {rung} rung returned a tensor on {out.device}")
+            check_output(torch, out, shape, f"ladder {rung}")
+            if incore is None:
+                incore = out
+            excess = float(((out - incore).abs() - (2e-4 + 2e-5 * incore.abs())).max())
+            rel = float((out - incore).abs().max()) / float(incore.abs().max())
+            log(f"ladder {rung}: {step!r} s/iteration ((t{iters} - t1) / {iters - 1}; t{iters}"
+                f" {t3!r} s), peak device memory {peak:.2f} GiB; against in-core: max|diff|/max|psi|"
+                f" {rel:.3e}, within rtol 2e-5, atol 2e-4: {excess <= 0}")
+            if not excess <= 0:
+                raise AssertionError(f"the {rung} rung disagrees with in-core sequential")
+            results[rung] = {"s_per_iteration": step, "peak_gib": peak, "rel": rel}
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("LMVN_TRACE", None)
+        else:
+            os.environ["LMVN_TRACE"] = saved
+    log("ladder: " + json.dumps(results))
+    return results
+
+
+def phase_models(torch, dev, rng):
+    """RichardsonLucy().run on the headline data is deconvolve_auto, bitwise;
+    WienerFilter on the card against the CPU path."""
+    from libmultiviewnative_torch.deconv.dispatch import deconvolve_auto
+    from libmultiviewnative_torch.deconv.workspace import Workspace, initial_psi
+    from libmultiviewnative_torch.models import RichardsonLucy, WienerFilter
+    from libmultiviewnative_torch.utils.synthetic import multiview_data
+
+    log(f"# phase 24: models, RichardsonLucy on the {HEADLINE_N}^3 headline data, WienerFilter")
+    data, _ = headline_data(torch, dev, rng)
+    model = RichardsonLucy(num_iterations=ITERS, lambda_=LAM, min_value=MIN_VALUE, device=dev)
+    model.run(data)
+    got, seconds = timed_call(torch, lambda: model.run(data))
+    want = deconvolve_auto(initial_psi(data), data, ITERS, lam=LAM, min_value=MIN_VALUE, device=dev)
+    same = bool(torch.equal(got, want))
+    log(f"RichardsonLucy().run at {HEADLINE_N}^3 ({ITERS / seconds!r} it/s in one call after a"
+        " warm-up) equals"
+        f" deconvolve_auto bit for bit: {same}")
+    if not same:
+        raise AssertionError("RichardsonLucy().run differs from deconvolve_auto")
+    WienerFilter().run(data)
+    wiener, w_seconds = timed_call(torch, lambda: WienerFilter().run(data))
+    check_output(torch, wiener, tuple(got.shape), "WienerFilter")
+    del data, got, want, wiener
+    ws = Workspace.from_views(
+        multiview_data(V, (CROSS_N,) * 3, (9, 9, 9), (9, 9, 9), kernel="gaussian", seed=1),
+        device="cpu",
+    )
+    cpu = WienerFilter().run(ws.data)
+    gpu = WienerFilter().run(ws.data.to(dev)).cpu()
+    err = float((gpu - cpu).abs().max()) / float(cpu.abs().max())
+    log(f"WienerFilter at {HEADLINE_N}^3: {1e3 * w_seconds:.3f} ms in one call; cuda vs cpu at"
+        f" 4 x {CROSS_N}^3: max|diff|/max = {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"WienerFilter CUDA and CPU paths disagree: {err:.3e}")
+
+
 def main():
     import torch
 
@@ -1307,6 +1654,15 @@ def main():
     phase_interleaved(torch, dev, launches)
     torch.cuda.empty_cache()
     phase_grad(torch, dev)
+    torch.cuda.empty_cache()
+
+    rates.update(phase_dft(torch, dev, rng))
+    phase_direct(torch, dev)
+    torch.cuda.empty_cache()
+    phase_auto_table(torch, dev, rng)
+    phase_ladder(torch, dev)
+    torch.cuda.empty_cache()
+    phase_models(torch, dev, rng)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -8,15 +8,20 @@ kernels; tensors on a CUDA device run the kernels of ``ops/csrc/``, built
 with nvcc at first use.
 
 Ported so far: ``deconvolve`` in both view orders, with prepared spectra and
-convergence history, on two engines: ``"fft"`` (cuFFT and the elementwise
-kernels K1-K3) and ``"fused"`` (the fused RL step at fp32, kernels K4-K10:
+convergence history, on four engines: ``"fft"`` (cuFFT and the elementwise
+kernels K1-K3), ``"fused"`` (the fused RL step at fp32, kernels K4-K10:
 the five-pass chain, the carried four-pass chain with ``LMVN_FUSED_CARRY=1``
-and the dense spectrum forwarding); and the interleaved out-of-core rung,
-``deconv.interleaved.deconvolve_interleaved``, on both engines.
-``algorithm="auto"`` means ``"fft"``.
+and the dense spectrum forwarding), ``"dft"`` (matrix-product DFTs,
+:mod:`.core.dft`) and ``"direct"`` (spatial convolves); ``"auto"`` picks
+one by shape and device (:func:`.deconv.rl.resolve_algorithm`).  The
+single-device dispatch ladder, :func:`deconvolve_auto` (in-core, the
+interleaved rung and the streamed rung), and the models
+:class:`RichardsonLucy` and :class:`WienerFilter` are the entry points a
+user calls.
 """
 
-from .core.convolve import convolve_spectrum, fft_convolve3d
+from .core.convolve import convolve3d, convolve_spectrum, direct_convolve3d, fft_convolve3d
+from .core.dft import dft3, dft_convolve_spectrum, idft3, set_matmul_precision
 from .core.fft import irfft3, rfft3
 from .core.kernels import (
     compute_quotient,
@@ -25,8 +30,11 @@ from .core.kernels import (
     rl_update,
 )
 from .core.wrap import wrap_kernel
+from .deconv.dispatch import DispatchDivergenceWarning, deconvolve_auto
 from .deconv.rl import deconvolve, rl_view_step
+from .deconv.streamed import deconvolve_streamed
 from .deconv.workspace import MultiViewData, View, Workspace, initial_psi
+from .models import RichardsonLucy, WienerFilter, wiener_deconvolve
 
 __version__ = "0.1.0"
 
@@ -36,12 +44,24 @@ __all__ = [
     "Workspace",
     "initial_psi",
     "deconvolve",
+    "deconvolve_auto",
+    "deconvolve_streamed",
+    "DispatchDivergenceWarning",
+    "RichardsonLucy",
+    "WienerFilter",
+    "wiener_deconvolve",
     "rl_view_step",
     "wrap_kernel",
     "rfft3",
     "irfft3",
     "convolve_spectrum",
     "fft_convolve3d",
+    "direct_convolve3d",
+    "convolve3d",
+    "dft3",
+    "idft3",
+    "dft_convolve_spectrum",
+    "set_matmul_precision",
     "compute_quotient",
     "final_values",
     "regularized_final_values",

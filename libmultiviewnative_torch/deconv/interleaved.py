@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.convolve import convolve_spectrum
+from ..core.dft import dft_convolve_spectrum, kernel_spectrum_split
 from ..core.fft import rfft3
 from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
@@ -42,14 +43,14 @@ from .rl import resolve_algorithm
 Bounds = List[Tuple[int, int]]
 
 
-def _resolve_engine(algorithm: str) -> str:
-    """fft or fused; ``"auto"`` as :func:`.rl.resolve_algorithm` has it
-    (fft), ``"dft"`` raises NotImplementedError (ROADMAP P8)."""
+def _resolve_engine(algorithm: str, shape, device) -> str:
+    """fft, dft or fused; ``"auto"`` as :func:`.rl.resolve_algorithm` has it
+    for the whole volume on ``device``."""
     if algorithm not in ("fft", "dft", "fused", "auto"):
         raise ValueError(
             f"interleaved rung supports algorithm 'fft'|'dft'|'fused'|'auto', got {algorithm!r}"
         )
-    return resolve_algorithm(algorithm)
+    return resolve_algorithm(algorithm, shape, device)
 
 
 def chunk_bounds(Z: int, chunk_z: int) -> Bounds:
@@ -61,14 +62,19 @@ def engine_spectra(engine: str, kernels1, kernels2, shape, device):
     """(ops1, ops2, convolve) of an engine, the spectra forwarded once on
     ``device``: ``convolve(x, op)`` convolves a (Z, Y, X) device volume
     with one view's kernel.  fft: complex ``rfft3`` spectra through cuFFT
-    and K3.  fused: (re, im) pairs from :func:`kernel_spectrum_fused`
-    through passes A, B and C (the volume is transposed in and out)."""
+    and K3.  dft: (re, im) pairs from :func:`kernel_spectrum_split` through
+    the matrix-product DFT.  fused: (re, im) pairs from
+    :func:`kernel_spectrum_fused` through passes A, B and C (the volume is
+    transposed in and out)."""
     Z, Y, X = shape
     dev = torch.device(device)
     kernels = [[_host(k).to(dev) for k in ks] for ks in (kernels1, kernels2)]
     if engine == "fft":
         ops = [[rfft3(wrap_kernel(k, shape)) for k in ks] for ks in kernels]
         return ops[0], ops[1], convolve_spectrum
+    if engine == "dft":
+        ops = [[kernel_spectrum_split(k, shape) for k in ks] for ks in kernels]
+        return ops[0], ops[1], lambda x, op: dft_convolve_spectrum(x, *op)
     check_transposed_shape((Z, X, Y), dev)
     ops = [[kernel_spectrum_fused(k, shape) for k in ks] for ks in kernels]
     return ops[0], ops[1], lambda x, op: fused_convolve_spectrum(x, *op)
@@ -195,13 +201,12 @@ def deconvolve_interleaved(
 
     ``psi``, ``views[v]`` and per-voxel ``weights[v]`` are (Z, Y, X) host
     numpy arrays or CPU tensors; ``weights[v]`` may be a scalar.  Kernels are
-    host arrays too.  ``algorithm``: ``"fft"``, ``"fused"`` or ``"auto"``
-    (which means ``"fft"``, as in :func:`.rl.resolve_algorithm`); ``"dft"``
-    is not ported.  ``device`` is the PyTorch device the work runs on; on
+    host arrays too.  ``algorithm``: ``"fft"``, ``"dft"``, ``"fused"`` or
+    ``"auto"`` (:func:`.rl.resolve_algorithm` of the volume on ``device``).
+    ``device`` is the PyTorch device the work runs on; on
     ``"cpu"`` the kernels' plain versions run and nothing streams.  Returns
     the final psi as a numpy array.
     """
-    engine = _resolve_engine(algorithm)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deconvolve_interleaved: device='cuda' but CUDA is not available")
@@ -209,6 +214,7 @@ def deconvolve_interleaved(
     shape = as_shape(psi_host.shape)
     if psi_host.ndim != 3:
         raise ValueError(f"psi must be one (Z, Y, X) volume, got shape {tuple(psi_host.shape)}")
+    engine = _resolve_engine(algorithm, shape, dev)
     V = len(views)
     if not (len(kernels1) == len(kernels2) == len(weights) == V):
         raise ValueError("views, kernels1, kernels2 and weights must have one entry per view")

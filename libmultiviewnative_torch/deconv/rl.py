@@ -1,5 +1,5 @@
-"""Richardson-Lucy deconvolution drivers (single device): the fft and fused
-engines.
+"""Richardson-Lucy deconvolution drivers (single device): the fft, fused,
+dft and direct engines.
 
 Counterpart of ``libmultiviewnative_tpu/deconv/rl.py``, and of the
 reference's CPU and GPU RL loops (``src/multiviewnative.cpp:101-240``,
@@ -23,25 +23,29 @@ sequential order as the carried chain instead: four passes per view step
 (K6, K8, K6, K10), pass A of psi carried from one step to the next and
 seeded once per call (:func:`_carry_enabled`).
 
+``algorithm="dft"`` convolves by matrix-product DFTs (:mod:`..core.dft`)
+and ``"direct"`` in the spatial domain (:func:`..core.convolve.
+direct_convolve3d`); both take the quotient through K2 and the update
+through K1, as the fft engine does.
+
 PyTorch runs eagerly, so there is no ``deconvolve_jit``: :func:`deconvolve`
 takes its role, and λ/min_value are runtime values on every call.
-
-Engines: ``"fft"`` and ``"fused"``.  ``"auto"`` resolves to ``"fft"``: which
-engine it should pick is for an H100 measurement to decide (ROADMAP slice 3).
-:func:`resolve_algorithm` says what a request runs, and the module logger
-records it at DEBUG.  ``"dft"`` and ``"direct"`` raise
-:class:`NotImplementedError`.
+:func:`resolve_algorithm` says which engine ``"auto"`` runs, for every
+caller (in-core, interleaved, streamed and the dispatch ladder), and the
+module logger records it at DEBUG.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..core.convolve import convolve_spectrum
+from ..core.convolve import convolve_spectrum, direct_convolve3d
+from ..core.dft import dft3, dft_convolve_spectrum, make_plan
 from ..core.fft import rfft3, stack_spectra
 from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
@@ -58,22 +62,50 @@ from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED = {
-    "dft": "the matmul-DFT engine is not ported yet (ROADMAP P8)",
-    "direct": "the direct stencil engine is not ported yet (ROADMAP P4, direct_convolve3d)",
-}
+ENGINES = ("fft", "dft", "fused", "direct")
 
 
-def resolve_algorithm(algorithm: str) -> str:
-    """The engine a request runs: ``"auto"`` means ``"fft"`` in the port
-    until an H100 measurement decides otherwise; unported engines raise."""
-    if algorithm == "auto":
-        algorithm = "fft"
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(f"algorithm={algorithm!r}: {_NOT_PORTED[algorithm]}")
-    if algorithm not in ("fft", "fused"):
-        raise ValueError(f"unknown algorithm {algorithm!r}")
-    return algorithm
+def _auto_device(device) -> torch.device:
+    """The device an ``"auto"`` request is resolved for: ``device``, or the
+    card when there is one."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = False) -> str:
+    """The engine a request runs on ``device`` (default: the card when there
+    is one) for a (Z, Y, X) ``spatial_shape``; ``chunk`` marks a streamed
+    rung's halo-extended chunk, which never takes the fused engine.
+
+    On the CPU, ``"auto"`` is the JAX package's rule on a CPU backend: dft
+    up to 256 per axis, fft above, never fused.  On a CUDA device it is
+    :func:`_cuda_auto`, the table measured on the H100.  Other names are
+    returned as they are, or raise ``ValueError`` when unknown."""
+    if algorithm != "auto":
+        if algorithm not in ENGINES:
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        return algorithm
+    spatial = tuple(int(s) for s in spatial_shape[-3:])
+    dev = _auto_device(device)
+    if dev.type != "cuda":
+        return "dft" if max(spatial) <= 256 else "fft"
+    return _cuda_auto(spatial, dev, chunk)
+
+
+def _cuda_auto(spatial, device: torch.device, chunk: bool) -> str:
+    """``"auto"`` on a CUDA device, the table ``chip_smoke.py`` phase 22
+    measured on an NVIDIA H100 (``PERF.md`` §6): the fused engine where
+    every axis is at least 256 and :func:`fused_eligible` holds, else fft.
+
+    It departs from the JAX package's rule (``rl.py:355-368``) in two rows,
+    each beyond the turn-to-turn spread: below 256 per axis fft beat dft by
+    3.6-3.9x (JAX picks dft), and at (32, 512, 512) by 1.18x over fused (JAX
+    picks fused: its rule looks at the longest axis).  dft lost every row,
+    so ``"auto"`` never picks it here; a streamed chunk takes fft."""
+    if not chunk and min(spatial) >= 256 and fused_eligible(spatial, device):
+        return "fused"
+    return "fft"
 
 
 def fused_eligible(spatial_shape, device=None) -> bool:
@@ -126,6 +158,14 @@ def prepare_spectra_fused(kernels: torch.Tensor, spatial_shape: Sequence[int]):
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
+def prepare_spectra_split(kernels: torch.Tensor, spatial_shape: Sequence[int]):
+    """The (re, im) pair of a (V, kz, ky, kx) kernel stack's spectra in the
+    :func:`..core.dft.dft3` layout (JAX ``rl.py:261-268``)."""
+    spatial = as_shape(spatial_shape)
+    wrapped = torch.stack([wrap_kernel(k.to(torch.float32), spatial) for k in kernels])
+    return dft3(wrapped, make_plan(spatial, kernels.device))
+
+
 # One view's update through the fused engine, in the (Z, X, Y) transposed
 # domain, with rl_view_step's arguments: psi, view and per-voxel weights
 # transposed, kernel spectra as fused (Kxp, Z, Y) (re, im) pairs.
@@ -156,12 +196,49 @@ def rl_view_step(
     return rl_update(psi, integral, weights, lam, min_value, out=out)
 
 
+def rl_view_step_dft(
+    psi: torch.Tensor,
+    view: torch.Tensor,
+    k1_split: Tuple[torch.Tensor, torch.Tensor],
+    k2_split: Tuple[torch.Tensor, torch.Tensor],
+    weights,
+    lam,
+    min_value: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The view step with the matmul-DFT engine (:mod:`..core.dft`): the
+    kernel spectra are (re, im) pairs in the dft3 layout."""
+    integral = dft_convolve_spectrum(psi, *k1_split)
+    integral = quotient(view, integral, out=integral)
+    integral = dft_convolve_spectrum(integral, *k2_split)
+    return rl_update(psi, integral, weights, lam, min_value, out=out)
+
+
+def rl_view_step_direct(
+    psi: torch.Tensor,
+    view: torch.Tensor,
+    kernel1: torch.Tensor,
+    kernel2: torch.Tensor,
+    weights,
+    lam,
+    min_value: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The view step with the direct engine: both convolves circular in the
+    spatial domain (:func:`..core.convolve.direct_convolve3d`), the kernels
+    as they are."""
+    integral = direct_convolve3d(psi, kernel1, mode="circular")
+    integral = quotient(view, integral, out=integral)
+    integral = direct_convolve3d(integral, kernel2, mode="circular")
+    return rl_update(psi, integral, weights, lam, min_value, out=out)
+
+
 class PreparedSpectra:
     """Pre-forwarded kernel spectra bound to an (algorithm, shape) pair: the
     serving-path plan store.  ``conj_k2`` marks ``k2`` as kernel1's spectrum,
-    to be conjugated on the fly (``adjoint_kernel2``).  The fused engine's
-    spectra are (re, im) pairs, and ``xmode`` tags their x-row layout (see
-    :data:`FUSED_XMODE`); None for the fft engine."""
+    to be conjugated on the fly (``adjoint_kernel2``).  The fused and dft
+    engines' spectra are (re, im) pairs; ``xmode`` tags the fused spectra's
+    x-row layout (see :data:`FUSED_XMODE`), None for the other engines."""
 
     def __init__(self, algorithm: str, spatial, k1, k2, conj_k2: bool = False,
                  xmode: Optional[str] = None):
@@ -175,7 +252,18 @@ class PreparedSpectra:
 
 def _forward_spectra(engine: str, data: MultiViewData, spatial, adjoint_kernel2: bool):
     """(k1, k2, conj_k2) of an engine: complex spectra for fft, (re, im)
-    pairs for fused.  With the adjoint, k2 is k1, conjugated on the fly."""
+    pairs for fused and dft, the kernels themselves for direct.  With the
+    adjoint, fft and fused conjugate k1 on the fly (k2 is k1); dft takes k1
+    with its imaginary part negated, and direct the flipped kernel1, as the
+    JAX package does."""
+    if engine == "direct":
+        k2 = torch.flip(data.kernel1, dims=(-3, -2, -1)) if adjoint_kernel2 else data.kernel2
+        return data.kernel1, k2, False
+    if engine == "dft":
+        k1 = prepare_spectra_split(data.kernel1, spatial)
+        if adjoint_kernel2:
+            return k1, (k1[0], -k1[1]), False
+        return k1, prepare_spectra_split(data.kernel2, spatial), False
     if engine == "fused":
         check_transposed_shape((spatial[0], spatial[2], spatial[1]), data.views.device)
         prepare = prepare_spectra_fused
@@ -194,11 +282,14 @@ def prepare_workspace(
     adjoint_kernel2: bool = False,
 ) -> PreparedSpectra:
     """Forward the kernel stacks once for reuse by :func:`deconvolve_prepared`.
-    ``"auto"`` resolves as :func:`deconvolve` would."""
+    ``"auto"`` resolves as :func:`deconvolve` would.  The direct engine has
+    no spectra to prepare and is refused (ValueError), as in JAX."""
     spatial = as_shape(spatial_shape)
     if adjoint_kernel2:
         _check_adjoint(data.kernel1)
-    algorithm = resolve_algorithm(algorithm)
+    algorithm = resolve_algorithm(algorithm, spatial, data.views.device)
+    if algorithm == "direct":
+        raise ValueError(f"prepare_workspace supports fft/dft/fused, not {algorithm!r}")
     k1, k2, conj_k2 = _forward_spectra(algorithm, data, spatial, adjoint_kernel2)
     xmode = FUSED_XMODE if algorithm == "fused" else None
     return PreparedSpectra(algorithm, spatial, k1, k2, conj_k2=conj_k2, xmode=xmode)
@@ -232,10 +323,12 @@ def deconvolve(
     elementwise-local).  Tensors run where ``psi`` and ``data`` live.
 
     ``algorithm``: ``"fft"`` (cuFFT and K1-K3), ``"fused"`` (the five-pass
-    fused engine, K4/K6/K8/K9, shapes :func:`fused_eligible` accepts) or
-    ``"auto"``, which means ``"fft"``.  The fused engine works in the
-    (Z, X, Y) transposed domain: views, per-voxel weights and psi are
-    transposed once here, outside the iterations, and psi back at the end.
+    fused engine, K4/K6/K8/K9, shapes :func:`fused_eligible` accepts),
+    ``"dft"`` (matrix-product DFTs, K1 and K2), ``"direct"`` (spatial
+    convolves, K1 and K2) or ``"auto"`` (:func:`resolve_algorithm` on psi's
+    device).  The fused engine works in the (Z, X, Y) transposed domain:
+    views, per-voxel weights and psi are transposed once here, outside the
+    iterations, and psi back at the end.
 
     ``view_order="sequential"`` reproduces the reference's view-by-view
     update; ``"simultaneous"`` computes every view's update from the same
@@ -245,8 +338,10 @@ def deconvolve(
 
     ``adjoint_kernel2=True`` declares kernel2 == flip(kernel1): kernel2
     spectra are the conjugate of kernel1's, applied on the fly (K3 or K6)
-    without a second spectrum stack; data.kernel2 is ignored.  Weights may
-    be (V, Z, Y, X) stacks or (V,) scalars.
+    without a second spectrum stack on the fft and fused engines, with a
+    negated imaginary part on dft and as the flipped kernel1 on direct;
+    data.kernel2 is ignored.  Weights may be (V, Z, Y, X) stacks or (V,)
+    scalars.
 
     ``prepared`` (from :func:`prepare_workspace`) skips the per-call kernel
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
@@ -271,7 +366,7 @@ def deconvolve(
     else:
         if adjoint_kernel2:
             _check_adjoint(data.kernel1)
-        engine = resolve_algorithm(algorithm)
+        engine = resolve_algorithm(algorithm, spatial, psi.device)
         k1, k2, conj_k2 = _forward_spectra(engine, data, spatial, adjoint_kernel2)
     log.debug("deconvolve: algorithm=%r runs engine %r", algorithm, engine)
 
@@ -286,12 +381,16 @@ def deconvolve(
         if data.weights.ndim > 1:
             weights = list(data.weights.transpose(-1, -2).contiguous())
         psi = psi.transpose(-1, -2).contiguous()
-        k1 = list(zip(*k1))
-        k2 = list(zip(*k2))
-        step = rl_view_step_fused
+        step = functools.partial(rl_view_step_fused, conj_k2=conj_k2)
     else:
         psi = psi.clone(memory_format=torch.contiguous_format)
-        step = rl_view_step
+        step = {
+            "fft": functools.partial(rl_view_step, conj_k2=conj_k2),
+            "dft": rl_view_step_dft,
+            "direct": rl_view_step_direct,
+        }[engine]
+    if engine in ("fused", "dft"):
+        k1, k2 = list(zip(*k1)), list(zip(*k2))  # one (re, im) pair per view
 
     carried = fused and view_order == "sequential" and _carry_enabled()
     log.debug("deconvolve: carried fused chain %s", carried)
@@ -309,8 +408,7 @@ def deconvolve(
         def sweep(p):
             for v in range(num_views):
                 # p itself unless autograd records the step (then a new tensor)
-                p = step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
-                         conj_k2=conj_k2, out=p)
+                p = step(p, views[v], k1[v], k2[v], weights[v], lam, min_value, out=p)
             return p
 
     elif view_order == "simultaneous":
@@ -318,10 +416,9 @@ def deconvolve(
 
         def sweep(p):
             blend = torch.zeros_like(p)
-            if fused:
+            if engine != "fft":
                 for v in range(num_views):
-                    blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value,
-                                  conj_k2=conj_k2) - p
+                    blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value) - p
                 return p.add_(blend)
             integral = convolve_spectrum(p, k1)
             integral = quotient(views, integral, out=integral)

@@ -54,8 +54,8 @@ stages; the FFT stages compute the same transforms.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +64,7 @@ import torch
 from ..core.kernels import compute_quotient, rl_update as rl_update_plain
 from ..core.wrap import wrap_kernel
 from . import _build
+from ..utils.precision import fp32_matmuls as _fp32_matmuls
 from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
     FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, split_perm,
@@ -751,28 +752,38 @@ def _spectrum_dense(kernel: torch.Tensor, shape) -> Pair:
     return pass_bf(*pass_a(kt, plan), plan)
 
 
+@functools.lru_cache(maxsize=64)
+def _sparse_table(Z: int, kz: int, R: int, M: int, device: str) -> Pair:
+    """The (Z, Zs) DFT table of :func:`_spectrum_sparse` on ``device``, built
+    in float64 once per (Z, kz, z split, device) and kept there: row p is
+    the split-order frequency of position p, column s the original z index
+    of gathered plane s (pad planes are zero in u, their columns unused)."""
+    zs = -(-kz // 8) * 8
+    cz = kz // 2  # kernel center, z axis
+    head = kz - cz
+    zorig = np.zeros(zs, np.int64)
+    zorig[:head] = np.arange(head)
+    zorig[zs - cz :] = Z - cz + np.arange(cz)
+    freq = split_perm(Z, (R, M))
+    T = np.exp(-2j * np.pi * np.outer(freq, zorig) / Z)
+    return (torch.as_tensor(np.asarray(T.real, np.float32), device=device),
+            torch.as_tensor(np.asarray(T.imag, np.float32), device=device))
+
+
 def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
     """The z-sparse branch (``fused_dft2.py:1642-1665``): the wrapped kernel
     occupies only kz planes, so pass A runs on a gathered stack of
     Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction over them
     (``torch.einsum``, in fp32 whatever the caller set for matmuls: the JAX
-    branch pins ``precision=HIGHEST``, :func:`_fp32_matmuls`)."""
+    branch pins ``precision=HIGHEST``, :func:`_fp32_matmuls`), against the
+    table :func:`_sparse_table` keeps on the device."""
     Z, Y, X = shape
     plan = make_fused_plan(shape)
     kz = int(kernel.shape[0])
     zs = -(-kz // 8) * 8
-    cz = kz // 2  # kernel center, z axis
-    head = kz - cz
     small = wrap_kernel(kernel, (zs, Y, X))
     u_re, u_im = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
-    # original z index of each gathered plane (pad planes are zero in u)
-    zorig = np.zeros(zs, np.int64)
-    zorig[:head] = np.arange(head)
-    zorig[zs - cz :] = Z - cz + np.arange(cz)
-    freq = split_perm(Z, (plan.sz.R, plan.sz.M))
-    T = np.exp(-2j * np.pi * np.outer(freq, zorig) / Z)
-    tr = torch.as_tensor(np.asarray(T.real, np.float32), device=kernel.device)
-    ti = torch.as_tensor(np.asarray(T.imag, np.float32), device=kernel.device)
+    tr, ti = _sparse_table(Z, kz, plan.sz.R, plan.sz.M, str(kernel.device))
     e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
     # einsum may return a permuted layout (it does on CUDA); the passes
     # take contiguous (Kxp, Z, Y) spectra
@@ -781,28 +792,3 @@ def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
             (e(tr, u_re) - e(ti, u_im)).contiguous(),
             (e(tr, u_im) + e(ti, u_re)).contiguous(),
         )
-
-
-@contextlib.contextmanager
-def _fp32_matmuls():
-    """Full fp32 matmuls inside, the caller's setting restored after: a
-    caller's ``torch.backends.cuda.matmul.allow_tf32 = True`` (or
-    ``set_float32_matmul_precision("high")``) would run them in TF32, an
-    error of the 1e-3 class, outside the engine's fp32 contract.  Both of
-    PyTorch's settings are saved: the legacy precision string and, where it
-    exists, ``torch.backends.cuda.matmul.fp32_precision``; reading the
-    legacy one raises once a caller has mixed the two."""
-    matmul = torch.backends.cuda.matmul
-    saved_new = getattr(matmul, "fp32_precision", None)
-    try:
-        saved = torch.get_float32_matmul_precision()
-    except RuntimeError:
-        saved = None
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        if saved is not None:
-            torch.set_float32_matmul_precision(saved)
-        if saved_new is not None:
-            matmul.fp32_precision = saved_new

@@ -37,11 +37,8 @@ def main():
     import numpy as np
     import torch
 
-    from chip_smoke import (
-        LAM, MIN_VALUE, THIN_SHAPE, V, bench_kernels, big_data, headline_data, rate,
-    )
+    from chip_smoke import LAM, MIN_VALUE, THIN_SHAPE, big_data, headline_data, rate, thin_data
     from libmultiviewnative_torch.deconv import rl
-    from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
     if not torch.cuda.is_available():
         raise SystemExit("measure_engines: CUDA is not available")
@@ -50,13 +47,6 @@ def main():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-
-    def thin_data(torch, dev, rng):
-        k1, k2 = bench_kernels()
-        views = torch.from_numpy(rng.gamma(2.0, 20.0, (V,) + THIN_SHAPE).astype(np.float32)).to(dev)
-        data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
-                             torch.full((V,) + THIN_SHAPE, 1.0 / V, device=dev))
-        return data, torch.full(THIN_SHAPE, float(views.mean()), device=dev)
 
     def set_carry(engine):
         os.environ["LMVN_FUSED_CARRY"] = "1" if engine == "carried" else "0"

@@ -261,8 +261,11 @@ def test_prepared_from_jax_fused(adjoint):
 
 
 def test_auto_still_means_fft_and_fused_guards():
-    assert rl.resolve_algorithm("auto") == "fft"
-    assert rl.resolve_algorithm("fused") == "fused"
+    """``"auto"`` on the CPU is the JAX package's CPU rule (dft up to 256 per
+    axis, fft above, never fused); the fused engine's guards hold."""
+    assert rl.resolve_algorithm("auto", (16, 24, 32), "cpu") == "dft"
+    assert rl.resolve_algorithm("auto", (512, 512, 512), "cpu") == "fft"
+    assert rl.resolve_algorithm("fused", (16, 24, 32), "cpu") == "fused"
     assert rl.fused_eligible((16, 24, 32)) and not rl.fused_eligible((12, 10, 9))
     rng = np.random.default_rng(3)
     views = rng.gamma(2.0, 20.0, (V, 12, 10, 9)).astype(np.float32)
@@ -276,8 +279,8 @@ def test_auto_still_means_fft_and_fused_guards():
     prepared.xmode = "splitx"
     with pytest.raises(ValueError, match="x-row layout"):
         rl.deconvolve_prepared(torch.from_numpy(args[0]), data, prepared, 1)
-    with pytest.raises(NotImplementedError, match="splitx"):
-        prepared_from_jax("fused", SHAPE, prepared.k1, prepared.k2, xmode="splitx", device="cpu")
+    with pytest.raises(ValueError, match="x-row layout"):
+        prepared_from_jax("fused", SHAPE, prepared.k1, prepared.k2, xmode="fold", device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -61,7 +61,7 @@ def _incore(psi0, views, k1, k2, ws, lam, engine):
     return rl.deconvolve(torch.from_numpy(psi0), data, ITERS, lam=lam, algorithm=engine).numpy()
 
 
-@pytest.mark.parametrize("engine", ["fft", "fused"])
+@pytest.mark.parametrize("engine", ["fft", "fused", "dft"])
 @pytest.mark.parametrize("lam", [0.0, 0.006])
 def test_interleaved_matches_jax_and_incore(problem, engine, lam):
     psi0, views, k1, k2, ws = problem
@@ -91,7 +91,9 @@ def test_interleaved_scalar_weights(problem):
                                       algorithm="fft")
     assert _rel(a, np.asarray(want)) <= RTOL
     auto = deconvolve_interleaved(psi0, views, k1, k2, scalars, ITERS, chunk_z=7, device="cpu")
-    np.testing.assert_array_equal(auto, a)  # "auto" runs the fft engine
+    dft = deconvolve_interleaved(psi0, views, k1, k2, scalars, ITERS, chunk_z=7, algorithm="dft",
+                                 device="cpu")
+    np.testing.assert_array_equal(auto, dft)  # "auto" runs the dft engine at 24x16x16 on the CPU
 
 
 def test_chunk_bounds_cover_z():
@@ -103,8 +105,8 @@ def test_interleaved_refuses_engines_and_devices(problem):
     psi0, views, k1, k2, ws = problem
     with pytest.raises(ValueError, match="interleaved rung supports"):
         deconvolve_interleaved(psi0, views, k1, k2, ws, 1, algorithm="direct", device="cpu")
-    with pytest.raises(NotImplementedError, match="P8"):
-        deconvolve_interleaved(psi0, views, k1, k2, ws, 1, algorithm="dft", device="cpu")
+    with pytest.raises(ValueError, match="interleaved rung supports"):
+        deconvolve_interleaved(psi0, views, k1, k2, ws, 1, algorithm="dtf", device="cpu")
     with pytest.raises(ValueError, match="one entry per view"):
         deconvolve_interleaved(psi0, views, k1[:2], k2, ws, 1, device="cpu")
     if not torch.cuda.is_available():

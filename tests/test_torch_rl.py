@@ -96,12 +96,16 @@ def test_deconvolve_matches_jax_fft_engine(case, kw):
 
 
 def test_auto_resolves_to_fft_and_counts_no_cpu_launches():
+    """On the CPU ``"auto"`` is the JAX package's rule there: at this shape
+    (every axis at most 256) the dft engine, bit for bit; above 256 fft.
+    The CPU path counts no kernel launches."""
     args = _inputs()
     ew.reset_launches()
     got = _port(*args, num_iterations=2, lam=0.006, algorithm="auto")
-    want = _port(*args, num_iterations=2, lam=0.006, algorithm="fft")
+    want = _port(*args, num_iterations=2, lam=0.006, algorithm="dft")
     np.testing.assert_array_equal(got, want)
-    assert rl.resolve_algorithm("auto") == "fft"
+    assert rl.resolve_algorithm("auto", SHAPE, "cpu") == "dft"
+    assert rl.resolve_algorithm("auto", (257, 8, 8), "cpu") == "fft"
     assert set(ew.launches.values()) == {0}  # the CPU path runs the plain versions
 
 
@@ -130,10 +134,12 @@ def test_driver_under_the_cuda_fft_layout(monkeypatch, view_order):
 
 @pytest.mark.parametrize("algorithm", ["dft", "fused", "direct"])
 def test_unported_engines_raise(algorithm):
-    """dft and direct are not ported.  The fused engine is at fp32, dense
-    spectrum forwarding (pass BF, K5) included: a kernel z-extent of 9 at
-    Z = 16, which raised before K5, now runs and agrees with the fft engine.
-    What is left of it, the split-x spectrum layout, raises."""
+    """Every engine is ported now, and none raises.  dft and direct agree
+    with the fft engine (and tests/test_torch_dft.py and test_torch_direct.py
+    hold them against JAX's).  The fused engine runs the dense spectrum
+    forwarding (pass BF, K5): a kernel z-extent of 9 at Z = 16.  Its split-x
+    spectrum layout loads from the JAX package (tests/test_torch_dispatch.py
+    holds the values); an unknown layout is refused."""
     args = _inputs()
     if algorithm == "fused":
         rng = np.random.default_rng(4)
@@ -143,11 +149,11 @@ def test_unported_engines_raise(algorithm):
                 np.full((V,), 1.0 / V, np.float32))
         fused = _port(*args, num_iterations=1, algorithm="fused")
         _close(fused, _port(*args, num_iterations=1, algorithm="fft"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepared_from_jax("fused", (16, 16, 16), (k, k), (k, k), xmode="splitx", device="cpu")
+        with pytest.raises(ValueError, match="x-row layout"):
+            prepared_from_jax("fused", (16, 16, 16), (k, k), (k, k), xmode="fold", device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(*args, num_iterations=1, algorithm=algorithm)
+    _close(_port(*args, num_iterations=1, algorithm=algorithm),
+           _port(*args, num_iterations=1, algorithm="fft"))
 
 
 def test_adjoint_requires_odd_kernel_dims():
@@ -189,7 +195,7 @@ def test_prepared_spectra_from_jax(adjoint):
     data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
     got = rl.deconvolve_prepared(torch.from_numpy(psi0), data, prepared, **kw).numpy()
     _close(got, want)
-    own = rl.prepare_workspace(data, SHAPE, adjoint_kernel2=adjoint)
+    own = rl.prepare_workspace(data, SHAPE, algorithm="fft", adjoint_kernel2=adjoint)
     assert own.algorithm == "fft" and own.conj_k2 == adjoint
     _close(rl.deconvolve_prepared(torch.from_numpy(psi0), data, own, **kw).numpy(), want)
 
@@ -200,8 +206,8 @@ def test_prepared_shape_guard_and_interop_engine_guard():
     prepared = rl.prepare_workspace(data, (12, 10, 8))
     with pytest.raises(ValueError, match="prepared spectra are for"):
         rl.deconvolve_prepared(torch.from_numpy(psi0), data, prepared, 1)
-    with pytest.raises(NotImplementedError):
-        prepared_from_jax("dft", SHAPE, None, None, device="cpu")
+    with pytest.raises(ValueError, match="direct"):
+        prepared_from_jax("direct", SHAPE, None, None, device="cpu")
 
 
 def test_workspace_wrapper_and_float64_reference():
