@@ -87,7 +87,23 @@ Phases, each raising on failure (there is no CPU fallback):
     with s/iteration and peak memory;
 24. models: ``RichardsonLucy().run`` on the headline data equals
     ``deconvolve_auto`` bit for bit; ``WienerFilter`` on the card against
-    the CPU path (1e-4).
+    the CPU path (1e-4);
+25. the front ends, on phase 5's configuration as host numpy arrays:
+    ``api.deconvolve_flat`` against ``deconvolve`` on data already on the
+    card (1e-6 of max, bitwise expected; K1/K2/K3 40/40/80), both timed
+    with the upload and the download apart; the single-step helpers
+    (``quotient_flat`` bitwise, ``final_values_flat`` at λ 0 and 0.006,
+    ``convolution3d``, ``iterate_fft_*``) against their plain versions on
+    the card, each through its kernels; the C ABI library (``g++``) in
+    process through ctypes, every GPU-named symbol bitwise its flat
+    counterpart, the device queries (the card's name and memory,
+    capability 9.0, one device, no error recorded); the C host smoke with
+    ``--gpu`` (where the interpreter has a shared libpython), its K1-K3
+    launches counted at its interpreter's exit;
+    ``deconvolve_checkpointed`` on the fused engine, resumed from psi_4,
+    and ``deconvolve_resilient`` through one injected failure, against the
+    uninterrupted run; ``debug_context`` raising on K2's 0·(1/0); and the
+    CLI at 64³ against ``deconvolve_auto`` where imageio is installed.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -99,6 +115,7 @@ last is one JSON object with every kernel's record (256³); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -1621,6 +1638,347 @@ def phase_models(torch, dev, rng):
         raise AssertionError(f"WienerFilter CUDA and CPU paths disagree: {err:.3e}")
 
 
+def front_end_data(rng):
+    """Phase 5's configuration as host numpy: 4 views of gamma(2, 20) at
+    256³, the bench kernels, per-voxel weights 1/V, psi0 the mean."""
+    shape = (HEADLINE_N,) * 3
+    k1, k2 = bench_kernels()
+    views = [rng.gamma(2.0, 20.0, shape).astype(np.float32) for _ in range(V)]
+    weights = [np.full(shape, 1.0 / V, np.float32) for _ in range(V)]
+    psi0 = np.full(shape, float(np.mean([v.mean() for v in views])), np.float32)
+    return psi0, views, list(k1), list(k2), weights
+
+
+def best_of(torch, fn, reps=3):
+    """(result of the last call, best seconds of ``reps`` calls ending in a
+    synchronise), after one warm-up call."""
+    fn()
+    best, out = math.inf, None
+    for _ in range(reps):
+        out, seconds = timed_call(torch, fn)
+        best = min(best, seconds)
+    return out, best
+
+
+def same_or_close(what, got, want, tol=TOLERANCE):
+    """Log max|got - want| / max|want| and whether they are bitwise equal;
+    raise beyond ``tol``."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: not a finite {want.shape} result")
+    diff = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+    log(f"{what}: max|diff|/max = {diff:.3e}, bitwise {np.array_equal(got, want)} (tol {tol:g})")
+    if not diff <= tol:
+        raise AssertionError(f"{what}: {diff:.3e} beyond {tol:g}")
+
+
+def plain_view_step(psi, view, k1_hat, k2_hat, w, lam):
+    """One RL view step from the kernels' plain versions (rfft, the complex
+    ``*``, irfft, ``view * (1/integral)``, the plain update)."""
+    from libmultiviewnative_torch.core.fft import irfft3, rfft3
+    from libmultiviewnative_torch.ops import elementwise as ew
+
+    shape = psi.shape
+    integral = irfft3(ew.spectral_multiply_plain(rfft3(psi), k1_hat), shape)
+    integral = ew.quotient_plain(view, integral)
+    integral = irfft3(ew.spectral_multiply_plain(rfft3(integral), k2_hat), shape)
+    return ew.rl_update_plain(psi, integral, w, lam, MIN_VALUE)
+
+
+def phase_front_ends(torch, dev):
+    """The flat API, the C ABI in process and from a C host, checkpoint and
+    resume, debug_context and the CLI, on phase 5's data as host arrays."""
+    import importlib.util
+    import tempfile
+
+    from libmultiviewnative_torch import api, native_client
+    from libmultiviewnative_torch.core.fft import irfft3, rfft3
+    from libmultiviewnative_torch.core.wrap import wrap_kernel
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.io import checkpoint as ckpt
+    from libmultiviewnative_torch.native import _build as native_build
+    from libmultiviewnative_torch.ops import elementwise as ew
+    from libmultiviewnative_torch.utils.trace import debug_context
+
+    log(f"# phase 25: the front ends, 4 views at {HEADLINE_N}^3 as host arrays, {ITERS} iterations")
+    t_phase = time.perf_counter()
+    shape = (HEADLINE_N,) * 3
+    psi0, views, k1s, k2s, weights = front_end_data(np.random.default_rng(25))
+    want_fft = {"rl_update": V * ITERS, "quotient": V * ITERS, "spectral_multiply": 2 * V * ITERS}
+
+    # a. flat API against deconvolve on data already on the card
+    def flat():
+        return api.deconvolve_flat(psi0, views, k1s, k2s, weights, ITERS, LAM, MIN_VALUE)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    flat_out = flat()
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), want_fft, "deconvolve_flat")
+    flat_out, flat_s = best_of(torch, flat)
+
+    def upload():
+        return (api._tensor(psi0, dev), MultiViewData(
+            api._stack(views, dev), api._stack(k1s, dev), api._stack(k2s, dev),
+            api._stack(weights, dev)))
+
+    (psi_d, data), up_s = best_of(torch, upload)
+    dev_out, dev_s = best_of(torch, lambda: deconvolve(psi_d, data, ITERS, lam=LAM,
+                                                       min_value=MIN_VALUE, algorithm="fft"))
+    _, down_s = best_of(torch, lambda: dev_out.cpu().numpy())
+    same_or_close("deconvolve_flat vs deconvolve on the card", flat_out, dev_out.cpu().numpy())
+    log(f"deconvolve_flat {1e3 * flat_s:.3f} ms; on the card: upload {1e3 * up_s:.3f} ms,"
+        f" deconvolve {1e3 * dev_s:.3f} ms, download {1e3 * down_s:.3f} ms;"
+        f" host share {1e3 * (flat_s - dev_s):.3f} ms, flat / device {flat_s / dev_s:.3f}"
+        " (best of 3 each)")
+
+    # b. the single-step helpers against their plain versions on the card
+    rng = np.random.default_rng(26)
+    integral = rng.uniform(-0.2, 2.0, shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    reset_counts()
+    q = api.quotient_flat(views[0], integral)
+    expect_counts(read_counts(), {"quotient": 1}, "quotient_flat")
+    same_or_close("quotient_flat vs plain", q, ew.quotient_plain(t(views[0]), t(integral)).cpu(),
+                  tol=0.0)
+    for lam in (0.0, LAM):
+        reset_counts()
+        fv = api.final_values_flat(psi0, integral, weights[0], lam, MIN_VALUE)
+        expect_counts(read_counts(), {"rl_update": 1}, f"final_values_flat lam={lam}")
+        same_or_close(f"final_values_flat lam={lam} vs plain", fv, ew.rl_update_plain(
+            t(psi0), t(integral), t(weights[0]), lam, MIN_VALUE).cpu())
+    k_hat = rfft3(wrap_kernel(t(k1s[0]), shape))
+    reset_counts()
+    conv = api.convolution3d(views[0], k1s[0])
+    expect_counts(read_counts(), {"spectral_multiply": 1}, "convolution3d")
+    same_or_close("convolution3d vs plain", conv,
+                  irfft3(ew.spectral_multiply_plain(rfft3(t(views[0])), k_hat), shape).cpu())
+    flip = np.flip(k1s[0]).copy()
+    k2_hat = rfft3(wrap_kernel(t(flip), shape))
+    ones = np.ones(shape, np.float32)
+    steps = {}
+    for lam in (0.0, LAM):
+        name = "iterate_fft_tikhonov" if lam else "iterate_fft_plain"
+        reset_counts()
+        if lam:
+            steps[name] = api.iterate_fft_tikhonov(views[0], views[0], k1s[0], flip, ones, LAM,
+                                                   MIN_VALUE)
+        else:
+            steps[name] = api.iterate_fft_plain(views[0], views[0], k1s[0], flip, ones, MIN_VALUE)
+        expect_counts(read_counts(), {"rl_update": 1, "quotient": 1, "spectral_multiply": 2},
+                      name)
+        same_or_close(f"{name} vs plain", steps[name], plain_view_step(
+            t(views[0]), t(views[0]), k_hat, k2_hat, t(ones), lam).cpu())
+
+    # c. the C ABI in process, through ctypes
+    t0 = time.perf_counter()
+    lib = native_client.load_native()
+    log(f"C ABI library {native_client.build_native()} built and loaded in"
+        f" {time.perf_counter() - t0:.2f} s; python flags {native_build.python_flags()}")
+    nw = native_client.NativeWorkspace(views, k1s, k2s, weights, LAM, MIN_VALUE, ITERS)
+    reset_counts()
+    abi_out = native_client.native_deconvolve(lib, psi0.copy(), nw, device="cuda:0")
+    expect_counts(read_counts(), want_fft, "inplace_gpu_deconvolve")
+    abi_s = math.inf
+    for _ in range(3):  # the caller's psi buffer is filled before the clock starts
+        buf = psi0.copy()
+        abi_out, seconds = timed_call(
+            torch, lambda: native_client.native_deconvolve(lib, buf, nw, device="cuda:0"))
+        abi_s = min(abi_s, seconds)
+    same_or_close("inplace_gpu_deconvolve vs deconvolve_flat", abi_out, flat_out, tol=0.0)
+    log(f"inplace_gpu_deconvolve {1e3 * abi_s:.3f} ms against deconvolve_flat"
+        f" {1e3 * flat_s:.3f} ms (best of 3 each)")
+    same_or_close("inplace_gpu_convolution vs convolution3d",
+                  native_client.native_convolution(lib, views[0].copy(), k1s[0]), conv, tol=0.0)
+    fptr = native_client._fptr
+    out = integral.copy()
+    lib.compute_quotient(fptr(views[0]), fptr(out), out.size, 0)
+    same_or_close("compute_quotient vs quotient_flat", out, q, tol=0.0)
+    for lam in (0.0, LAM):
+        out = psi0.copy()
+        lib.compute_final_values(fptr(out), fptr(integral), fptr(weights[0]), out.size,
+                                 MIN_VALUE, lam, 0)
+        same_or_close(f"compute_final_values lam={lam} vs final_values_flat", out,
+                      api.final_values_flat(psi0, integral, weights[0], lam, MIN_VALUE), tol=0.0)
+    dims = ((ctypes.c_int * 3)(*shape), (ctypes.c_int * 3)(*k1s[0].shape))
+    out = np.full(shape, np.nan, np.float32)
+    lib.iterate_fft_plain(fptr(views[0]), fptr(k1s[0]), fptr(out), *dims, 0)
+    same_or_close("iterate_fft_plain (ABI) vs flat", out, steps["iterate_fft_plain"], tol=0.0)
+    out = np.full(shape, np.nan, np.float32)
+    lib.iterate_fft_tikhonov(fptr(views[0]), fptr(k1s[0]), fptr(out), *dims, out.size,
+                             MIN_VALUE, LAM, 0)
+    same_or_close("iterate_fft_tikhonov (ABI) vs flat", out, steps["iterate_fft_tikhonov"],
+                  tol=0.0)
+    name = ctypes.create_string_buffer(256)
+    lib.getNameDeviceCUDA(0, name)
+    queries = {
+        "getNumDevicesCUDA": (lib.getNumDevicesCUDA(), torch.cuda.device_count()),
+        "getNameDeviceCUDA": (name.value.decode(), torch.cuda.get_device_name(0)),
+        "getMemDeviceCUDA": (lib.getMemDeviceCUDA(0),
+                             torch.cuda.get_device_properties(0).total_memory),
+        "capability": ((lib.getCUDAcomputeCapabilityMajorVersion(0),
+                        lib.getCUDAcomputeCapabilityMinorVersion(0)), (9, 0)),
+        "selectDeviceWithHighestComputeCapability": (
+            lib.selectDeviceWithHighestComputeCapability(), 0),
+        "mvn_tpu_last_error": (lib.mvn_tpu_last_error(), b""),
+    }
+    log(f"ABI device queries (got, want): {queries}")
+    bad = {k: v for k, v in queries.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"ABI device queries disagree: {bad}")
+
+    # d. the C host: a C program that embeds the interpreter, on the card
+    flags = native_build.python_flags()
+    if not flags["shared"]:
+        log(f"C host smoke not run: this interpreter has no shared libpython ({flags});"
+            " the in-process ABI (c) ran instead")
+    else:
+        phase_c_host(native_build)
+
+    # e. checkpoint and resume on the fused engine
+    whole = deconvolve(psi_d, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="auto").cpu()
+    kw = dict(lam=LAM, min_value=MIN_VALUE, checkpoint_every=5, algorithm="auto")
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = ckpt.CheckpointManager(os.path.join(tmp, "run"))
+        reset_counts()
+        t0 = time.perf_counter()
+        got = ckpt.deconvolve_checkpointed(psi0, data, ITERS, mgr, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"deconvolve_checkpointed, 2 chunks of 5: {time.perf_counter() - t0:.3f} s,"
+            f" launches {counts}")
+        if not all(counts[k] > 0 for k in ("pass_a", "pass_b", "pass_cqa", "pass_cu")):
+            raise AssertionError(f"checkpointed run did not take the fused engine: {counts}")
+        same_or_close("checkpointed vs uninterrupted", got.cpu(), whole)
+        os.remove(mgr.path(ITERS - 1))
+        if mgr.latest()[0] != 4:
+            raise AssertionError("psi_4 is not the newest snapshot after deleting psi_9")
+        same_or_close("resumed from psi_4 vs uninterrupted",
+                      ckpt.deconvolve_checkpointed(psi0, data, ITERS, mgr, **kw).cpu(), whole)
+        real, calls = ckpt.deconvolve_checkpointed, []
+
+        def flaky(p, d, n, m, **k):
+            calls.append(n)
+            if len(calls) == 1:
+                real(p, d, 5, m, **k)
+                raise RuntimeError("injected failure after the first chunk")
+            return real(p, d, n, m, **k)
+
+        ckpt.deconvolve_checkpointed = flaky
+        try:
+            got = ckpt.deconvolve_resilient(psi0, data, ITERS, ckpt.CheckpointManager(
+                os.path.join(tmp, "resilient")), **kw)
+        finally:
+            ckpt.deconvolve_checkpointed = real
+        if len(calls) != 2:
+            raise AssertionError(f"deconvolve_resilient made {len(calls)} attempts, expected 2")
+        same_or_close("resilient (one failure) vs uninterrupted", got.cpu(), whole)
+
+    # f. debug_context on the card: K2's 0 * (1/0)
+    zeros = torch.zeros(shape, device=dev)
+    if not bool(torch.isnan(ew.quotient(zeros, zeros)).all()):
+        raise AssertionError("K2's quotient of zeros by zeros is not NaN")
+    reset_counts()
+    try:
+        with debug_context():
+            ew.quotient(zeros, zeros)
+        raise AssertionError("debug_context did not raise on K2's NaN")
+    except FloatingPointError as exc:
+        log(f"debug_context: {exc!r} (K2 launches {read_counts()['quotient']}); outside it"
+            " the same call returns NaN")
+
+    # g. the CLI, where imageio is installed
+    if importlib.util.find_spec("imageio") is None:
+        log("CLI not run: imageio is not installed here, so cli.main cannot read a TIFF;"
+            " its engine calls are phases 10 and 23's")
+    else:
+        phase_cli(torch, dev)
+    log(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# Put first on the C host's PYTHONPATH: at interpreter exit (mvn_tpu_finalize)
+# it prints the kernels' launch counts, then it runs the sitecustomize it
+# shadows, if there is one.
+C_HOST_SITECUSTOMIZE = """
+import atexit, importlib.machinery, importlib.util, os, sys
+
+
+def _report():
+    ew = sys.modules.get("libmultiviewnative_torch.ops.elementwise")
+    print("kernel launches", dict(ew.launches) if ew else {}, flush=True)
+
+
+atexit.register(_report)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def phase_c_host(native_build):
+    """abi_smoke --gpu in a subprocess: it must exit 0, print OK, finite=1
+    and changed=1, and its interpreter must have launched K1-K3 (2 views x 2
+    iterations, and one convolution)."""
+    import ast
+    import tempfile
+
+    t0 = time.perf_counter()
+    exe = native_build.build_smoke()
+    log(f"C host smoke built in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "sitecustomize.py"), "w") as f:
+            f.write(C_HOST_SITECUSTOMIZE)
+        env = native_build.smoke_env(os.path.dirname(os.path.abspath(__file__)),
+                                     [tmp] + sys.path)
+        t0 = time.perf_counter()
+        res = subprocess.run([str(exe), "--gpu"], env=env, capture_output=True, text=True,
+                             timeout=300)
+    log(f"C host smoke --gpu: rc {res.returncode} in {time.perf_counter() - t0:.2f} s\n"
+        + res.stdout.strip())
+    if res.returncode != 0 or not all(s in res.stdout for s in ("OK", "finite=1", "changed=1")):
+        raise AssertionError(f"C host smoke failed: rc {res.returncode}\n{res.stderr[-3000:]}")
+    counts = [ast.literal_eval(line.split("kernel launches", 1)[1].strip())
+              for line in res.stdout.splitlines() if line.startswith("kernel launches")]
+    want = {"rl_update": 4, "quotient": 4, "spectral_multiply": 9}
+    if counts != [want]:
+        raise AssertionError(f"C host: kernel launches {counts}, expected [{want}]")
+
+
+def phase_cli(torch, dev):
+    """cli.main on TIFFs at 64³ with --dispatch auto against deconvolve_auto."""
+    import tempfile
+
+    from libmultiviewnative_torch import cli
+    from libmultiviewnative_torch.deconv.dispatch import deconvolve_auto
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData, initial_psi
+    from libmultiviewnative_torch.io.stacks import read_tiff_stack, write_tiff_stack
+    from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
+
+    rng = np.random.default_rng(27)
+    shape = (CROSS_N,) * 3
+    views = [rng.gamma(2.0, 20.0, shape).astype(np.float32) for _ in range(V)]
+    psfs = [gaussian_kernel((9, 9, 9), 1.0 + 0.3 * v) for v in range(V)]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = []
+        for v in range(V):
+            for kind, a in (("view", views[v]), ("psf", psfs[v])):
+                path = os.path.join(tmp, f"{kind}{v}.tif")
+                write_tiff_stack(path, a)
+                argv += [f"--{kind}", path]
+        out_path = os.path.join(tmp, "out.tif")
+        cli.main(argv + ["-o", out_path, "-i", str(ITERS), "--dispatch", "auto"])
+        got = read_tiff_stack(out_path)
+    t = lambda a: torch.as_tensor(np.stack(a), device=dev)  # noqa: E731
+    data = MultiViewData(t(views), t(psfs), t([np.flip(k).copy() for k in psfs]),
+                         torch.full((V,), 1.0 / V, device=dev))
+    want = deconvolve_auto(initial_psi(data), data, ITERS, lam=LAM, min_value=MIN_VALUE,
+                           device=dev).cpu().numpy()
+    same_or_close(f"CLI at {CROSS_N}^3 vs deconvolve_auto", got, want)
+
+
 def main():
     import torch
 
@@ -1663,6 +2021,8 @@ def main():
     phase_ladder(torch, dev)
     torch.cuda.empty_cache()
     phase_models(torch, dev, rng)
+    torch.cuda.empty_cache()
+    phase_front_ends(torch, dev)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -17,7 +17,11 @@ one by shape and device (:func:`.deconv.rl.resolve_algorithm`).  The
 single-device dispatch ladder, :func:`deconvolve_auto` (in-core, the
 interleaved rung and the streamed rung), and the models
 :class:`RichardsonLucy` and :class:`WienerFilter` are the entry points a
-user calls.
+user calls.  Around them: the flat numpy API of the reference's C ABI
+(:mod:`.api`), that C ABI itself as a shared library (``native/``, through
+:mod:`.native_entry`; :mod:`.native_client` loads it), the command-line tool
+(:mod:`.cli`), stack I/O and checkpoint/resume (:mod:`.io`), and the
+utilities of ``utils/`` (validation, PSF compounds, tracing, bench rows).
 """
 
 from .core.convolve import convolve3d, convolve_spectrum, direct_convolve3d, fft_convolve3d
@@ -35,10 +39,15 @@ from .deconv.rl import deconvolve, rl_view_step
 from .deconv.streamed import deconvolve_streamed
 from .deconv.workspace import MultiViewData, View, Workspace, initial_psi
 from .models import RichardsonLucy, WienerFilter, wiener_deconvolve
+from . import api, io
+from .io.checkpoint import CheckpointManager
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "api",
+    "io",
+    "CheckpointManager",
     "View",
     "MultiViewData",
     "Workspace",

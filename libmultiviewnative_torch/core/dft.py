@@ -132,10 +132,10 @@ def _axis_plan(n: int, device: torch.device) -> AxisPlan:
     return AxisPlan(n, "split", f32(cm), f32(sm), f32(twc), f32(tws), f32(oc), f32(osn), r, m)
 
 
-def make_plan(shape, device="cpu"):
-    """The transform plan of a (z, y, x) shape on ``device``, cached: the
-    compact plan when every axis is at most 256, else a
-    :class:`FullDFTPlan`."""
+def make_plan(shape, device="cuda"):
+    """The transform plan of a (z, y, x) shape on ``device`` (the card by
+    default), cached: the compact plan when every axis is at most 256, else
+    a :class:`FullDFTPlan`."""
     return _make_plan(tuple(int(s) for s in shape[-3:]), str(torch.device(device)))
 
 

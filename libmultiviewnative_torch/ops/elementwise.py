@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from ..core.kernels import compute_quotient, rl_update as _rl_update_plain
+from ..utils.trace import check_kernel_output
 from . import _build
 
 # launch counts of the three kernels; a plain-version call never counts
@@ -204,6 +205,7 @@ def _rl_update(dev, psi, integral, weights, lam, min_value, out):
     )
     _build.check("rl_update", err)
     launches["rl_update"] += 1
+    check_kernel_output("rl_update", out)
     return out
 
 
@@ -253,6 +255,7 @@ def _quotient(dev, view, integral, out):
     )
     _build.check("quotient", err)
     launches["quotient"] += 1
+    check_kernel_output("quotient", out)
     return out
 
 
@@ -317,6 +320,7 @@ def _spectral_multiply(dev, x_hat, k_hat, conj_k, out):
     )
     _build.check("spectral_multiply", err)
     launches["spectral_multiply"] += 1
+    check_kernel_output("spectral_multiply", out)
     return out
 
 

@@ -65,6 +65,7 @@ from ..core.kernels import compute_quotient, rl_update as rl_update_plain
 from ..core.wrap import wrap_kernel
 from . import _build
 from ..utils.precision import fp32_matmuls as _fp32_matmuls
+from ..utils.trace import check_kernel_output
 from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
     FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, split_perm,
@@ -461,6 +462,7 @@ def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pai
     )
     _build.check("pass_a", err)
     launches["pass_a"] += 1
+    check_kernel_output("pass_a", u_re, u_im)
     return u_re, u_im
 
 
@@ -487,6 +489,7 @@ def pass_b(
     )
     _build.check("pass_b", err)
     launches["pass_b"] += 1
+    check_kernel_output("pass_b", o_re, o_im)
     return o_re, o_im
 
 
@@ -507,6 +510,7 @@ def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
     )
     _build.check("pass_bf", err)
     launches["pass_bf"] += 1
+    check_kernel_output("pass_bf", o_re, o_im)
     return o_re, o_im
 
 
@@ -530,6 +534,7 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     )
     _build.check("pass_c", err)
     launches["pass_c"] += 1
+    check_kernel_output("pass_c", out)
     return out
 
 
@@ -556,6 +561,7 @@ def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) ->
     )
     _build.check("pass_cqa", err)
     launches["pass_cqa"] += 1
+    check_kernel_output("pass_cqa", u_re, u_im)
     return u_re, u_im
 
 
@@ -594,6 +600,7 @@ def pass_cu(
     )
     _build.check("pass_cu", err)
     launches["pass_cu"] += 1
+    check_kernel_output("pass_cu", out)
     return out
 
 
@@ -638,6 +645,7 @@ def pass_cua(
     )
     _build.check("pass_cua", err)
     launches["pass_cua"] += 1
+    check_kernel_output("pass_cua", out, u_re, u_im)
     return out, (u_re, u_im)
 
 

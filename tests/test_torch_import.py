@@ -19,6 +19,10 @@ _SCRIPT = textwrap.dedent(
     import torch
     torch.set_num_threads(1)
     import libmultiviewnative_torch as mvn
+    from libmultiviewnative_torch import api, cli, native_client, native_entry
+    from libmultiviewnative_torch.io import checkpoint, stacks
+    from libmultiviewnative_torch.reference import numpy_ref
+    from libmultiviewnative_torch.utils import logging, printing, psf, trace, validate
     from libmultiviewnative_torch.utils.synthetic import multiview_data
 
     ws = mvn.Workspace.from_views(

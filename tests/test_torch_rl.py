@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from libmultiviewnative_tpu.deconv import rl as jrl
 from libmultiviewnative_tpu.deconv.workspace import MultiViewData as JaxData
 from libmultiviewnative_tpu.reference.numpy_ref import np_deconvolve
+from libmultiviewnative_torch.core.dft import make_plan
 from libmultiviewnative_torch.deconv import rl
 from libmultiviewnative_torch.deconv.workspace import (
     MultiViewData,
@@ -249,7 +250,7 @@ def test_from_views_pads_kernels_and_checks_weights():
 @pytest.mark.parametrize(
     "entry",
     ["MultiViewData.from_views", "Workspace.from_views", "multiview_data_from_numpy",
-     "prepared_from_jax"],
+     "prepared_from_jax", "make_plan"],
 )
 def test_entry_points_default_to_the_card(entry):
     """Without a ``device`` argument the entry points put their tensors on
@@ -266,6 +267,7 @@ def test_entry_points_default_to_the_card(entry):
         ).data.views,
         "multiview_data_from_numpy": lambda: multiview_data_from_numpy(views, k1, k2, w).views,
         "prepared_from_jax": lambda: prepared_from_jax("fft", SHAPE, spectra, spectra).k1,
+        "make_plan": lambda: make_plan(SHAPE).fcx,
     }[entry]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
