@@ -103,7 +103,25 @@ Phases, each raising on failure (there is no CPU fallback):
     ``deconvolve_checkpointed`` on the fused engine, resumed from psi_4,
     and ``deconvolve_resilient`` through one injected failure, against the
     uninterrupted run; ``debug_context`` raising on K2's 0·(1/0); and the
-    CLI at 64³ against ``deconvolve_auto`` where imageio is installed.
+    CLI at 64³ against ``deconvolve_auto`` where imageio is installed;
+26. the ('view', 'z') mesh of ``parallel/`` on the one card, every cell the
+    card: ``describe_topology``, then ``initialize_multihost`` over NCCL at
+    world size 1, one ``all_reduce`` through ``view_sum`` and
+    ``destroy_process_group``; the three z-block convolves of a 1×4 mesh at
+    256³ (Bz 64, halo 12 + 12, fused extent 88) against the in-core convolve
+    of their engine (1e-5 of max; fft K3 4, fused K4/K6/K7 4 each); bench
+    config 1 in the simultaneous order on 2×2 and 4×1 meshes, fft and
+    fused, against in-core ``deconvolve(view_order="simultaneous")`` (rtol
+    2e-5, atol 2e-4), each call's launches counted; the mesh layer's own
+    cost, a 1×1 mesh against in-core at the headline on fft and fused
+    (it/s, slope and their ratio, with the card's name and power limit: one
+    card shows overhead, not scaling); ``deconvolve_auto`` told of two
+    devices (the card twice) with a ``headroom`` that refuses in-core,
+    taking the z-only rung (its ``LMVN_TRACE`` line) and held against
+    in-core; and bench config 3 (4 views 512³, kernel2 the flipped kernel1,
+    scalar weights, 2 iterations) in the sequential order on a 1×2 z-only
+    mesh (fused extent 280), fft and fused, against in-core, with the peak
+    device memory.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -1947,6 +1965,243 @@ def phase_c_host(native_build):
         raise AssertionError(f"C host: kernel launches {counts}, expected [{want}]")
 
 
+
+MESH_TOL = (2e-5, 2e-4)  # rtol, atol: tests/test_multihost.py's gate
+
+
+def within(out, ref, what):
+    """Hold ``out`` against ``ref`` at MESH_TOL; log and raise outside it."""
+    rtol, atol = MESH_TOL
+    excess = float(((out - ref).abs() - (atol + rtol * ref.abs())).max())
+    rel = float((out - ref).abs().max()) / float(ref.abs().max())
+    log(f"{what}: max|diff|/max|ref| {rel:.3e}, within rtol {rtol:g}, atol {atol:g}: {excess <= 0}")
+    if not excess <= 0:
+        raise AssertionError(f"{what}: disagrees with in-core beyond rtol {rtol:g}, atol {atol:g}")
+    return rel
+
+
+def card_line():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
+def mesh_counts(engine, full_volume, zp, views, iters):
+    """The kernel launches of one mesh call: per cell and view step, two
+    z-block convolves (fft: K3 twice; fused: K4, K6, K7 each), K2 and K1;
+    with one z block on the fused engine, the fused step (K4, K6, K8, K6,
+    K9).  Every cell holds a z block of each of its views, so a call makes
+    zp·V view steps an iteration.  The fused spectra: one z-sparse forwarding
+    (one K4) per kernel, shared by the cells of one device."""
+    steps = zp * views * iters
+    if engine == "fft":
+        return {"rl_update": steps, "quotient": steps, "spectral_multiply": 2 * steps}
+    if full_volume:
+        return {"pass_a": steps + 2 * views, "pass_b": 2 * steps, "pass_cqa": steps,
+                "pass_cu": steps}
+    return {"pass_a": 2 * steps + 2 * views, "pass_b": 2 * steps, "pass_c": 2 * steps,
+            "quotient": steps, "rl_update": steps}
+
+
+def phase_mesh(torch, dev, rng):
+    """The ('view', 'z') mesh of parallel/ on one card: every cell is the
+    card (a device repeats in make_mesh's list), so this shows the mesh
+    layer's results and its own cost, not scaling."""
+    import contextlib
+    import io
+    import socket
+
+    import torch.distributed as tdist
+
+    from libmultiviewnative_torch.core.dft import dft_convolve_spectrum, kernel_spectrum_split
+    from libmultiviewnative_torch.core.convolve import convolve_spectrum
+    from libmultiviewnative_torch.core.fft import rfft3
+    from libmultiviewnative_torch.core.shapes import halo_widths
+    from libmultiviewnative_torch.core.wrap import wrap_kernel
+    from libmultiviewnative_torch.deconv import dispatch
+    from libmultiviewnative_torch.deconv.rl import deconvolve
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.ops.fused import fused_convolve_transposed, kernel_spectrum_fused
+    from libmultiviewnative_torch.parallel import distributed as pdist, halo, sharded
+
+    out = {"card": card_line()}
+    log(f"# phase 26: the mesh on one card ({out['card']}); every cell is {dev}")
+
+    # a. topology, and one all_reduce over NCCL at world size 1
+    topo = pdist.describe_topology()
+    log(f"topology: {json.dumps(topo)}")
+    if (topo["process_count"], topo["local_devices"][:1], topo["platform"]) != (1, ["cuda:0"], "cuda"):
+        raise AssertionError(f"describe_topology: {topo}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    pdist.initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = sharded.make_mesh(1, 1, devices=[dev])
+        got = sharded.view_sum({(0, 0): torch.full((1024,), 3.0, device=dev)}, mesh)[(0, 0)]
+        torch.cuda.synchronize()
+        log(f"NCCL world size {tdist.get_world_size()}: view_sum through all_reduce on"
+            f" {tdist.get_backend()} gives {float(got[0])} (want 3.0)")
+        if not bool((got == 3.0).all()):
+            raise AssertionError("view_sum over NCCL at world size 1 changed the block")
+    finally:
+        tdist.destroy_process_group()
+
+    # b. the z-block convolves of a 1x4 mesh at the headline's shapes
+    n = HEADLINE_N
+    shape = (n,) * 3
+    _, k2 = bench_kernels()
+    k = torch.from_numpy(k2[0]).to(dev)  # 25^3: lo = hi = 12
+    (lo, _, _), (hi, _, _) = halo_widths(tuple(k.shape))
+    x = torch.from_numpy(rng.gamma(2.0, 20.0, shape).astype(np.float32)).to(dev)
+    mesh = sharded.make_mesh(1, 4, devices=[dev] * 4)
+    local = (n // 4, n, n)
+    log(f"z-block convolves on a 1x4 mesh: Bz {local[0]}, halo {lo}+{hi}, fused extent"
+        f" {halo.zblock_fused_extent(local[0], lo, hi)}")
+    xt = x.transpose(1, 2).contiguous()
+    cases = {
+        "fft": (lambda: convolve_spectrum(x, rfft3(wrap_kernel(k, shape))),
+                lambda b: halo.convolve_zblock(b, halo.zblock_kernel_spectrum(k, local), lo, hi,
+                                               mesh), x, {"spectral_multiply": 4}),
+        "dft": (lambda: dft_convolve_spectrum(x, *kernel_spectrum_split(k, shape)),
+                lambda b: halo.convolve_zblock_dft(b, halo.zblock_kernel_spectrum_split(k, local),
+                                                   lo, hi, mesh), x, {}),
+        "fused": (lambda: fused_convolve_transposed(xt, *kernel_spectrum_fused(k, shape)),
+                  lambda b: halo.convolve_zblock_fused(b, halo.zblock_kernel_spectrum_fused(
+                      k, local), lo, hi, mesh), xt, {"pass_a": 4, "pass_b": 4, "pass_c": 4}),
+    }
+    for engine, (whole, zblock, vol, want) in cases.items():
+        ref = whole()
+        blocks = sharded.shard_tensor(vol, mesh, sharded.PSI).blocks
+        if engine == "fused":  # the spectrum's forwarding is counted apart
+            spec = halo.zblock_kernel_spectrum_fused(k, local)
+            zblock = lambda b: halo.convolve_zblock_fused(b, spec, lo, hi, mesh)  # noqa: E731
+        torch.cuda.synchronize()
+        reset_counts()
+        res = zblock(blocks)
+        torch.cuda.synchronize()
+        counts = {key: c for key, c in read_counts().items() if c}
+        got = sharded.MeshTensor(mesh, vol.shape, sharded.PSI, res).full()
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        log(f"convolve_zblock {engine:5s}: max|diff|/max|in-core| {err:.3e} (tol 1e-5),"
+            f" launches {counts}")
+        if not err <= 1e-5:
+            raise AssertionError(f"convolve_zblock ({engine}) disagrees with in-core: {err:.3e}")
+        if engine != "dft" and counts != want:
+            raise AssertionError(f"convolve_zblock ({engine}): launches {counts}, want {want}")
+        del ref, got, res, blocks
+    del x, xt
+    torch.cuda.empty_cache()
+
+    def run_mesh(vp, zp, data, psi0, iters, engine, order, lam=LAM):
+        m = sharded.make_mesh(vp, zp, devices=[dev] * (vp * zp))
+        psi_s, data_s = sharded.shard_workspace(data, psi0, m)
+        torch.cuda.synchronize()
+        reset_counts()
+        res, secs = timed_call(torch, lambda: sharded.deconvolve_sharded(
+            psi_s, data_s, iters, m, lam=lam, min_value=MIN_VALUE, algorithm=engine,
+            view_order=order))
+        counts = {key: c for key, c in read_counts().items() if c}
+        want = mesh_counts(engine, zp == 1, zp, data.num_views, iters)
+        log(f"mesh {vp}x{zp} {engine:5s} {order}: {secs:.3f} s for {iters} iterations,"
+            f" launches {counts}")
+        if counts != want:
+            raise AssertionError(f"mesh {vp}x{zp} {engine}: launches {counts}, want {want}")
+        return res.full(dev)
+
+    # c. bench config 1 in the simultaneous order on 2x2 and 4x1 meshes
+    data, psi0 = headline_data(torch, dev, rng)
+    log(f"bench config 1, simultaneous: 4 views at {n}^3, per-voxel weights 1/V, lam {LAM},"
+        f" {ITERS} iterations")
+    for engine in ("fft", "fused"):
+        ref = deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE,
+                         view_order="simultaneous", algorithm=engine)
+        for vp, zp in ((2, 2), (4, 1)):
+            res = run_mesh(vp, zp, data, psi0, ITERS, engine, "simultaneous")
+            check_output(torch, res, shape, f"mesh {vp}x{zp} {engine}")
+            out[f"sim_{vp}x{zp}_{engine}"] = within(res, ref, f"mesh {vp}x{zp} {engine} vs in-core")
+        del ref, res
+        torch.cuda.empty_cache()
+
+    # e. the mesh layer's own cost: a 1x1 mesh against in-core, sequential
+    log(f"mesh layer cost at {n}^3 (sequential, {ITERS} iterations) on {out['card']}: one card"
+        " shows the layer's overhead, not scaling")
+    m11 = sharded.make_mesh(1, 1, devices=[dev])
+    psi_11, data_11 = sharded.shard_workspace(data, psi0, m11)
+    for engine in ("fft", "fused"):
+        def incore(k):
+            return deconvolve(psi0, data, k, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
+
+        def on_mesh(k):
+            return sharded.deconvolve_sharded(psi_11, data_11, k, m11, lam=LAM,
+                                              min_value=MIN_VALUE, algorithm=engine,
+                                              view_order="sequential")
+
+        within(on_mesh(ITERS).full(dev), incore(ITERS), f"mesh 1x1 {engine} vs in-core")
+        r_in, r_mesh = rate(torch, incore, reps=3), rate(torch, on_mesh, reps=3)
+        r_in2 = rate(torch, incore, reps=3)
+        log(f"mesh 1x1 {engine}: {r_mesh[0]!r} it/s (slope {r_mesh[1]!r}); in-core"
+            f" {r_in[0]!r} and {r_in2[0]!r} it/s (slopes {r_in[1]!r}, {r_in2[1]!r}); ratio"
+            f" {r_mesh[0] / max(r_in[0], r_in2[0]):.4f} ({out['card']})")
+        out[f"cost_{engine}"] = {"mesh_its": r_mesh[0], "incore_its": [r_in[0], r_in2[0]],
+                                 "mesh_slope": r_mesh[1], "incore_slope": [r_in[1], r_in2[1]]}
+
+    # f. the ladder: two "devices" (the card twice), in-core refused
+    saved = (dispatch.mesh_device_count, dispatch.mesh_devices, os.environ.get("LMVN_TRACE"))
+    dispatch.mesh_device_count = lambda: 2
+    dispatch.mesh_devices = lambda k: [dev] * k
+    os.environ["LMVN_TRACE"] = "1"
+    try:
+        capacity = dispatch.device_capacity_bytes(dev)
+        est = dispatch.estimate_workspace_bytes(data, "auto", dev)
+        cell = dispatch._zonly_cell_bytes(data, "auto", 2, dev)
+        headroom = (est + cell) / 2 / capacity
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            res = dispatch.deconvolve_auto(psi0, data, 3, lam=LAM, min_value=MIN_VALUE,
+                                           headroom=headroom, device=dev)
+        trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
+        log(f"ladder headroom {headroom:.5f} (in-core est {est >> 20} MiB, z-only cell"
+            f" {cell >> 20} MiB): " + " | ".join(trace))
+        if not any("sequential parity on z-only mesh {'view': 1, 'z': 2}" in ln for ln in trace):
+            raise AssertionError("deconvolve_auto did not take the z-only mesh rung")
+        ref = deconvolve(psi0, data, 3, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
+        out["ladder_zonly"] = within(res, ref, "ladder z-only rung vs in-core")
+    finally:
+        dispatch.mesh_device_count, dispatch.mesh_devices = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("LMVN_TRACE", None)
+        else:
+            os.environ["LMVN_TRACE"] = saved[2]
+    del data, psi0, data_11, psi_11, res, ref
+    torch.cuda.empty_cache()
+
+    # d. bench config 3 in the sequential order on a 1x2 z-only mesh, 512^3
+    big, psi_big = big_data(torch, dev, rng)
+    big = MultiViewData(big.views, big.kernel1, torch.flip(big.kernel1, dims=(-3, -2, -1)),
+                        big.weights)
+    log(f"bench config 3, sequential: 4 views at {BIG_N}^3, kernel2 = flipped kernel1, scalar"
+        " weights 1/V, 2 iterations, on a 1x2 z-only mesh (fused extent"
+        f" {halo.zblock_fused_extent(BIG_N // 2, 10, 10)})")
+    for engine in ("fft", "fused"):
+        ref = deconvolve(psi_big, big, 2, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = run_mesh(1, 2, big, psi_big, 2, engine, "sequential")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check_output(torch, res, (BIG_N,) * 3, f"mesh 1x2 {engine}")
+        out[f"seq_1x2_{engine}"] = within(res, ref, f"mesh 1x2 {engine} {BIG_N}^3 vs in-core")
+        log(f"mesh 1x2 {engine} {BIG_N}^3: peak device memory {peak:.2f} GiB"
+            " (max_memory_allocated, in-core data and reference included)")
+        out[f"peak_gib_1x2_{engine}"] = peak
+        del ref, res
+        torch.cuda.empty_cache()
+    log("mesh: " + json.dumps(out))
+    return out
+
+
 def phase_cli(torch, dev):
     """cli.main on TIFFs at 64³ with --dispatch auto against deconvolve_auto."""
     import tempfile
@@ -2023,6 +2278,8 @@ def main():
     phase_models(torch, dev, rng)
     torch.cuda.empty_cache()
     phase_front_ends(torch, dev)
+    torch.cuda.empty_cache()
+    phase_mesh(torch, dev, rng)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -14,19 +14,43 @@ the five-pass chain, the carried four-pass chain with ``LMVN_FUSED_CARRY=1``
 and the dense spectrum forwarding), ``"dft"`` (matrix-product DFTs,
 :mod:`.core.dft`) and ``"direct"`` (spatial convolves); ``"auto"`` picks
 one by shape and device (:func:`.deconv.rl.resolve_algorithm`).  The
-single-device dispatch ladder, :func:`deconvolve_auto` (in-core, the
-interleaved rung and the streamed rung), and the models
-:class:`RichardsonLucy` and :class:`WienerFilter` are the entry points a
-user calls.  Around them: the flat numpy API of the reference's C ABI
+dispatch ladder, :func:`deconvolve_auto` (in-core, the z-only and the
+view-sharded mesh rungs, the interleaved rung and the streamed rung), and
+the models :class:`RichardsonLucy` and :class:`WienerFilter` are the entry
+points a user calls; :mod:`.parallel` lays a ('view', 'z') mesh of devices
+(one process or several, through ``torch.distributed``) under the same
+view step.  Around them: the flat numpy API of the reference's C ABI
 (:mod:`.api`), that C ABI itself as a shared library (``native/``, through
 :mod:`.native_entry`; :mod:`.native_client` loads it), the command-line tool
 (:mod:`.cli`), stack I/O and checkpoint/resume (:mod:`.io`), and the
 utilities of ``utils/`` (validation, PSF compounds, tracing, bench rows).
 """
 
+from .core.shapes import (
+    as_shape,
+    halo_widths,
+    kernel_center,
+    next_fast_shape,
+    zero_pad_extents,
+    zero_pad_offsets,
+)
+from .core.wrap import crop_at_offsets, embed_at_offsets
 from .core.convolve import convolve3d, convolve_spectrum, direct_convolve3d, fft_convolve3d
-from .core.dft import dft3, dft_convolve_spectrum, idft3, set_matmul_precision
-from .core.fft import irfft3, rfft3
+from .core.dft import (
+    dft3,
+    dft_convolve_spectrum,
+    idft3,
+    kernel_spectrum_split,
+    make_plan,
+    set_matmul_precision,
+)
+from .core.fft import (
+    KernelSpectrumCache,
+    default_spectrum_cache,
+    forward_kernel_spectrum,
+    irfft3,
+    rfft3,
+)
 from .core.kernels import (
     compute_quotient,
     final_values,
@@ -35,7 +59,7 @@ from .core.kernels import (
 )
 from .core.wrap import wrap_kernel
 from .deconv.dispatch import DispatchDivergenceWarning, deconvolve_auto
-from .deconv.rl import deconvolve, rl_view_step
+from .deconv.rl import deconvolve, deconvolve_jit, rl_view_step
 from .deconv.streamed import deconvolve_streamed
 from .deconv.workspace import MultiViewData, View, Workspace, initial_psi
 from .models import RichardsonLucy, WienerFilter, wiener_deconvolve
@@ -45,6 +69,20 @@ from .io.checkpoint import CheckpointManager
 __version__ = "0.1.0"
 
 __all__ = [
+    "as_shape",
+    "halo_widths",
+    "kernel_center",
+    "next_fast_shape",
+    "zero_pad_extents",
+    "zero_pad_offsets",
+    "crop_at_offsets",
+    "embed_at_offsets",
+    "KernelSpectrumCache",
+    "default_spectrum_cache",
+    "forward_kernel_spectrum",
+    "deconvolve_jit",
+    "make_plan",
+    "kernel_spectrum_split",
     "api",
     "io",
     "CheckpointManager",

@@ -23,7 +23,7 @@ from ..ops.elementwise import layout_like, spectral_multiply
 from ..utils.precision import fp32_convs
 from .fft import irfft3, rfft3
 from .shapes import as_shape, halo_widths, zero_pad_extents, zero_pad_offsets
-from .wrap import wrap_kernel
+from .wrap import crop_at_offsets, embed_at_offsets, wrap_kernel  # noqa: F401 (re-exported, as in JAX)
 
 
 def convolve_spectrum(

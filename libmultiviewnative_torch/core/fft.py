@@ -94,3 +94,7 @@ class KernelSpectrumCache:
 
     def __len__(self) -> int:
         return len(self._store)
+
+
+# The process-wide cache, as the JAX package's ``default_spectrum_cache``.
+default_spectrum_cache = KernelSpectrumCache()

@@ -38,7 +38,7 @@ from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
 from ..ops.fused import check_transposed_shape, fused_convolve_spectrum, kernel_spectrum_fused
-from .rl import resolve_algorithm
+from .rl import _select_rl_update, resolve_algorithm
 
 Bounds = List[Tuple[int, int]]
 
@@ -194,6 +194,7 @@ def deconvolve_interleaved(
     min_value: float = 1e-4,
     chunk_z: int = 64,
     algorithm: str = "auto",
+    elementwise: str = "jnp",
     device="cuda",
 ) -> np.ndarray:
     """Sequential RL with psi on ``device`` and the views streamed from the
@@ -203,10 +204,13 @@ def deconvolve_interleaved(
     numpy arrays or CPU tensors; ``weights[v]`` may be a scalar.  Kernels are
     host arrays too.  ``algorithm``: ``"fft"``, ``"dft"``, ``"fused"`` or
     ``"auto"`` (:func:`.rl.resolve_algorithm` of the volume on ``device``).
+    ``elementwise``: ``"jnp"`` or ``"pallas"``, both K1 (JAX's choice of
+    update chain; another value raises ``ValueError``).
     ``device`` is the PyTorch device the work runs on; on
     ``"cpu"`` the kernels' plain versions run and nothing streams.  Returns
     the final psi as a numpy array.
     """
+    _select_rl_update(elementwise)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deconvolve_interleaved: device='cuda' but CUDA is not available")

@@ -28,8 +28,10 @@ and ``"direct"`` in the spatial domain (:func:`..core.convolve.
 direct_convolve3d`); both take the quotient through K2 and the update
 through K1, as the fft engine does.
 
-PyTorch runs eagerly, so there is no ``deconvolve_jit``: :func:`deconvolve`
-takes its role, and λ/min_value are runtime values on every call.
+PyTorch runs eagerly: :func:`deconvolve_jit` is :func:`deconvolve` under
+the JAX package's name, and λ/min_value are runtime values on every call.
+``elementwise`` ("jnp" or "pallas", JAX's choice of update chain) is
+accepted by every entry point; both run the port's kernels (:func:`_select_rl_update`).
 :func:`resolve_algorithm` says which engine ``"auto"`` runs, for every
 caller (in-core, interleaved, streamed and the dispatch ladder), and the
 module logger records it at DEBUG.
@@ -63,6 +65,25 @@ from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 log = logging.getLogger(__name__)
 
 ENGINES = ("fft", "dft", "fused", "direct")
+
+
+def _select_rl_update(elementwise: str):
+    """The update of an ``elementwise`` request: JAX's ``"jnp"`` (XLA's
+    fused chain) and ``"pallas"`` (its explicit kernel) both run the port's
+    K1 (:func:`..ops.elementwise.rl_update`); any other value raises
+    ``ValueError``, as in JAX (``rl.py:50-67``)."""
+    if elementwise in ("jnp", "pallas"):
+        return rl_update
+    raise ValueError(f"unknown elementwise {elementwise!r}")
+
+
+def _apply_update(update_fn, psi, integral, weights, lam, min_value, out):
+    """``update_fn``'s result, written to ``out`` when one is given; K1
+    writes it there itself."""
+    if update_fn is rl_update:
+        return rl_update(psi, integral, weights, lam, min_value, out=out)
+    res = update_fn(psi, integral, weights, lam, min_value)
+    return res if out is None else out.copy_(res)
 
 
 def _auto_device(device) -> torch.device:
@@ -166,10 +187,26 @@ def prepare_spectra_split(kernels: torch.Tensor, spatial_shape: Sequence[int]):
     return dft3(wrapped, make_plan(spatial, kernels.device))
 
 
-# One view's update through the fused engine, in the (Z, X, Y) transposed
-# domain, with rl_view_step's arguments: psi, view and per-voxel weights
-# transposed, kernel spectra as fused (Kxp, Z, Y) (re, im) pairs.
-rl_view_step_fused = fused_rl_step_transposed
+def rl_view_step_fused(
+    psi: torch.Tensor,
+    view: torch.Tensor,
+    k1_split,
+    k2_split,
+    weights,
+    lam,
+    min_value: float,
+    update_fn=None,
+    conj_k2: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One view's update through the fused engine (K4, K6, K8, K6, K9), in
+    the (Z, X, Y) transposed domain: psi, view and per-voxel weights
+    transposed, kernel spectra as fused (Kxp, Z, Y) (re, im) pairs.  The
+    update runs inside the last pass, so ``update_fn`` is ignored, as in
+    JAX."""
+    del update_fn
+    return fused_rl_step_transposed(psi, view, k1_split, k2_split, weights, lam, min_value,
+                                    conj_k2=conj_k2, out=out)
 
 
 def rl_view_step(
@@ -180,12 +217,14 @@ def rl_view_step(
     weights,
     lam,
     min_value: float,
+    update_fn=rl_update,
     conj_k2: bool = False,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One view's multiplicative update (``src/multiviewnative.cpp:191-228``).
 
-    ``conj_k2`` multiplies by conj(k2_hat) (the adjoint of kernel1 when
+    ``update_fn`` takes (psi, integral, weights, lam, min_value), K1 by
+    default.  ``conj_k2`` multiplies by conj(k2_hat) (the adjoint of kernel1 when
     k2_hat is kernel1's spectrum).  ``out=psi`` updates psi in place, except
     when grad mode is on and an operand requires grad: then the step builds
     an autograd graph through K1-K3 and returns a new tensor.
@@ -193,7 +232,7 @@ def rl_view_step(
     integral = convolve_spectrum(psi, k1_hat)
     integral = quotient(view, integral, out=integral)
     integral = convolve_spectrum(integral, k2_hat, conj_k=conj_k2)
-    return rl_update(psi, integral, weights, lam, min_value, out=out)
+    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 def rl_view_step_dft(
@@ -204,6 +243,7 @@ def rl_view_step_dft(
     weights,
     lam,
     min_value: float,
+    update_fn=rl_update,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The view step with the matmul-DFT engine (:mod:`..core.dft`): the
@@ -211,7 +251,7 @@ def rl_view_step_dft(
     integral = dft_convolve_spectrum(psi, *k1_split)
     integral = quotient(view, integral, out=integral)
     integral = dft_convolve_spectrum(integral, *k2_split)
-    return rl_update(psi, integral, weights, lam, min_value, out=out)
+    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 def rl_view_step_direct(
@@ -222,6 +262,7 @@ def rl_view_step_direct(
     weights,
     lam,
     min_value: float,
+    update_fn=rl_update,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The view step with the direct engine: both convolves circular in the
@@ -230,7 +271,7 @@ def rl_view_step_direct(
     integral = direct_convolve3d(psi, kernel1, mode="circular")
     integral = quotient(view, integral, out=integral)
     integral = direct_convolve3d(integral, kernel2, mode="circular")
-    return rl_update(psi, integral, weights, lam, min_value, out=out)
+    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 class PreparedSpectra:
@@ -312,6 +353,7 @@ def deconvolve(
     view_order: str = "sequential",
     algorithm: str = "fft",
     adjoint_kernel2: bool = False,
+    elementwise: str = "jnp",
     track_convergence: bool = False,
     prepared: Optional[PreparedSpectra] = None,
 ):
@@ -343,6 +385,9 @@ def deconvolve(
     data.kernel2 is ignored.  Weights may be (V, Z, Y, X) stacks or (V,)
     scalars.
 
+    ``elementwise``: ``"jnp"`` or ``"pallas"``, both K1 here
+    (:func:`_select_rl_update`); another value raises ``ValueError``.
+
     ``prepared`` (from :func:`prepare_workspace`) skips the per-call kernel
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
     made and are ignored here.
@@ -350,6 +395,7 @@ def deconvolve(
     Returns psi, or (psi, deltas) with ``track_convergence``, deltas the
     per-sweep sqrt(mean((psi_i - psi_{i-1})^2)) shaped (num_iterations,).
     """
+    _select_rl_update(elementwise)
     spatial = as_shape(psi.shape[-3:])
     if psi.ndim != 3:
         raise ValueError(f"psi must be one (Z, Y, X) volume, got shape {tuple(psi.shape)}")
@@ -465,6 +511,25 @@ def deconvolve_with_history(
     )
 
 
+def deconvolve_jit(
+    psi: torch.Tensor,
+    data: MultiViewData,
+    num_iterations: int,
+    lam: float = 0.0,
+    min_value: float = 1e-4,
+    view_order: str = "sequential",
+    algorithm: str = "fft",
+    adjoint_kernel2: bool = False,
+    elementwise: str = "jnp",
+) -> torch.Tensor:
+    """:func:`deconvolve` under the JAX package's name and signature, with
+    its default ``algorithm="fft"``.  PyTorch runs eagerly, so nothing is
+    compiled; and unlike JAX's, which donates psi, the caller's psi is
+    never written."""
+    return deconvolve(psi, data, num_iterations, lam, min_value, view_order, algorithm,
+                      adjoint_kernel2, elementwise)
+
+
 def deconvolve_prepared(
     psi: torch.Tensor,
     data: MultiViewData,
@@ -473,11 +538,13 @@ def deconvolve_prepared(
     lam: float = 0.0,
     min_value: float = 1e-4,
     view_order: str = "sequential",
+    elementwise: str = "jnp",
 ) -> torch.Tensor:
     """RL using pre-forwarded spectra (no per-call kernel FFTs): the
     time-lapse serving path, sharing the whole :func:`deconvolve` driver."""
     return deconvolve(
-        psi, data, num_iterations, lam, min_value, view_order, prepared=prepared
+        psi, data, num_iterations, lam, min_value, view_order, elementwise=elementwise,
+        prepared=prepared,
     )
 
 

@@ -40,7 +40,7 @@ from ..core.shapes import halo_widths
 from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient as quotient_kernel, rl_update
 from .interleaved import _host, _pinned, chunk_bounds
-from .rl import resolve_algorithm
+from .rl import _select_rl_update, resolve_algorithm
 
 # chunk working sets on the device at once: one computing, one arriving
 INFLIGHT = 2
@@ -180,6 +180,7 @@ def deconvolve_streamed(
     min_value: float = 1e-4,
     chunk_z="auto",
     algorithm: str = "fft",
+    elementwise: str = "jnp",
     device="cuda",
 ) -> torch.Tensor:
     """Host-resident sequential RL; the device sees only z-chunks.
@@ -187,11 +188,13 @@ def deconvolve_streamed(
     ``psi``, ``views[v]`` and per-voxel ``weights[v]`` are (Z, Y, X) host
     numpy arrays, CPU tensors or arrays that slice along z (an h5py
     dataset); ``weights[v]`` may be a scalar.  ``chunk_z``: an int, or
-    ``"auto"`` for :func:`pick_chunk_z`.  ``device``: where the chunks run;
+    ``"auto"`` for :func:`pick_chunk_z`.  ``elementwise``: ``"jnp"`` or ``"pallas"``,
+    both K1 (another value raises ``ValueError``).  ``device``: where the chunks run;
     on ``"cpu"`` the kernels' plain versions run and nothing is copied.
 
     The math is :func:`.rl.deconvolve` in the sequential order.  Returns the
     final psi as a float32 CPU tensor (the JAX rung returns numpy)."""
+    _select_rl_update(elementwise)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deconvolve_streamed: device='cuda' but CUDA is not available")

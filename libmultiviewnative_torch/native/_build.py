@@ -78,13 +78,14 @@ def _compile(cmd: List[str], target: Path, tmp: Path) -> Path:
     return target
 
 
-def build() -> Path:
+def build(force: bool = False) -> Path:
     """Compile ``libmultiviewnative_torch.so`` if this source hash has none
-    yet; return its path.  Raises with g++'s stderr on a failed build."""
+    yet, or anew with ``force``; return its path.  Raises with g++'s stderr
+    on a failed build."""
     flags = python_flags()
     out_dir = _out_dir(flags)
     lib = out_dir / f"lib{_LIB_NAME}.so"
-    if lib.exists():
+    if lib.exists() and not force:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{_LIB_NAME}.{os.getpid()}.so"

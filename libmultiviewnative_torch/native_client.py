@@ -49,10 +49,11 @@ class WorkspaceStruct(ctypes.Structure):
     ]
 
 
-def build_native() -> str:
+def build_native(force: bool = False) -> str:
     """Build the library with the port's builder (keyed by a hash of its
-    sources, so never stale); returns the .so path."""
-    return str(_build.build())
+    sources, so never stale); ``force`` rebuilds it all the same.  Returns
+    the .so path."""
+    return str(_build.build(force=force))
 
 
 _CONV = [_FLOATP, _INTP, _FLOATP, _INTP, ctypes.c_int]

@@ -198,3 +198,214 @@ def test_direct_request_skips_the_interleaved_rung(monkeypatch):
     assert seen and set(seen) == {"direct"}
     incore = rl.deconvolve(torch.from_numpy(psi0), data, 1, algorithm="direct")
     np.testing.assert_allclose(got.numpy(), incore.numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ---- the mesh rungs.  JAX takes them on its 8 virtual CPU devices; the
+# port is told of 8 devices and given CPU cells (its count and cells are
+# module-level helpers, as JAX's tests patch jax.device_count) ----
+
+
+def _mesh_fleet(monkeypatch, capacity):
+    """Both packages believe each device holds ``capacity`` bytes and see 8
+    devices; the port's cells are CPUs."""
+    assert jax.device_count() == 8
+    monkeypatch.setattr(jdispatch, "device_capacity_bytes", lambda device=None: capacity)
+    monkeypatch.setattr(dispatch, "device_capacity_bytes", lambda device=None: capacity)
+    monkeypatch.setattr(dispatch, "mesh_device_count", lambda: 8)
+    monkeypatch.setattr(dispatch, "mesh_devices", lambda n: ["cpu"] * n)
+
+
+def _est(data, algorithm="auto"):
+    return dispatch.estimate_workspace_bytes(data, algorithm, "cpu")
+
+
+def test_mesh_device_count_on_a_host_without_a_card():
+    assert dispatch.mesh_device_count() == 0
+
+
+def test_auto_sequential_routes_to_zonly_mesh(monkeypatch, capsys):
+    """A sequential request too big for one device runs the reference's
+    view loop on a z-only mesh (tests/test_dispatch.py:122-144): no
+    divergence, the in-core sequential result."""
+    jdata, data, psi0 = _both(_arrays())
+    _mesh_fleet(monkeypatch, _est(data) // 4)
+    monkeypatch.setenv("LMVN_TRACE", "1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", dispatch.DispatchDivergenceWarning)
+        warnings.simplefilter("error", jdispatch.DispatchDivergenceWarning)
+        got = dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 2, lam=0.006, device="cpu")
+        want = jdispatch.deconvolve_auto(jnp.asarray(psi0), jdata, 2, lam=0.006)
+    out = capsys.readouterr().out
+    assert "dispatch: sequential parity on z-only mesh {'view': 1, 'z': 8}" in out
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert _rel(got.numpy(), want) <= TOL
+    incore = rl.deconvolve(torch.from_numpy(psi0), data, 2, lam=0.006, algorithm="dft")
+    assert _rel(got.numpy(), incore.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("algorithm", ["auto", "dft"])
+def test_auto_sharded_rung_matches(monkeypatch, capsys, algorithm):
+    """No z-only factorization: the view-sharded mesh runs the simultaneous
+    order and warns for a sequential request (tests/test_dispatch.py:
+    147-204); the requested engine is honoured."""
+    jdata, data, psi0 = _both(_arrays())
+    _mesh_fleet(monkeypatch, _est(data) // 4)
+    monkeypatch.setattr(dispatch, "_pick_zonly_mesh", lambda *a, **k: None)
+    monkeypatch.setattr(jdispatch, "_pick_zonly_mesh", lambda *a, **k: None)
+    monkeypatch.setenv("LMVN_TRACE", "1")
+    with pytest.warns(dispatch.DispatchDivergenceWarning, match="SIMULTANEOUS"):
+        got = dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 2, lam=0.006,
+                                       algorithm=algorithm, device="cpu")
+    assert "dispatch: sharded mesh {'view': 2, 'z': 4}" in capsys.readouterr().out
+    with pytest.warns(jdispatch.DispatchDivergenceWarning):
+        want = jdispatch.deconvolve_auto(jnp.asarray(psi0), jdata, 2, lam=0.006,
+                                         algorithm=algorithm)
+    assert _rel(got.numpy(), want) <= TOL
+    incore = rl.deconvolve(torch.from_numpy(psi0), data, 2, lam=0.006,
+                           view_order="simultaneous", algorithm="fft")
+    np.testing.assert_allclose(got.numpy(), incore.numpy(), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="SIMULTANEOUS"):
+        dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 1, strict=True, device="cpu")
+
+
+def test_simultaneous_request_on_the_mesh_and_the_weight_audit(monkeypatch):
+    """A simultaneous request takes the view-sharded mesh silently; a
+    sequential one sent there runs the weight audit first
+    (tests/test_dispatch.py:426-457)."""
+    jdata, data, psi0 = _both(_arrays())
+    _mesh_fleet(monkeypatch, _est(data) // 4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", dispatch.DispatchDivergenceWarning)
+        got = dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 2,
+                                       view_order="simultaneous", device="cpu")
+    want = jdispatch.deconvolve_auto(jnp.asarray(psi0), jdata, 2, view_order="simultaneous")
+    assert _rel(got.numpy(), want) <= TOL
+    from libmultiviewnative_torch.deconv.workspace import WeightNormalizationWarning
+
+    views, k1, k2, _ = _arrays()
+    bad = multiview_data_from_numpy(views, k1, k2, np.ones_like(views), device="cpu")
+    monkeypatch.setattr(dispatch, "_pick_zonly_mesh", lambda *a, **k: None)
+    with pytest.warns(WeightNormalizationWarning):
+        with pytest.warns(dispatch.DispatchDivergenceWarning):
+            dispatch.deconvolve_auto(torch.from_numpy(psi0), bad, 1, device="cpu")
+
+
+def test_r1_sequential_request_the_zonly_mesh_cannot_run(monkeypatch, capsys):
+    """R1 (ROADMAP queue 3): a sequential "direct" request where a z-only
+    mesh exists.  JAX demotes it to the simultaneous view-sharded mesh (a
+    divergence warning, simultaneous math); the port goes on to the
+    sequential off-core rungs, which run both the order and the engine."""
+    jdata, data, psi0 = _both(_arrays())
+    _mesh_fleet(monkeypatch, _est(data, "direct") // 4)
+    monkeypatch.setenv("LMVN_TRACE", "1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", dispatch.DispatchDivergenceWarning)
+        got = dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 2, algorithm="direct",
+                                       chunk_z=8, device="cpu")
+    out = capsys.readouterr().out
+    assert "z-only mesh cannot honour algorithm='direct'" in out
+    assert "dispatch: streamed on one device" in out and "sharded mesh" not in out
+    incore = rl.deconvolve(torch.from_numpy(psi0), data, 2, algorithm="direct")
+    np.testing.assert_allclose(got.numpy(), incore.numpy(), rtol=1e-4, atol=1e-4)
+    with pytest.warns(jdispatch.DispatchDivergenceWarning):
+        want = jdispatch.deconvolve_auto(jnp.asarray(psi0), jdata, 2, algorithm="direct",
+                                         chunk_z=8)
+    assert "dispatch: sharded mesh" in capsys.readouterr().out
+    assert _rel(got.numpy(), want) > 1e-3  # JAX ran the simultaneous order
+
+
+def test_r2_zonly_mesh_counts_what_every_cell_holds(monkeypatch):
+    """R2 (ROADMAP queue 3): JAX admits a z-only mesh when est < cap * zp,
+    as if the spectra were split over the cells; every cell holds all views'
+    spectra at its halo-extended extent.  At a capacity between the two
+    counts JAX picks an 8-cell mesh and the port none."""
+    jdata, data, _ = _both(_arrays())
+    vol = 4 * int(np.prod(SHAPE))
+    est = _est(data)
+    assert est == 16 * vol  # 2V views and weights, 2V spectra, 8 temporaries
+    # one of 8 cells: 12 volumes / 8, spectra 4 volumes * (2 + 2) / 16 planes
+    assert dispatch._zonly_cell_bytes(data, "auto", 8, "cpu") == 12 * vol // 8 + vol + 4 * 2 * V * 27
+    cap = int(2.25 * vol)
+    jmesh = jdispatch._pick_zonly_mesh(SHAPE[0], 8, 1, jdispatch.estimate_workspace_bytes(jdata),
+                                       cap)
+    assert jmesh is not None and jmesh.shape["z"] == 8
+    monkeypatch.setattr(dispatch, "mesh_devices", lambda n: ["cpu"] * n)
+    assert dispatch._pick_zonly_mesh(data, "auto", 8, 1, cap, "cpu") is None
+    mesh = dispatch._pick_zonly_mesh(data, "auto", 8, 1, 3 * vol, "cpu")
+    assert mesh is not None and mesh.shape == {"view": 1, "z": 8}
+
+
+def test_mesh_factorization_falls_back_to_stream(monkeypatch, capsys):
+    """V=2 views and Z=15 on 8 devices: no ('view', 'z') factorization, so
+    the ladder streams (tests/test_dispatch.py:260-278)."""
+    views, k1, k2, w = _arrays()
+    arrays = (views[:, :15], k1, k2, w[:, :15])
+    jdata, data, psi0 = _both_shape(arrays)
+    _mesh_fleet(monkeypatch, _est(data) // 2)
+    monkeypatch.setattr(dispatch, "_pick_zonly_mesh", lambda *a, **k: None)
+    monkeypatch.setenv("LMVN_TRACE", "1")
+    got = dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 2, chunk_z=5, algorithm="fft",
+                                   device="cpu")
+    out = capsys.readouterr().out
+    assert "no valid mesh factorization" in out and "dispatch: streamed" in out
+    incore = rl.deconvolve(torch.from_numpy(psi0), data, 2, algorithm="fft")
+    assert _rel(got.numpy(), incore.numpy()) <= TOL
+    monkeypatch.setattr(jdispatch, "_pick_zonly_mesh", lambda *a, **k: None)
+    want = jdispatch.deconvolve_auto(jnp.asarray(psi0), jdata, 2, chunk_z=5, algorithm="fft")
+    assert _rel(got.numpy(), want) <= TOL
+
+
+def _both_shape(arrays):
+    arrays = tuple(np.ascontiguousarray(a) for a in arrays)
+    jdata = JaxData(*(jnp.asarray(a) for a in arrays))
+    data = multiview_data_from_numpy(*arrays, device="cpu")
+    psi0 = np.full(arrays[0].shape[1:], float(arrays[0].mean()), np.float32)
+    return jdata, data, psi0
+
+
+@pytest.mark.parametrize("elementwise", ["jnp", "pallas"])
+def test_each_entry_point_takes_elementwise(elementwise):
+    """F8: every entry point takes JAX's ``elementwise``; both values run K1."""
+    from libmultiviewnative_torch.deconv.interleaved import deconvolve_interleaved
+
+    views, k1, k2, w = _arrays()
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
+    psi0 = torch.from_numpy(np.full(SHAPE, float(views.mean()), np.float32))
+    want = rl.deconvolve(psi0, data, 1, lam=0.006).numpy()
+    got = [
+        rl.deconvolve(psi0, data, 1, 0.006, 1e-4, "sequential", "fft", False, elementwise),
+        rl.deconvolve_prepared(psi0, data, rl.prepare_workspace(data, SHAPE, "fft"), 1, 0.006,
+                               1e-4, "sequential", elementwise),
+        dispatch.deconvolve_auto(psi0, data, 1, lam=0.006, algorithm="fft",
+                                 elementwise=elementwise, device="cpu"),
+        deconvolve_interleaved(psi0, list(views), list(k1), list(k2), list(w), 1, lam=0.006,
+                               algorithm="fft", elementwise=elementwise, device="cpu"),
+        streamed.deconvolve_streamed(psi0, list(views), list(k1), list(k2), list(w), 1, 0.006,
+                                     1e-4, chunk_z=8, elementwise=elementwise, device="cpu"),
+    ]
+    for g in got:
+        np.testing.assert_allclose(np.asarray(g), want, rtol=1e-5, atol=1e-4)
+
+
+def test_each_entry_point_refuses_an_unknown_elementwise():
+    from libmultiviewnative_torch.deconv.interleaved import deconvolve_interleaved
+
+    views, k1, k2, w = _arrays()
+    data = multiview_data_from_numpy(views, k1, k2, w, device="cpu")
+    psi0 = torch.from_numpy(np.full(SHAPE, float(views.mean()), np.float32))
+    calls = [
+        lambda: rl.deconvolve(psi0, data, 1, elementwise="xla"),
+        lambda: rl.deconvolve_prepared(psi0, data, rl.prepare_workspace(data, SHAPE, "fft"), 1,
+                                       elementwise="xla"),
+        lambda: dispatch.deconvolve_auto(psi0, data, 1, elementwise="xla", device="cpu"),
+        lambda: deconvolve_interleaved(psi0, list(views), list(k1), list(k2), list(w), 1,
+                                       elementwise="xla", device="cpu"),
+        lambda: streamed.deconvolve_streamed(psi0, list(views), list(k1), list(k2), list(w), 1,
+                                             elementwise="xla", device="cpu"),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unknown elementwise"):
+            call()
+    with pytest.raises(ValueError, match="unknown elementwise"):
+        jdispatch.deconvolve_auto(jnp.asarray(psi0.numpy()), JaxData(
+            *(jnp.asarray(a) for a in (views, k1, k2, w))), 1, elementwise="xla")

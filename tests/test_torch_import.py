@@ -21,6 +21,7 @@ _SCRIPT = textwrap.dedent(
     import libmultiviewnative_torch as mvn
     from libmultiviewnative_torch import api, cli, native_client, native_entry
     from libmultiviewnative_torch.io import checkpoint, stacks
+    from libmultiviewnative_torch.parallel import distributed, halo, loader, sharded
     from libmultiviewnative_torch.reference import numpy_ref
     from libmultiviewnative_torch.utils import logging, printing, psf, trace, validate
     from libmultiviewnative_torch.utils.synthetic import multiview_data
