@@ -14,7 +14,10 @@ Phases, each raising on failure (there is no CPU fallback):
    with the error and the CUDA-event times (median) of both, and of the one
    PyTorch call that computes the same function where there is one (K2
    ``torch.div``, K3 the complex ``*``): its ``library_ms``; K2 bitwise,
-   also at an odd shape and on unaligned operands (its scalar loop);
+   also at an odd shape and on unaligned operands (its scalar loop); K1 and
+   K2 also with the operand a batch shares, psi and the integral (4, 256,
+   256, 256) against one 256³ weight volume or view (phase 27's launches;
+   K2 bitwise, against ``torch.div`` broadcasting) and at (3, 7, 9, 13);
 4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
    iterations under the gates of tests/test_golden_regression.py;
 5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``
@@ -63,8 +66,10 @@ Phases, each raising on failure (there is no CPU fallback):
 19. gradients and the fp32 contract: gradients through K1-K3 at 16³ on the
     card against the port's CPU gradients (``fft_convolve3d`` with respect
     to the kernel, ``rl_view_step`` with respect to psi), with one K3 launch
-    in the backward for each K3 product of the forward; a tensor λ that
-    requires grad, and a fused pass on such an operand, raise; and the
+    in the backward for each K3 product of the forward; in λ and the
+    weights (``rl_view_step`` with a weight volume, ``deconvolve`` on fft, 2
+    iterations, with (V,) weights), gate 1e-5 of max|g|; a fused pass on an
+    operand that requires grad raises; and the
     z-sparse spectrum forwarding under a caller's TF32 setting against its
     fp32 result;
 20. dft engine: phase 5's data through ``deconvolve(algorithm="dft")``
@@ -121,7 +126,17 @@ Phases, each raising on failure (there is no CPU fallback):
     in-core; and bench config 3 (4 views 512³, kernel2 the flipped kernel1,
     scalar weights, 2 iterations) in the sequential order on a 1×2 z-only
     mesh (fused extent 280), fft and fused, against in-core, with the peak
-    device memory.
+    device memory;
+27. batched volumes: 4 volumes of the headline configuration (shared views
+    and weights) in one ``deconvolve(algorithm="auto")`` call, which runs
+    fft; each entry against the single-volume fft call on it (1e-6 of
+    max|psi|, bitwise expected: the batch is transformed one entry at a
+    time), the launches of one call (K1/K2/K3 40/40/80, as for one volume),
+    volumes/s against 4 single calls on fft and on fused in turns, and the
+    peak memory; then 2 volumes at 64³ with (V, B, Z, Y, X) views on fft
+    (both orders), dft and direct, ``deconvolve_auto`` (in-core, by its
+    ``LMVN_TRACE`` line) and ``RichardsonLucy.run``, each against the
+    single-volume calls (1e-5 where the batch is transformed at once).
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -194,6 +209,10 @@ OVER_SHAPES = ((744, 8, 8), (8, 8, 1824), (8, 3640, 8))
 # (8·89), 736 (32·23), with Y a whole, a partial and a single column tile
 Z_SHAPES = ((200, 64, 8), (264, 48, 16), (712, 40, 8), (736, 24, 16))
 GRAD_N = 16
+BATCH = 4  # phase 27: volumes in one call of the headline configuration
+BATCH_N = 64  # phase 27's other batched cases, BATCH_SMALL volumes each
+BATCH_SMALL = 2
+BATCH_ITERS = 3
 # lengths with odd prime factors for K4 and K7's FFT stages: X = 264 (8·3·11),
 # 808 (8·101), 832 (64·13); Y = 200 (8·5·5), 1016 (8·127), both at R = 1
 ODD_SHAPES = ((16, 200, 264), (8, 1016, 808), (8, 200, 832), (8, 1016, 264))
@@ -325,17 +344,20 @@ def check_kernel(torch, records, name, label, kernel, plain, nbytes, atol=0.0,
     return ms, plain_ms, lib_ms
 
 
-def keep_timing(records, name, size, times, nbytes, ops):
+def keep_timing(records, name, size, times, nbytes, ops, key=None):
     """Store one kernel's main-path timing at ``size``³ with its bound: the
-    256³ numbers are the record's own keys, the 512³ ones under "512"."""
+    256³ numbers are the record's own keys, the 512³ ones under "512", and
+    another launch's under ``key`` (the batch broadcast's, "broadcast")."""
     ms, plain_ms, lib_ms = times
     bound_ms, bound_by = bound(nbytes, ops)
-    log(f"{name:17s} {size}^3 main path: bound {bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB,"
-        f" {ops / 1e9:.3f} GFLOP); kernel at {bound_ms / ms:.3f} of it, plain at"
-        f" {bound_ms / plain_ms:.3f}")
+    log(f"{name:17s} {key or f'{size}^3 main path'}: bound {bound_ms:.4f} ms ({bound_by};"
+        f" {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP); kernel at {bound_ms / ms:.3f} of it,"
+        f" plain at {bound_ms / plain_ms:.3f}")
     entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
              "bound_by": bound_by}
-    if size == HEADLINE_N:
+    if key is not None:
+        records[name][key] = entry
+    elif size == HEADLINE_N:
         records[name].update(entry)
     else:
         records[name]["512"] = entry
@@ -399,6 +421,8 @@ def phase_kernels(torch, dev):
         del x, k, out
         torch.cuda.empty_cache()
 
+    phase_broadcast_kernels(torch, records, rand)
+
     # the batch broadcast of the simultaneous view order, and odd sizes that
     # take the scalar (unaligned-tail) loops
     xb = torch.complex(rand((V, 64, 64, 33), -1, 1), rand((V, 64, 64, 33), -1, 1))
@@ -430,6 +454,56 @@ def phase_kernels(torch, dev):
                      lambda: ew.rl_update(edge_psi, edge_int, 1.0, lam, MIN_VALUE),
                      lambda: ew.rl_update_plain(edge_psi, edge_int, 1.0, lam, MIN_VALUE), 48)
     return records
+
+
+def phase_broadcast_kernels(torch, records, rand):
+    """K1 and K2 with the operand that a batch of volumes shares: psi and
+    the integral (BATCH, n, n, n) against one (n, n, n) weight volume or
+    view at the headline n (phase 27's launches), and at an odd shape that
+    takes the scalar loops.  The shared operand is read once: 4n³(3B + 1)
+    bytes for K1, 4n³(2B + 1) for K2."""
+    from libmultiviewnative_torch.ops import elementwise as ew
+
+    shape = (BATCH, HEADLINE_N, HEADLINE_N, HEADLINE_N)
+    psi = rand(shape, 1.0, 100.0)
+    integral = rand(shape, -0.2, 2.0)
+    w = rand(shape[1:], 0.0, 0.5)
+    n = w.numel()
+    out = torch.empty_like(psi)
+    for lam in (0.0, LAM):
+        nbytes = 4 * n * (3 * BATCH + 1)
+        t = check_kernel(
+            torch, records, "rl_update", f"{shape} shared w lam={lam}",
+            lambda: ew.rl_update(psi, integral, w, lam, MIN_VALUE, out=out),
+            lambda: ew.rl_update_plain(psi, integral, w, lam, MIN_VALUE),
+            nbytes, atol=tikhonov_atol(lam),
+        )
+        if lam == LAM:
+            keep_timing(records, "rl_update", HEADLINE_N, t, nbytes, 10 * psi.numel(),
+                        key="broadcast")
+    del psi, w
+    view = rand(shape[1:], 0.0, 200.0)
+    denom = rand(shape, 0.5, 1.5)
+    nbytes = 4 * n * (2 * BATCH + 1)
+    t = check_kernel(
+        torch, records, "quotient", f"{shape} shared view",
+        lambda: ew.quotient(view, denom, out=out),
+        lambda: ew.quotient_plain(view, denom),
+        nbytes, tol=0.0, library=lambda: torch.div(view, denom),
+    )
+    keep_timing(records, "quotient", HEADLINE_N, t, nbytes, 2 * denom.numel(), key="broadcast")
+    del view, denom, out, integral
+    torch.cuda.empty_cache()
+    a, b = rand((3, 7, 9, 13), 0.5, 2.0), rand((3, 7, 9, 13), -1.0, 2.0)
+    v, wo = rand((7, 9, 13), 0.5, 2.0), rand((7, 9, 13), 0.0, 1.0)
+    check_kernel(torch, records, "quotient", "odd (3, 7, 9, 13) shared view",
+                 lambda: ew.quotient(v, b), lambda: ew.quotient_plain(v, b),
+                 4 * v.numel() * 7, tol=0.0)
+    for lam in (0.0, LAM):
+        check_kernel(torch, records, "rl_update", f"odd (3, 7, 9, 13) shared w lam={lam}",
+                     lambda: ew.rl_update(a, b, wo, lam, MIN_VALUE),
+                     lambda: ew.rl_update_plain(a, b, wo, lam, MIN_VALUE), 4 * wo.numel() * 10,
+                     atol=tikhonov_atol(lam))
 
 
 def phase_golden(torch, dev):
@@ -1236,8 +1310,9 @@ def phase_grad(torch, dev):
     import contextlib
 
     from libmultiviewnative_torch.core.convolve import fft_convolve3d
-    from libmultiviewnative_torch.deconv.rl import prepare_spectra, rl_view_step
-    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+    from libmultiviewnative_torch.deconv.rl import deconvolve, prepare_spectra, rl_view_step
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.ops import fused as fu
     from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
     log(f"# phase 19: gradients through K1-K3 at {GRAD_N}^3, and the fp32 contract")
@@ -1286,21 +1361,62 @@ def phase_grad(torch, dev):
         if not err <= 1e-5:
             raise AssertionError(f"gradient of {what} disagrees with the CPU: {err:.3e}")
 
-    p = torch.ones(shape, device=dev, requires_grad=True)
-    for what, call in (
-        ("rl_update with a tensor lam that requires grad",
-         lambda: ew.rl_update(p, p.detach(), 0.5, torch.tensor(LAM, device=dev, requires_grad=True),
-                              MIN_VALUE)),
-        ("fused pass A of a volume that requires grad", lambda: fu.pass_a(p)),
+    # F10: gradients in λ and the weights, through K1's backward (the plain
+    # version's vjp): one view step, and deconvolve on the fft engine with
+    # (V,) weights that require grad
+    views = rng.gamma(2.0, 5.0, (2,) + shape).astype(np.float32)
+    kerns = np.stack([gaussian_kernel((3, 3, 3), 1.0 + 0.25 * v) for v in range(2)])
+
+    def lam_w_step(device):
+        lam = torch.tensor(LAM, device=device, requires_grad=True)
+        w = torch.from_numpy(weights).to(device).requires_grad_()
+        k1 = prepare_spectra(torch.from_numpy(kern[None]).to(device), shape)[0]
+        v = torch.from_numpy(view).to(device)
+        out = rl_view_step(torch.from_numpy(psi).to(device), v, k1, k1, w, lam, MIN_VALUE,
+                           conj_k2=True)
+        return ((out - v) ** 2).mean(), (lam, w)
+
+    def lam_w_deconvolve(device):
+        lam = torch.tensor(LAM, device=device, requires_grad=True)
+        w = torch.full((2,), 0.5, device=device, requires_grad=True)
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        data = MultiViewData(t(views), t(kerns), t(np.flip(kerns, axis=(1, 2, 3)).copy()), w)
+        out = deconvolve(t(psi), data, 2, lam=lam, min_value=MIN_VALUE, algorithm="fft")
+        return ((out - t(views[0])) ** 2).mean(), (lam, w)
+
+    for what, make, forward_want in (
+        ("rl_view_step conj_k2 d/dlam, d/dw (voxel)", lam_w_step,
+         {"spectral_multiply": 2, "quotient": 1, "rl_update": 1}),
+        ("deconvolve fft 2 it d/dlam, d/dw (V,)", lam_w_deconvolve,
+         {"spectral_multiply": 8, "quotient": 4, "rl_update": 4}),
     ):
+        loss, leaves = make("cpu")
+        loss.backward()
+        want = [t.grad for t in leaves]
+        torch.cuda.synchronize()
         reset_counts()
-        try:
-            call()
-        except NotImplementedError as e:
-            log(f"{what}: raises ({e})")
-        else:
-            raise AssertionError(f"{what} did not raise")
-        expect_counts(read_counts(), {}, what)
+        loss, leaves = make(dev)
+        torch.cuda.synchronize()
+        expect_counts(read_counts(), forward_want, f"forward of {what}")
+        loss.backward()
+        torch.cuda.synchronize()
+        for name, leaf, ref in zip(("lam", "w"), leaves, want):
+            err = float((leaf.grad.cpu() - ref).abs().max()) / float(ref.abs().max())
+            log(f"gradient of {what} in {name}: card vs CPU max|diff|/max|g| = {err:.3e}"
+                f" (tol 1e-5; max|g| {float(ref.abs().max()):.4e})")
+            if not err <= 1e-5:
+                raise AssertionError(f"gradient of {what} in {name} disagrees with the CPU")
+
+    p = torch.ones(shape, device=dev, requires_grad=True)
+    what = "fused pass A of a volume that requires grad"
+    reset_counts()
+    try:
+        fu.pass_a(p)
+    except NotImplementedError as e:
+        log(f"{what}: raises ({e})")
+    else:
+        raise AssertionError(f"{what} did not raise")
+    expect_counts(read_counts(), {}, what)
 
     # F5: the caller enables TF32 matmuls; the sparse forwarding stays fp32
     k1, _ = bench_kernels()
@@ -2202,6 +2318,158 @@ def phase_mesh(torch, dev, rng):
     return out
 
 
+# a batched call's entries against the single-volume calls: the fft engine's
+# sequential order transforms a batch one entry at a time (core/convolve.py),
+# so bitwise is expected and 1e-6 of max|psi| is the gate; the dft and direct
+# engines and the simultaneous order transform the batch at once (cuBLAS's and
+# cuDNN's algorithms for the batch, per-view transforms in place of the
+# V-batched ones), whose sums may run in another order: 1e-5, as the fused
+# passes against their plain versions
+BATCH_TOL = 1e-6
+BATCHED_TRANSFORM_TOL = 1e-5
+
+
+def hold_batch(torch, what, batched, singles, shape, tol=BATCH_TOL):
+    """The worst entry b of max|batched[b] - singles[b]| / max|singles[b]|,
+    held to ``tol``; logs whether every entry is bitwise its single call."""
+    check_output(torch, batched, shape, what)
+    err = max(float((batched[b] - one).abs().max()) / float(one.abs().max())
+              for b, one in enumerate(singles))
+    bitwise = all(bool(torch.equal(batched[b], one)) for b, one in enumerate(singles))
+    log(f"{what}: worst entry against its single-volume call max|diff|/max|psi| = {err:.3e}"
+        f" (gate {tol:g}), bitwise {bitwise}")
+    if not err <= tol:
+        raise AssertionError(f"{what}: an entry disagrees with its single-volume call: {err:.3e}")
+    return err
+
+
+def phase_batched(torch, dev, rng):
+    """Phase 27: batches of volumes (F9).  BATCH volumes of the headline
+    configuration in one ``deconvolve(algorithm="auto")`` call (fft: a batch
+    never takes fused), each entry against the single-volume fft call on it,
+    the launches of one call (K1 40, K2 40, K3 80: one launch covers the
+    batch), volumes per second against BATCH single calls in turns (batched,
+    single, single, batched; single calls on fft, and inside them on fused,
+    which ``"auto"`` gives one volume) and the peak memory; then BATCH_SMALL volumes at
+    BATCH_N³ with (V, B, Z, Y, X) views through the simultaneous order, the
+    dft and direct engines, ``deconvolve_auto`` and ``RichardsonLucy.run``."""
+    import contextlib
+    import io
+
+    from libmultiviewnative_torch.deconv import rl
+    from libmultiviewnative_torch.deconv.dispatch import deconvolve_auto
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+    from libmultiviewnative_torch.models import RichardsonLucy
+
+    shape = (HEADLINE_N,) * 3
+    log(f"# phase 27: batched volumes, {BATCH} x the headline ({V} views at {HEADLINE_N}^3,"
+        f" shared views and per-voxel weights, lam {LAM}, {ITERS} iterations)")
+    data, psi_one = headline_data(torch, dev, rng)
+    # one start per entry, so that the entries differ
+    psi0 = torch.stack([psi_one * (1.0 + 0.05 * b) for b in range(BATCH)])
+    engine = rl.resolve_algorithm("auto", shape, dev, chunk=True)
+    log(f"algorithm='auto' on a batch resolves to {engine!r} (one volume: "
+        f"{rl.resolve_algorithm('auto', shape, dev)!r})")
+    if engine != "fft":
+        raise AssertionError(f"'auto' picked {engine!r} for a batch")
+
+    def batched():
+        return rl.deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
+
+    def singles(algorithm=engine):
+        # the engine the batch ran; "auto" gives one volume the fused engine
+        return [rl.deconvolve(psi0[b], data, ITERS, lam=LAM, min_value=MIN_VALUE,
+                              algorithm=algorithm) for b in range(BATCH)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    out = batched()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    expect_counts(counts, {"rl_update": V * ITERS, "quotient": V * ITERS,
+                           "spectral_multiply": 2 * V * ITERS},
+                  f"deconvolve of {BATCH} volumes at {HEADLINE_N}^3")
+    result = {"launches": counts, "peak_gib_above_inputs": peak}
+    result["worst_entry"] = hold_batch(torch, f"batch of {BATCH} at {HEADLINE_N}^3", out,
+                                       singles(), (BATCH,) + shape)
+    del out
+    # turns batched, single, single, batched; the single calls on fft (the
+    # batch's engine) and on fused ("auto" for one volume) inside them
+    times = {"batched": [], "single": [], "single_fused": []}
+    calls = {"batched": batched, "single": singles, "single_fused": lambda: singles("fused")}
+    for turn in ("batched", "single", "single_fused", "single_fused", "single", "batched"):
+        _, sec = timed_call(torch, calls[turn])
+        times[turn].append(sec)
+    vps = {k: [BATCH / t for t in v] for k, v in times.items()}
+    ratio = statistics.median(vps["batched"]) / statistics.median(vps["single"])
+    log(f"volumes/s at {HEADLINE_N}^3, {ITERS} iterations: batched call {vps['batched']!r},"
+        f" {BATCH} single calls on fft {vps['single']!r} (ratio of the medians {ratio:.4f}), on"
+        f" fused {vps['single_fused']!r}; peak device memory of the batched call {peak:.3f} GiB"
+        f" above its inputs ({card_line()})")
+    result["volumes_per_s"] = vps
+    del data, psi0, psi_one
+    torch.cuda.empty_cache()
+
+    # BATCH_SMALL volumes at BATCH_N³ with per-entry views (V, B, Z, Y, X)
+    small = (BATCH_N,) * 3
+    k1, k2 = bench_kernels()
+    views = torch.from_numpy(
+        rng.gamma(2.0, 20.0, (V, BATCH_SMALL) + small).astype(np.float32)).to(dev)
+    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
+                         torch.full((V,) + small, 1.0 / V, device=dev))
+    psi0 = views.mean(dim=0)
+    one = [MultiViewData(views[:, b].contiguous(), data.kernel1, data.kernel2, data.weights)
+           for b in range(BATCH_SMALL)]
+    kw = dict(lam=LAM, min_value=MIN_VALUE)
+    for engine, order in (("fft", "sequential"), ("fft", "simultaneous"), ("dft", "sequential"),
+                          ("direct", "sequential")):
+        reset_counts()
+        out = rl.deconvolve(psi0, data, BATCH_ITERS, algorithm=engine, view_order=order, **kw)
+        torch.cuda.synchronize()
+        # one launch of K1 and K2 a view step, of K3 a product, for the batch;
+        # the simultaneous order takes a batch one view at a time (2V K3)
+        steps = V * BATCH_ITERS
+        expect_counts(read_counts(), {"rl_update": steps, "quotient": steps,
+                                      "spectral_multiply": 2 * steps if engine == "fft" else 0},
+                      f"{engine} {order}, {BATCH_SMALL} x {BATCH_N}^3, (V, B, Z, Y, X) views")
+        refs = [rl.deconvolve(psi0[b], one[b], BATCH_ITERS, algorithm=engine, view_order=order,
+                              **kw) for b in range(BATCH_SMALL)]
+        per_entry = engine == "fft" and order == "sequential"
+        result[f"{engine}_{order}"] = hold_batch(
+            torch, f"{engine} {order} {BATCH_SMALL} x {BATCH_N}^3", out, refs,
+            (BATCH_SMALL,) + small, BATCH_TOL if per_entry else BATCHED_TRANSFORM_TOL)
+    lines = io.StringIO()
+    saved = os.environ.get("LMVN_TRACE")
+    os.environ["LMVN_TRACE"] = "1"
+    try:
+        with contextlib.redirect_stdout(lines):
+            auto = deconvolve_auto(psi0, data, BATCH_ITERS, device=dev, **kw)
+    finally:
+        if saved is None:
+            os.environ.pop("LMVN_TRACE", None)
+        else:
+            os.environ["LMVN_TRACE"] = saved
+    trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
+    log("deconvolve_auto on the batch: " + " | ".join(trace))
+    if not any("dispatch: in-core on one device" in ln for ln in trace):
+        raise AssertionError("deconvolve_auto did not serve the batch in-core")
+    refs = [rl.deconvolve(psi0[b], one[b], BATCH_ITERS, algorithm="fft", **kw)
+            for b in range(BATCH_SMALL)]
+    result["deconvolve_auto"] = hold_batch(torch, "deconvolve_auto batch", auto, refs,
+                                           (BATCH_SMALL,) + small)
+    model = RichardsonLucy(num_iterations=BATCH_ITERS, lambda_=LAM, min_value=MIN_VALUE,
+                           device=dev)
+    same = bool(torch.equal(model.run(data, psi0), auto))
+    log(f"RichardsonLucy().run on the batch equals deconvolve_auto bit for bit: {same}")
+    if not same:
+        raise AssertionError("RichardsonLucy().run on a batch differs from deconvolve_auto")
+    log("batched: " + json.dumps(result))
+    return result
+
+
 def phase_cli(torch, dev):
     """cli.main on TIFFs at 64³ with --dispatch auto against deconvolve_auto."""
     import tempfile
@@ -2280,6 +2548,8 @@ def main():
     phase_front_ends(torch, dev)
     torch.cuda.empty_cache()
     phase_mesh(torch, dev, rng)
+    torch.cuda.empty_cache()
+    phase_batched(torch, dev, rng)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -97,7 +97,8 @@ def _auto_device(device) -> torch.device:
 def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = False) -> str:
     """The engine a request runs on ``device`` (default: the card when there
     is one) for a (Z, Y, X) ``spatial_shape``; ``chunk`` marks a streamed
-    rung's halo-extended chunk, which never takes the fused engine.
+    rung's halo-extended chunk or a batch of volumes, neither of which takes
+    the fused engine.
 
     On the CPU, ``"auto"`` is the JAX package's rule on a CPU backend: dft
     up to 256 per axis, fft above, never fused.  On a CUDA device it is
@@ -336,10 +337,16 @@ def prepare_workspace(
     return PreparedSpectra(algorithm, spatial, k1, k2, conj_k2=conj_k2, xmode=xmode)
 
 
+def _blend(p: torch.Tensor, blend: torch.Tensor) -> torch.Tensor:
+    """p + blend, in place unless autograd records it (K1 saved p)."""
+    return p + blend if blend.requires_grad else p.add_(blend)
+
+
 def _view_weights(weights: torch.Tensor) -> list:
     """Per-view weights for K1: (V,) scalars become Python floats (read back
-    once per call), (V, Z, Y, X) stacks stay tensors."""
-    if weights.ndim == 1:
+    once per call) unless autograd must see them, then 0-dim tensors;
+    (V, Z, Y, X) and (V, *B, Z, Y, X) stacks stay tensors, one per view."""
+    if weights.ndim == 1 and not (weights.requires_grad and torch.is_grad_enabled()):
         return [float(w) for w in weights.tolist()]
     return list(weights)
 
@@ -392,13 +399,29 @@ def deconvolve(
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
     made and are ignored here.
 
+    Batches, as in the JAX package: psi may be (*B, Z, Y, X), one problem
+    per leading entry, and the result has psi's shape, entry b equal to the
+    call on entry b.  Views are (V, Z, Y, X), shared by the batch, or
+    (V, *B, Z, Y, X); weights (V,), (V, Z, Y, X) or (V, *B, Z, Y, X).  K1
+    and K2 read a shared view or weight volume once for the whole batch,
+    and K3 applies each spectrum to the batch, so a sweep launches each as
+    often as for one volume.  The fused engine takes one volume:
+    ``algorithm="fused"`` with a batched psi raises ``ValueError``, and
+    ``"auto"`` never picks it for one.
+
+    Gradients: with grad mode on, the fft, dft and direct engines are
+    differentiable in psi, a 0-dim tensor ``lam`` and ``data.weights``
+    (through K1-K3's autograd functions); the fused engine raises for an
+    operand that requires grad.
+
     Returns psi, or (psi, deltas) with ``track_convergence``, deltas the
-    per-sweep sqrt(mean((psi_i - psi_{i-1})^2)) shaped (num_iterations,).
+    per-sweep sqrt(mean((psi_i - psi_{i-1})^2)) over the whole batch,
+    shaped (num_iterations,).
     """
     _select_rl_update(elementwise)
     spatial = as_shape(psi.shape[-3:])
-    if psi.ndim != 3:
-        raise ValueError(f"psi must be one (Z, Y, X) volume, got shape {tuple(psi.shape)}")
+    if psi.ndim < 3:
+        raise ValueError(f"psi must be (*B, Z, Y, X), got shape {tuple(psi.shape)}")
     if prepared is not None:
         if prepared.spatial != spatial:
             raise ValueError(f"prepared spectra are for {prepared.spatial}, psi is {spatial}")
@@ -412,7 +435,11 @@ def deconvolve(
     else:
         if adjoint_kernel2:
             _check_adjoint(data.kernel1)
-        engine = resolve_algorithm(algorithm, spatial, psi.device)
+        # a batch, like a streamed chunk, never takes the fused engine
+        engine = resolve_algorithm(algorithm, spatial, psi.device, chunk=psi.ndim != 3)
+    if engine == "fused" and psi.ndim != 3:
+        raise ValueError("algorithm='fused' operates on single volumes")
+    if prepared is None:
         k1, k2, conj_k2 = _forward_spectra(engine, data, spatial, adjoint_kernel2)
     log.debug("deconvolve: algorithm=%r runs engine %r", algorithm, engine)
 
@@ -462,16 +489,18 @@ def deconvolve(
 
         def sweep(p):
             blend = torch.zeros_like(p)
-            if engine != "fft":
+            if engine != "fft" or p.ndim != 3:
+                # a batched psi meets the views one at a time: K3 applies
+                # each view's spectrum to the whole batch, 2V launches
                 for v in range(num_views):
                     blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value) - p
-                return p.add_(blend)
+                return _blend(p, blend)
             integral = convolve_spectrum(p, k1)
             integral = quotient(views, integral, out=integral)
             integral = convolve_spectrum(integral, k2, conj_k=conj_k2)
             for v in range(num_views):
                 blend += rl_update(p, integral[v], weights[v], lam, min_value) - p
-            return p.add_(blend)
+            return _blend(p, blend)
 
     else:
         raise ValueError(f"unknown view_order {view_order!r}")

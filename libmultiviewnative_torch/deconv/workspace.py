@@ -30,7 +30,8 @@ def check_simultaneous_weights(weights, atol: float = 1e-3) -> None:
     The simultaneous view order blends per-view updates additively
     (psi' = psi + sum_v w_v (new_v - psi)); unnormalized weights scale every
     sweep by sum(w) and can diverge.  Accepts (V,) scalar weights or
-    (V, Z, Y, X) stacks, as arrays or tensors (read back to the host).
+    (V, Z, Y, X) and (V, *B, Z, Y, X) stacks, as arrays or tensors (read
+    back to the host).
     """
     w = weights.detach().cpu().numpy() if isinstance(weights, torch.Tensor) else np.asarray(weights)
     total = w.sum(axis=0) if w.ndim > 1 else w.sum()
@@ -90,10 +91,12 @@ def _max_shape(shapes: Sequence[Shape]) -> Shape:
 class MultiViewData:
     """Stacked views: the tensors the RL loop consumes.
 
-    views    : (V, Z, Y, X) float32
+    views    : (V, Z, Y, X) float32, or (V, *B, Z, Y, X): one view stack per
+               entry of a batched psi
     kernel1  : (V, K1z, K1y, K1x)  — common (max) kernel1 shape
     kernel2  : (V, K2z, K2y, K2x)
-    weights  : (V, Z, Y, X) per-voxel, or (V,) one scalar per view
+    weights  : (V, Z, Y, X) per-voxel, (V, *B, Z, Y, X) per batch entry, or
+               (V,) one scalar per view
     """
 
     views: torch.Tensor

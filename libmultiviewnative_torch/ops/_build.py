@@ -42,13 +42,15 @@ _FLAGS = (
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # device, out, psi, integral, w, w_scalar, lam, min_value, n, stream
+    # device, out, psi, integral, w, w_scalar, lam, min_value, n, batch, stream
     "lmvn_rl_update": (
         ctypes.c_int, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_longlong, _P,
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong, _P,
     ),
-    # device, out, view, integral, n, stream
-    "lmvn_quotient": (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P),
+    # device, out, view, integral, n, batch, stream
+    "lmvn_quotient": (
+        ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
+    ),
     # device, out, x, k, batch, nk, conj_k, stream
     "lmvn_spectral_multiply": (
         ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,

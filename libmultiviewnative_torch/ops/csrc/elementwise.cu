@@ -17,7 +17,13 @@
 // scalar weight as a float and never reads a weight volume for it; K3 reads
 // each kernel spectrum value once and applies it to every batch entry, so the
 // batch is never materialised, and conjugates on the fly for the adjoint
-// kernel.
+// kernel.  K1's weight volume and K2's view may likewise be shared by a
+// batch of volumes (psi shaped (B, Z, Y, X) against (Z, Y, X) weights or
+// views): the *_bcast kernels follow K3's design, each thread loading one
+// shared value (a float4 on the vector path) once and looping over the B
+// entries, so the shared operand is read once, 4n(3B + 1) bytes for K1 and
+// 4n(2B + 1) for K2 instead of the 16nB and 12nB of a materialised
+// broadcast.  A batch of 1 takes the single-volume kernels unchanged.
 //
 // Built with -fmad=false: w*(nxt-psi)+psi and the complex products round
 // after every operation, as the plain PyTorch versions do.  sqrtf and 1/x
@@ -81,6 +87,35 @@ __global__ void rl_update_scalar(float* out, const float* psi,
   }
 }
 
+// w: n values shared by `batch` volumes of psi, integral and out, entry b
+// at b * n (n4 = n / 4 float4s); the vector path needs n % 4 == 0
+__global__ void rl_update_bcast_vec4(float4* out, const float4* psi,
+                                     const float4* integral, const float4* w,
+                                     RlParams p, size_t n4, size_t batch) {
+  for (size_t j = global_index(); j < n4; j += grid_stride()) {
+    const float4 c = w[j];
+    for (size_t b = 0; b < batch; ++b) {
+      const size_t i = b * n4 + j;
+      const float4 a = psi[i];
+      const float4 d = integral[i];
+      out[i] = make_float4(rl_one(a.x, d.x, c.x, p), rl_one(a.y, d.y, c.y, p),
+                           rl_one(a.z, d.z, c.z, p), rl_one(a.w, d.w, c.w, p));
+    }
+  }
+}
+
+__global__ void rl_update_bcast_scalar(float* out, const float* psi,
+                                       const float* integral, const float* w,
+                                       RlParams p, size_t n, size_t batch) {
+  for (size_t j = global_index(); j < n; j += grid_stride()) {
+    const float c = w[j];
+    for (size_t b = 0; b < batch; ++b) {
+      const size_t i = b * n + j;
+      out[i] = rl_one(psi[i], integral[i], c, p);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- K2
 // the quotient itself is lmvn::quotient_one (rl_update.cuh), shared with K8
 using lmvn::quotient_one;
@@ -100,6 +135,33 @@ __global__ void quotient_scalar(float* out, const float* view,
                                 size_t n) {
   for (size_t i = begin + global_index(); i < n; i += grid_stride()) {
     out[i] = quotient_one(view[i], integral[i]);
+  }
+}
+
+// view: n values shared by `batch` integrals and outs, as for K1's weights
+__global__ void quotient_bcast_vec4(float4* out, const float4* view,
+                                    const float4* integral, size_t n4,
+                                    size_t batch) {
+  for (size_t j = global_index(); j < n4; j += grid_stride()) {
+    const float4 v = view[j];
+    for (size_t b = 0; b < batch; ++b) {
+      const size_t i = b * n4 + j;
+      const float4 d = integral[i];
+      out[i] = make_float4(quotient_one(v.x, d.x), quotient_one(v.y, d.y),
+                           quotient_one(v.z, d.z), quotient_one(v.w, d.w));
+    }
+  }
+}
+
+__global__ void quotient_bcast_scalar(float* out, const float* view,
+                                      const float* integral, size_t n,
+                                      size_t batch) {
+  for (size_t j = global_index(); j < n; j += grid_stride()) {
+    const float v = view[j];
+    for (size_t b = 0; b < batch; ++b) {
+      const size_t i = b * n + j;
+      out[i] = quotient_one(v, integral[i]);
+    }
   }
 }
 
@@ -149,16 +211,36 @@ const char* lmvn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out may alias psi.  w == NULL selects the scalar weight w_scalar.
+// psi, integral and out hold batch * n values, w n values shared by the
+// batch entries (batch > 1 needs w).  out may alias psi.  w == NULL selects
+// the scalar weight w_scalar.
 int lmvn_rl_update(int device, void* out, const void* psi,
                    const void* integral, const void* w, float w_scalar,
-                   float lam, float min_value, long long n, void* stream) {
+                   float lam, float min_value, long long n, long long batch,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return 0;
+  if (n <= 0 || batch <= 0) return 0;
   RlParams p = lmvn::rl_params(w_scalar, lam, min_value);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t total = static_cast<size_t>(n);
+  if (batch > 1) {
+    if (w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    size_t nb = static_cast<size_t>(batch);
+    if (total % 4 == 0 && aligned16(out) && aligned16(psi) &&
+        aligned16(integral) && aligned16(w)) {
+      rl_update_bcast_vec4<<<grid_for(total / 4), kThreads, 0, s>>>(
+          static_cast<float4*>(out), static_cast<const float4*>(psi),
+          static_cast<const float4*>(integral), static_cast<const float4*>(w),
+          p, total / 4, nb);
+    } else {
+      rl_update_bcast_scalar<<<grid_for(total), kThreads, 0, s>>>(
+          static_cast<float*>(out), static_cast<const float*>(psi),
+          static_cast<const float*>(integral), static_cast<const float*>(w),
+          p, total, nb);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   size_t done = 0;
   if (aligned16(out) && aligned16(psi) && aligned16(integral) &&
       (w == nullptr || aligned16(w))) {
@@ -180,14 +262,30 @@ int lmvn_rl_update(int device, void* out, const void* psi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out may alias view or integral.
+// integral and out hold batch * n values, view n values shared by the
+// batch entries.  out may alias integral, and view when batch is 1.
 int lmvn_quotient(int device, void* out, const void* view,
-                  const void* integral, long long n, void* stream) {
+                  const void* integral, long long n, long long batch,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return 0;
+  if (n <= 0 || batch <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   size_t total = static_cast<size_t>(n);
+  if (batch > 1) {
+    size_t nb = static_cast<size_t>(batch);
+    if (total % 4 == 0 && aligned16(out) && aligned16(view) &&
+        aligned16(integral)) {
+      quotient_bcast_vec4<<<grid_for(total / 4), kThreads, 0, s>>>(
+          static_cast<float4*>(out), static_cast<const float4*>(view),
+          static_cast<const float4*>(integral), total / 4, nb);
+    } else {
+      quotient_bcast_scalar<<<grid_for(total), kThreads, 0, s>>>(
+          static_cast<float*>(out), static_cast<const float*>(view),
+          static_cast<const float*>(integral), total, nb);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   size_t done = 0;
   if (aligned16(out) && aligned16(view) && aligned16(integral)) {
     size_t n4 = total / 4;

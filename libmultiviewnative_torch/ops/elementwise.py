@@ -6,8 +6,11 @@ kernels are in ``ops/csrc/elementwise.cu``:
 * K1 :func:`rl_update` replaces ``rl_update_pallas``
   (``ops/pallas/elementwise.py:68``): psi' = w·(clamp(f(psi·integral)) − psi)
   + psi.  16 bytes per voxel with a weight volume, 12 with a scalar weight.
+  psi may be a batch of volumes (*B, Z, Y, X) against one weight volume
+  (Z, Y, X) that the kernel reads once for the batch: 4n(3B + 1) bytes.
 * K2 :func:`quotient` replaces ``quotient_pallas`` (:101): view · (1/integral),
-  12 bytes per voxel.
+  12 bytes per voxel; one view may serve a batch of integrals, read once:
+  4n(2B + 1) bytes.
 * K3 :func:`spectral_multiply` replaces ``spectral_multiply_pallas`` (:130):
   x̂·k̂ (or x̂·conj(k̂)) on interleaved complex64, the kernel spectrum
   broadcast over x̂'s leading axes; 24 bytes per complex value, the kernel
@@ -32,9 +35,10 @@ may need the operand that ``out`` would overwrite.  K3's backward is K3
 itself (the conjugate product, then a sum over the broadcast axes); K1's and
 K2's recompute the plain version's vjp from the saved inputs, as the JAX
 package's Pallas kernels carry no backward of their own (``jax.grad`` goes
-through jnp).  A tensor λ or weight volume that requires grad has no
-backward and raises ``NotImplementedError``.  With no operand requiring
-grad, as on the main path, nothing of this runs.
+through jnp).  K1 is differentiable in psi, the integral, the weights
+(a volume, a shared volume or a 0-dim tensor) and a 0-dim tensor λ; K2 in
+both operands.  A shared operand's gradient is summed over the batch.  With
+no operand requiring grad, as on the main path, nothing of this runs.
 """
 
 from __future__ import annotations
@@ -88,6 +92,17 @@ def _check(name: str, t, dtype: torch.dtype, shape=None, contiguous=True) -> Non
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _shared_batch(name: str, t: torch.Tensor, shape) -> int:
+    """How many entries of a ``shape`` operand share ``t``, whose shape must
+    be ``shape`` or a suffix of it."""
+    shape = tuple(shape)
+    if t.ndim > len(shape) or shape[len(shape) - t.ndim:] != tuple(t.shape):
+        raise ValueError(
+            f"{name} has shape {tuple(t.shape)}, expected {shape} or a suffix of it"
+        )
+    return max(1, int(torch.Size(shape[: len(shape) - t.ndim]).numel()))
+
+
 def _dense(t: torch.Tensor) -> bool:
     """Whether ``t``'s elements fill one gap-free span, in any axis order."""
     expect = 1
@@ -138,11 +153,13 @@ def _wants_grad(*operands) -> bool:
 
 def _plain_vjp(plain, inputs, needs, grad):
     """The vjp of ``plain(*inputs)`` against ``grad`` for the inputs that
-    ``needs`` marks, recomputed from the inputs (None for the others)."""
+    ``needs`` marks, recomputed from the inputs (None for the others, which
+    may be Python numbers)."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        leaves = [t.detach().requires_grad_(n) if isinstance(t, torch.Tensor) else t
+                  for t, n in zip(inputs, needs)]
         res = plain(*leaves)
-        got = iter(torch.autograd.grad(res, [t for t in leaves if t.requires_grad], grad))
+        got = iter(torch.autograd.grad(res, [t for t, n in zip(leaves, needs) if n], grad))
     return tuple(next(got) if n else None for n in needs)
 
 
@@ -156,10 +173,12 @@ def rl_update(
 ) -> torch.Tensor:
     """K1: the weighted, clamped RL update; ``out`` may be ``psi``.
 
-    ``weights`` is a tensor of psi's shape or a scalar.  On the card ``lam``,
-    ``min_value`` and a scalar weight are runtime float arguments (a 0-dim
-    tensor is read back to the host first), so a λ sweep builds nothing new.
-    Differentiable in ``psi`` and ``integral``.
+    ``weights`` is a tensor of psi's shape, a tensor of a suffix of it (one
+    weight volume shared by psi's leading batch entries, read once), or a
+    scalar.  On the card ``lam``, ``min_value`` and a scalar weight are
+    runtime float arguments (a 0-dim tensor is read back to the host first),
+    so a λ sweep builds nothing new.  Differentiable in psi, the integral,
+    a weight tensor and a 0-dim tensor ``lam``.
     """
     shape = tuple(psi.shape)
     _check("psi", psi, torch.float32)
@@ -167,18 +186,14 @@ def rl_update(
     per_voxel = isinstance(weights, torch.Tensor) and weights.ndim > 0
     operands = [psi, integral]
     if per_voxel:
-        _check("weights", weights, torch.float32, shape)
+        _check("weights", weights, torch.float32)
+        _shared_batch("weights", weights, shape)
         operands.append(weights)
     if out is not None:
         _check("out", out, torch.float32, shape)
         operands.append(out)
     dev = _device(*operands)
     if _wants_grad(psi, integral, weights, lam):
-        for what, t in (("weights", weights), ("lam", lam)):
-            if isinstance(t, torch.Tensor) and t.requires_grad:
-                raise NotImplementedError(
-                    f"rl_update: {what} requires grad, but K1 has no backward for it (ROADMAP P16)"
-                )
         return _RlUpdate.apply(psi, integral, weights, lam, min_value)
     return _rl_update(dev, psi, integral, weights, lam, min_value, out)
 
@@ -191,6 +206,7 @@ def _rl_update(dev, psi, integral, weights, lam, min_value, out):
     lib = _build.library()
     if out is None:
         out = torch.empty_like(psi)
+    batch = _shared_batch("weights", weights, psi.shape) if per_voxel else 1
     err = lib.lmvn_rl_update(
         dev.index,
         out.data_ptr(),
@@ -200,7 +216,8 @@ def _rl_update(dev, psi, integral, weights, lam, min_value, out):
         0.0 if per_voxel else float(weights),
         float(lam),
         float(min_value),
-        psi.numel(),
+        psi.numel() // batch,
+        batch,
         _stream(dev),
     )
     _build.check("rl_update", err)
@@ -212,26 +229,31 @@ def _rl_update(dev, psi, integral, weights, lam, min_value, out):
 class _RlUpdate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, psi, integral, weights, lam, min_value):
-        ctx.save_for_backward(psi, integral)
+        tensor_or_none = [t if isinstance(t, torch.Tensor) else None for t in (weights, lam)]
+        ctx.save_for_backward(psi, integral, *tensor_or_none)
         ctx.args = (weights, lam, min_value)
         return _rl_update(psi.device, psi, integral, weights, lam, min_value, None)
 
     @staticmethod
     def backward(ctx, grad):
         weights, lam, min_value = ctx.args
-        plain = lambda p, i: rl_update_plain(p, i, weights, lam, min_value)  # noqa: E731
-        g_psi, g_int = _plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], grad)
-        return g_psi, g_int, None, None, None
+        psi, integral, w_t, lam_t = ctx.saved_tensors
+        inputs = (psi, integral, weights if w_t is None else w_t, lam if lam_t is None else lam_t)
+        plain = lambda p, i, w, l: rl_update_plain(p, i, w, l, min_value)  # noqa: E731
+        return _plain_vjp(plain, inputs, ctx.needs_input_grad[:4], grad) + (None,)
 
 
 def quotient(
     view: torch.Tensor, integral: torch.Tensor, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """K2: view · (1/integral); ``out`` may be ``integral``.  Differentiable
-    in both operands."""
-    shape = tuple(view.shape)
+    """K2: view · (1/integral); ``out`` may be ``integral``.  ``view`` has
+    the integral's shape or a suffix of it (one view shared by the
+    integral's leading batch entries, read once).  Differentiable in both
+    operands."""
+    shape = tuple(integral.shape)
     _check("view", view, torch.float32)
-    _check("integral", integral, torch.float32, shape)
+    _check("integral", integral, torch.float32)
+    _shared_batch("view", view, shape)
     operands = [view, integral]
     if out is not None:
         _check("out", out, torch.float32, shape)
@@ -248,10 +270,11 @@ def _quotient(dev, view, integral, out):
         return res if out is None else out.copy_(res)
     lib = _build.library()
     if out is None:
-        out = torch.empty_like(view)
+        out = torch.empty_like(integral)
+    batch = _shared_batch("view", view, integral.shape)
     err = lib.lmvn_quotient(
         dev.index, out.data_ptr(), view.data_ptr(), integral.data_ptr(),
-        view.numel(), _stream(dev),
+        view.numel(), batch, _stream(dev),
     )
     _build.check("quotient", err)
     launches["quotient"] += 1

@@ -3,7 +3,8 @@
 The losses are those of tests/test_differentiability.py: the sum of squares
 of ``fft_convolve3d`` with respect to the kernel, and the mean squared
 distance of one ``rl_view_step`` from its view with respect to psi (with
-k2 = conj k1).  On the CPU the wrappers of K1-K3 run their plain versions
+k2 = conj k1), and also with respect to λ and the weights, there and
+through ``deconvolve`` on the fft and dft engines.  On the CPU the wrappers of K1-K3 run their plain versions
 inside ``torch.autograd.Function``s (ops/elementwise.py); chip_smoke.py runs
 the same gradients on the card, where K3's backward launches K3.
 
@@ -22,12 +23,14 @@ from libmultiviewnative_torch.core import convolve as tconv
 from libmultiviewnative_torch.core.fft import rfft3 as t_rfft3
 from libmultiviewnative_torch.core.wrap import wrap_kernel as t_wrap
 from libmultiviewnative_torch.deconv import rl as trl
+from libmultiviewnative_torch.deconv.workspace import MultiViewData as TorchData
 from libmultiviewnative_torch.ops import elementwise as ew
 from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 from libmultiviewnative_tpu.core import convolve as jconv
 from libmultiviewnative_tpu.core.fft import rfft3 as j_rfft3
 from libmultiviewnative_tpu.core.wrap import wrap_kernel as j_wrap
 from libmultiviewnative_tpu.deconv import rl as jrl
+from libmultiviewnative_tpu.deconv.workspace import MultiViewData as JaxData
 
 torch.set_num_threads(1)
 
@@ -147,13 +150,23 @@ def test_rl_update_and_quotient_backward_match_plain_autograd(lam):
 
 
 def test_a_parameter_without_backward_raises():
-    """λ or a weight volume that requires grad raises: never detached."""
-    psi = torch.ones(SHAPE, requires_grad=True)
-    integral = torch.ones(SHAPE)
-    with pytest.raises(NotImplementedError, match="lam requires grad"):
-        ew.rl_update(psi, integral, 0.5, torch.tensor(0.006, requires_grad=True), 1e-4)
-    with pytest.raises(NotImplementedError, match="weights requires grad"):
-        ew.rl_update(psi.detach(), integral, torch.full(SHAPE, 0.5, requires_grad=True), 0.0, 1e-4)
+    """λ and the weights, which had no backward before, now have K1's: the
+    gradients of a 0-dim tensor λ and of a weight volume, a shared weight
+    volume and a 0-dim weight against the plain version's autograd."""
+    rng = np.random.default_rng(8)
+    psi, integral = (torch.from_numpy(rng.gamma(2.0, 1.0, (2,) + SHAPE).astype(np.float32))
+                     for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(2,) + SHAPE).astype(np.float32))
+    for weights in (torch.full((2,) + SHAPE, 0.5), torch.full(SHAPE, 0.5), torch.tensor(0.5)):
+        grads = []
+        for rl_fn in (ew.rl_update, ew.rl_update_plain):
+            w = weights.clone().requires_grad_()
+            lam = torch.tensor(0.006, requires_grad=True)
+            rl_fn(psi, integral, w, lam, 1e-4).backward(g)
+            grads.append((w.grad, lam.grad))
+        for got, want in zip(*grads):
+            assert got.shape == want.shape
+            assert _rel(got, want) <= 1e-6
 
 
 def test_without_grad_rl_step_updates_psi_in_place():
@@ -166,3 +179,82 @@ def test_without_grad_rl_step_updates_psi_in_place():
     got = trl.rl_view_step(p, view, k1, k1, w, 0.006, 1e-4, conj_k2=True, out=p)
     assert got is p and not got.requires_grad
     torch.testing.assert_close(p, want, rtol=0, atol=0)
+
+
+def _lam_w_inputs(seed, scalar_weights):
+    rng = np.random.default_rng(seed)
+    views = rng.gamma(2.0, 5.0, (2,) + SHAPE).astype(np.float32)
+    k1 = np.stack([gaussian_kernel((3, 3, 3), 1.0 + 0.25 * v) for v in range(2)])
+    k2 = np.flip(k1, axis=(1, 2, 3)).copy()
+    w = rng.uniform(0.25, 0.75, (2,) + SHAPE).astype(np.float32)
+    w = np.full((2,), 0.5, np.float32) if scalar_weights else w / w.sum(axis=0)
+    psi = np.full(SHAPE, views.mean(), np.float32)
+    return psi, views, k1, k2, w
+
+
+def test_lam_and_weight_grads_of_rl_step_match_jax():
+    """∂λ and ∂w of tests/test_differentiability.py's rl_view_step loss at
+    λ = 0.006, against ``jax.grad`` in both arguments (F10)."""
+    psi, view, w, k = _rl_inputs(2)
+
+    def loss(lam, ww):
+        k1 = jrl.prepare_spectra(jnp.asarray(k), SHAPE)[0]
+        out = jrl.rl_view_step(jnp.asarray(psi), jnp.asarray(view), k1, jnp.conj(k1), ww, lam,
+                               1e-4)
+        return jnp.mean((out - view) ** 2)
+
+    want_lam, want_w = jax.grad(loss, argnums=(0, 1))(jnp.float32(0.006), jnp.asarray(w))
+    k1 = trl.prepare_spectra(torch.from_numpy(k), SHAPE)[0]
+    lam = torch.tensor(0.006, requires_grad=True)
+    wt = torch.from_numpy(w).requires_grad_()
+    out = trl.rl_view_step(torch.from_numpy(psi), torch.from_numpy(view), k1, k1, wt, lam, 1e-4,
+                           conj_k2=True)
+    ((out - torch.from_numpy(view)) ** 2).mean().backward()
+    assert _rel(lam.grad, want_lam) <= GRAD_RTOL
+    assert _rel(wt.grad, want_w) <= GRAD_RTOL
+
+
+def _jax_lam_w_grads(inputs, dtype, **kw):
+    """``jax.grad`` in (λ = 0.006, w) of mean((deconvolve(psi, 2 it) - view_0)²)
+    with every array of ``dtype``."""
+    psi, views, k1, k2, w = (jnp.asarray(a, dtype) for a in inputs)
+
+    def loss(lam, ww):
+        out = jrl.deconvolve(psi, JaxData(views, k1, k2, ww), 2, lam=lam, **kw)
+        return jnp.mean((out - views[0]) ** 2)
+
+    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(0.006, dtype), w)
+
+
+def _port_lam_w_grads(inputs, **kw):
+    psi, views, k1, k2, w = (torch.from_numpy(a) for a in inputs)
+    lam = torch.tensor(0.006, requires_grad=True)
+    w.requires_grad_()
+    out = trl.deconvolve(psi, TorchData(views, k1, k2, w), 2, lam=lam, **kw)
+    ((out - views[0]) ** 2).mean().backward()
+    return lam.grad, w.grad
+
+
+@pytest.mark.parametrize("scalar_weights", [False, True], ids=["voxel-w", "scalar-w"])
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
+def test_lam_and_weight_grads_of_deconvolve_match_jax(algorithm, scalar_weights):
+    """∂λ and ∂w of mean((deconvolve(psi, 2 iterations) - view_0)²), with
+    per-voxel or (V,) weights that require grad, against ``jax.grad``."""
+    inputs = _lam_w_inputs(9, scalar_weights)
+    want = _jax_lam_w_grads(inputs, jnp.float32, algorithm=algorithm)
+    for got, ref in zip(_port_lam_w_grads(inputs, algorithm=algorithm), want):
+        assert _rel(got, ref) <= GRAD_RTOL
+
+
+def test_lam_and_weight_grads_of_the_simultaneous_order_match_jax_in_float64():
+    """The same gradients in the simultaneous order, where psi's update is
+    formed out of place under autograd.  ∂λ there sums terms that cancel:
+    JAX's float32 gradient lies 2.1e-5 of it from JAX's float64 one, the
+    port's 2.4e-6 (measured on the CPU).  So the reference is ``jax.grad`` in
+    float64, at the same tolerance."""
+    inputs = _lam_w_inputs(9, False)
+    kw = dict(algorithm="fft", view_order="simultaneous")
+    with jax.enable_x64(True):
+        want = [np.asarray(g) for g in _jax_lam_w_grads(inputs, jnp.float64, **kw)]
+    for got, ref in zip(_port_lam_w_grads(inputs, **kw), want):
+        assert _rel(got, ref) <= GRAD_RTOL
