@@ -136,7 +136,29 @@ Phases, each raising on failure (there is no CPU fallback):
     peak memory; then 2 volumes at 64³ with (V, B, Z, Y, X) views on fft
     (both orders), dft and direct, ``deconvolve_auto`` (in-core, by its
     ``LMVN_TRACE`` line) and ``RichardsonLucy.run``, each against the
-    single-volume calls (1e-5 where the batch is transformed at once).
+    single-volume calls (1e-5 where the batch is transformed at once);
+28. bf16 storage of the fused spectra (``LMVN_FUSED_SPEC_BF16=1``) and the
+    dense forwarding: a. K4-K10's bf16 instantiations (``pass_*_bf16``)
+    against their plain versions on the same bf16 inputs at 256³ and 512³,
+    a spectrum they write within one bf16 step elementwise (``BF16_STEP``,
+    ``BF16_FLOOR``), a volume within 1e-5, and each bit for bit its f32
+    entry on the widened inputs with the spectrum rounded once; timed in
+    turns with the f32 kernel, each with its bf16 byte bound (2 bytes a
+    stored spectral value); K5 and K6 also timed on random spectra; b.
+    ``deconvolve_auto`` on the headline and on the 512³ adjoint
+    configuration, through ``prepare_workspace`` + ``deconvolve_prepared``
+    and the carried chain, each with the knob on and off: launches (every
+    fused launch a bf16 one with the knob on), it/s, slope, peak memory, the
+    max-relative and relative-L2 difference of the two after 10 iterations
+    (finite; a second bf16 call bitwise the first), one view step at 256³
+    against the f32 step within JAX's 2e-2 envelope, and the forwarding of
+    the headline's 8 spectra timed in both storages; c. the dense
+    forwarding of the headline's kernels at f32 (K5 8 launches at 256³; the
+    spectra within 1e-5 of the z-sparse ones, and 10 iterations on them
+    within 1e-5 of the run on the z-sparse ones) and (32, 512, 512) in bf16
+    (K5 bf16 8 a call); d. the interleaved rung at 256³ in bf16 (K4, K6, K7
+    bf16; finite, a second call bitwise), against f32; e. a 1×1 mesh in
+    bf16 against in-core.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -144,10 +166,12 @@ spectrum input's pad rows not at all) over 3.35 TB/s and the operations the
 function needs over 67 TFLOP/s (fp32 outside the tensor cores; transforms
 counted as FFTs, whatever the kernel runs), at the main-path shape of its
 timing, logged with each kernel's share of it.  The line before the
-last is one JSON object with every kernel's record (256³); the last line is
+last is one JSON object with every kernel's record (256³; the bf16
+instantiations as entries of their own, ``pass_*_bf16``); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -172,8 +196,10 @@ CHUNK_Z = 64  # benchmarks/bench_streamed.py's documented chunk
 
 SOURCE = "libmultiviewnative_torch/ops/csrc/elementwise.cu"
 FFT_SOURCE = "libmultiviewnative_torch/ops/csrc/fft_stage.cuh"
-SOURCES = {name: FFT_SOURCE
-           for name in ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")}
+FUSED_PASSES = ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")
+# each fused pass's bf16-spectrum instantiation (phase 28) is an entry of its own
+BF16_PASSES = tuple(f"{name}_bf16" for name in FUSED_PASSES)
+SOURCES = {name: FFT_SOURCE for name in FUSED_PASSES + BF16_PASSES}
 REPLACES = {
     "rl_update": "libmultiviewnative_tpu/ops/pallas/elementwise.py:68",
     "quotient": "libmultiviewnative_tpu/ops/pallas/elementwise.py:101",
@@ -186,8 +212,8 @@ REPLACES = {
     "pass_cu": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1909",
     "pass_cua": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1950",
 }
-KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply", "pass_a", "pass_bf", "pass_b",
-                "pass_c", "pass_cqa", "pass_cu", "pass_cua")
+REPLACES.update({f"{name}_bf16": REPLACES[name] for name in FUSED_PASSES})
+KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply") + FUSED_PASSES + BF16_PASSES
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
 # so K1 is expected bitwise (K2 is held to 0); PyTorch's own complex
@@ -197,6 +223,16 @@ TOLERANCE = 1e-6
 # of up to 2·Kxp products taken in another order, ~1e-6 of max|plain| seen on
 # the CPU against the JAX package; the gate is 1e-5
 FUSED_TOLERANCE = 1e-5
+# a bf16-stored spectrum against its plain version rounded the same way
+# (phase 28): elementwise |a - b| <= 2^-7·max(|a|, |b|) + 2e-6·max|b|, one
+# bf16 step where the two f32 values round apart, plus the f32 passes' own
+# disagreement near zero; tests/test_torch_spec_bf16.py's gate
+BF16_STEP = 2.0**-7
+BF16_FLOOR = 2e-6
+# one RL view step in bf16 storage against the f32 step: the JAX package's
+# envelope (tests/test_pallas_ops.py:538-573)
+BF16_VIEW_STEP = 2e-2
+BF16_ITERS = 2  # phase 28's interleaved and mesh runs
 # (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at the
 # z stage's edge (736), a 5-way split z stage, an 8-way split y stage, X at
 # the FFT x stage's shared-memory bound (16 sequences of 1816), an unsplit Y
@@ -268,6 +304,26 @@ def phase_build():
                 kernel = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {kernel}: {line.strip()}")
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set environment variables (None unsets) for a ``with`` block and put
+    back what was there."""
+    saved = {k: os.environ.get(k) for k in values}
+
+    def put(pairs):
+        for k, v in pairs.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(values)
+    try:
+        yield
+    finally:
+        put(saved)
 
 
 def event_times_ms(torch, fn):
@@ -1111,23 +1167,21 @@ def phase_carried(torch, dev, rng, launches_out):
 
     log("# phase 16: carried chain (LMVN_FUSED_CARRY=1), phases 10 and 12's configurations")
     rates = {}
-    saved = os.environ.get("LMVN_FUSED_CARRY")
-    try:
-        for label, make, kw, reps, want in (
-            (f"{HEADLINE_N}^3", headline_data, {}, 4,
-             {"pass_a": 2 * V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
-              "pass_cua": V * ITERS}),
-            (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2,
-             {"pass_a": V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
-              "pass_cua": V * ITERS}),
-        ):
-            data, psi0 = make(torch, dev, rng)
+    for label, make, kw, reps, want in (
+        (f"{HEADLINE_N}^3", headline_data, {}, 4,
+         {"pass_a": 2 * V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+          "pass_cua": V * ITERS}),
+        (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2,
+         {"pass_a": V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+          "pass_cua": V * ITERS}),
+    ):
+        data, psi0 = make(torch, dev, rng)
 
-            def run_n(n):
-                return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
-                                  algorithm="fused", **kw)
+        def run_n(n):
+            return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
+                              algorithm="fused", **kw)
 
-            os.environ["LMVN_FUSED_CARRY"] = "1"
+        with knobs(LMVN_FUSED_CARRY="1"):
             torch.cuda.synchronize()
             reset_counts()
             carried = run_n(ITERS)
@@ -1138,24 +1192,19 @@ def phase_carried(torch, dev, rng, launches_out):
                 launches_out["pass_cua"] = counts["pass_cua"]
             check_output(torch, carried, psi0.shape, f"carried {label}")
             value, slope = rate(torch, run_n, reps=reps)
-            log(f"carried 4view {label}: {value!r} it/s, slope {slope!r} it/s")
-            rates[f"carried_{label.split('^')[0]}"] = (value, slope)
-            os.environ["LMVN_FUSED_CARRY"] = "0"
+        log(f"carried 4view {label}: {value!r} it/s, slope {slope!r} it/s")
+        rates[f"carried_{label.split('^')[0]}"] = (value, slope)
+        with knobs(LMVN_FUSED_CARRY="0"):
             plain = run_n(ITERS)
-            diff = float((carried - plain).abs().max()) / float(plain.abs().max())
-            # not bitwise: K10's forward x FFT runs the transposed stages,
-            # the plain chain's K4 the stages after a digit-reversed load
-            log(f"carried vs plain chain {label} after {ITERS} iterations: max|diff|/max|psi| ="
-                f" {diff:.3e} (tol 1e-5)")
-            if not diff <= 1e-5:
-                raise AssertionError(f"carried and plain chains disagree at {label}: {diff:.3e}")
-            del data, psi0, carried, plain
-            torch.cuda.empty_cache()
-    finally:
-        if saved is None:
-            os.environ.pop("LMVN_FUSED_CARRY", None)
-        else:
-            os.environ["LMVN_FUSED_CARRY"] = saved
+        diff = float((carried - plain).abs().max()) / float(plain.abs().max())
+        # not bitwise: K10's forward x FFT runs the transposed stages,
+        # the plain chain's K4 the stages after a digit-reversed load
+        log(f"carried vs plain chain {label} after {ITERS} iterations: max|diff|/max|psi| ="
+            f" {diff:.3e} (tol 1e-5)")
+        if not diff <= 1e-5:
+            raise AssertionError(f"carried and plain chains disagree at {label}: {diff:.3e}")
+        del data, psi0, carried, plain
+        torch.cuda.empty_cache()
     return rates
 
 
@@ -1307,7 +1356,6 @@ def phase_grad(torch, dev):
     """Gradients through K1-K3 on the card against the port's CPU
     gradients, and the z-sparse spectrum forwarding's fp32 contraction under
     a caller's TF32 setting."""
-    import contextlib
 
     from libmultiviewnative_torch.core.convolve import fft_convolve3d
     from libmultiviewnative_torch.deconv.rl import deconvolve, prepare_spectra, rl_view_step
@@ -1535,7 +1583,6 @@ def phase_direct(torch, dev):
     """The direct engine at 64³: the shift-and-add stencil (5³) and cuDNN's
     conv3d (9³) against the fft engine, and the conv held to fp32 under a
     caller's ``cudnn.allow_tf32 = True``."""
-    import contextlib
 
     from libmultiviewnative_torch.core import convolve as cv
     from libmultiviewnative_torch.deconv.rl import deconvolve
@@ -1662,7 +1709,6 @@ def phase_ladder(torch, dev):
     """``deconvolve_auto`` at 4 views 512³ with per-voxel weights on each rung
     of the ladder: its natural decision, then the interleaved and the
     streamed rung forced by ``headroom``, each against in-core sequential."""
-    import contextlib
     import io
 
     from libmultiviewnative_torch.deconv import dispatch
@@ -1691,10 +1737,8 @@ def phase_ladder(torch, dev):
         f" {est_il >> 20} MiB")
     headrooms = {"in-core": 0.9, "interleaved": (est_il + est) / 2 / capacity,
                  "streamed": est_il / 2 / capacity}
-    saved = os.environ.get("LMVN_TRACE")
-    os.environ["LMVN_TRACE"] = "1"
     results, incore = {}, None
-    try:
+    with knobs(LMVN_TRACE="1"):
         for rung, headroom in headrooms.items():
             def run(n):
                 return dispatch.deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
@@ -1726,11 +1770,6 @@ def phase_ladder(torch, dev):
                 raise AssertionError(f"the {rung} rung disagrees with in-core sequential")
             results[rung] = {"s_per_iteration": step, "peak_gib": peak, "rel": rel}
             torch.cuda.empty_cache()
-    finally:
-        if saved is None:
-            os.environ.pop("LMVN_TRACE", None)
-        else:
-            os.environ["LMVN_TRACE"] = saved
     log("ladder: " + json.dumps(results))
     return results
 
@@ -2125,7 +2164,6 @@ def phase_mesh(torch, dev, rng):
     """The ('view', 'z') mesh of parallel/ on one card: every cell is the
     card (a device repeats in make_mesh's list), so this shows the mesh
     layer's results and its own cost, not scaling."""
-    import contextlib
     import io
     import socket
 
@@ -2266,17 +2304,16 @@ def phase_mesh(torch, dev, rng):
                                  "mesh_slope": r_mesh[1], "incore_slope": [r_in[1], r_in2[1]]}
 
     # f. the ladder: two "devices" (the card twice), in-core refused
-    saved = (dispatch.mesh_device_count, dispatch.mesh_devices, os.environ.get("LMVN_TRACE"))
+    saved = (dispatch.mesh_device_count, dispatch.mesh_devices)
     dispatch.mesh_device_count = lambda: 2
     dispatch.mesh_devices = lambda k: [dev] * k
-    os.environ["LMVN_TRACE"] = "1"
     try:
         capacity = dispatch.device_capacity_bytes(dev)
         est = dispatch.estimate_workspace_bytes(data, "auto", dev)
         cell = dispatch._zonly_cell_bytes(data, "auto", 2, dev)
         headroom = (est + cell) / 2 / capacity
         lines = io.StringIO()
-        with contextlib.redirect_stdout(lines):
+        with knobs(LMVN_TRACE="1"), contextlib.redirect_stdout(lines):
             res = dispatch.deconvolve_auto(psi0, data, 3, lam=LAM, min_value=MIN_VALUE,
                                            headroom=headroom, device=dev)
         trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
@@ -2287,11 +2324,7 @@ def phase_mesh(torch, dev, rng):
         ref = deconvolve(psi0, data, 3, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
         out["ladder_zonly"] = within(res, ref, "ladder z-only rung vs in-core")
     finally:
-        dispatch.mesh_device_count, dispatch.mesh_devices = saved[:2]
-        if saved[2] is None:
-            os.environ.pop("LMVN_TRACE", None)
-        else:
-            os.environ["LMVN_TRACE"] = saved[2]
+        dispatch.mesh_device_count, dispatch.mesh_devices = saved
     del data, psi0, data_11, psi_11, res, ref
     torch.cuda.empty_cache()
 
@@ -2353,7 +2386,6 @@ def phase_batched(torch, dev, rng):
     which ``"auto"`` gives one volume) and the peak memory; then BATCH_SMALL volumes at
     BATCH_N³ with (V, B, Z, Y, X) views through the simultaneous order, the
     dft and direct engines, ``deconvolve_auto`` and ``RichardsonLucy.run``."""
-    import contextlib
     import io
 
     from libmultiviewnative_torch.deconv import rl
@@ -2442,16 +2474,8 @@ def phase_batched(torch, dev, rng):
             torch, f"{engine} {order} {BATCH_SMALL} x {BATCH_N}^3", out, refs,
             (BATCH_SMALL,) + small, BATCH_TOL if per_entry else BATCHED_TRANSFORM_TOL)
     lines = io.StringIO()
-    saved = os.environ.get("LMVN_TRACE")
-    os.environ["LMVN_TRACE"] = "1"
-    try:
-        with contextlib.redirect_stdout(lines):
-            auto = deconvolve_auto(psi0, data, BATCH_ITERS, device=dev, **kw)
-    finally:
-        if saved is None:
-            os.environ.pop("LMVN_TRACE", None)
-        else:
-            os.environ["LMVN_TRACE"] = saved
+    with knobs(LMVN_TRACE="1"), contextlib.redirect_stdout(lines):
+        auto = deconvolve_auto(psi0, data, BATCH_ITERS, device=dev, **kw)
     trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
     log("deconvolve_auto on the batch: " + " | ".join(trace))
     if not any("dispatch: in-core on one device" in ln for ln in trace):
@@ -2468,6 +2492,373 @@ def phase_batched(torch, dev, rng):
         raise AssertionError("RichardsonLucy().run on a batch differs from deconvolve_auto")
     log("batched: " + json.dumps(result))
     return result
+
+
+def bf16_steps(torch, got, ref):
+    """(worst |got - ref| over its one-bf16-step allowance BF16_STEP·max(|got|,
+    |ref|) + BF16_FLOOR·max|ref|, max|got - ref|, max|ref|) over a bf16
+    spectrum pair and its plain version; both must be finite."""
+    torch.cuda.synchronize()
+    g = torch.cat([x.float().flatten() for x in got])
+    r = torch.cat([x.float().flatten() for x in ref])
+    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(r).all())):
+        raise AssertionError("a bf16 spectrum holds non-finite values")
+    diff = (g - r).abs()
+    scale = float(r.abs().max())
+    lim = BF16_STEP * torch.maximum(g.abs(), r.abs()) + BF16_FLOOR * scale
+    return float((diff / lim).max()), float(diff.max()), scale
+
+
+def check_bf16_kernel(torch, records, name, label, kernel, plain, f32_kernel, nbytes, ops,
+                      size, split, atol):
+    """Hold one bf16-storage pass against its plain version on the same bf16
+    inputs: a spectrum it writes within one bf16 step elementwise
+    (:func:`bf16_steps`), a volume it writes within FUSED_TOLERANCE (+
+    ``atol``).  Hold it also bit for bit against its f32 entry on the
+    widened inputs (``f32_kernel``, under the knob's "0"), whose spectrum is
+    rounded once to nearest even: the twin differs from that entry only in
+    its loads and stores.  ``split(out)`` is (volumes, spectrum pair or
+    ()).  Time the bf16 kernel, its plain version and the f32 kernel in
+    turns (plain, bf16, f32, f32, bf16, plain; medians of 20 CUDA-event
+    launches each) and keep the record under ``name`` with its bf16 byte
+    bound."""
+    with knobs(LMVN_FUSED_SPEC_BF16="1"):
+        vols, spec = (tuple(t.clone() for t in part) for part in split(kernel()))
+    with knobs(LMVN_FUSED_SPEC_BF16="0"):
+        f32_vols, f32_spec = split(f32_kernel())
+        twin = (all(torch.equal(g, r) for g, r in zip(vols, f32_vols))
+                and all(torch.equal(g, r.to(torch.bfloat16)) for g, r in zip(spec, f32_spec)))
+    if not twin:
+        raise AssertionError(f"{name} {label}: not bitwise its f32 entry, rounded once")
+    del f32_vols, f32_spec
+    ref_vols, ref_spec = split(plain())
+    abs_err, worst = 0.0, 0.0
+    for g, r in zip(vols, ref_vols):
+        err, scale = compare(torch, f"{name} {label}", g, r)
+        if not err <= FUSED_TOLERANCE * scale + atol:
+            raise AssertionError(f"{name} {label}: volume error {err:.3e} beyond tolerance")
+        abs_err = max(abs_err, err)
+    if spec:
+        if any(t.dtype != torch.bfloat16 for t in spec):
+            raise AssertionError(f"{name} {label}: the spectrum it wrote is not bf16")
+        worst, err, scale = bf16_steps(torch, spec, ref_spec)
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {label}: {worst:.3f} bf16 steps from its plain version")
+        abs_err = max(abs_err, err)
+    del vols, spec, ref_vols, ref_spec
+    samples = {fn: [] for fn in (plain, kernel, f32_kernel)}
+    for fn in (plain, kernel, f32_kernel, f32_kernel, kernel, plain):
+        with knobs(LMVN_FUSED_SPEC_BF16="0" if fn is f32_kernel else "1"):
+            samples[fn] += event_times_ms(torch, fn)
+    ms, plain_ms, f32_ms = (statistics.median(samples[fn]) for fn in (kernel, plain, f32_kernel))
+    log(f"{name:17s} {label:34s} max_abs_err {abs_err:.3e}, worst {worst:.3f} bf16 steps,"
+        f" bitwise its f32 entry rounded; bf16 {ms:.4f} ms {nbytes / ms / 1e6:8.1f} GB/s"
+        f" | f32 kernel {f32_ms:.4f} ms (bf16 at {f32_ms / ms:.3f}x) | plain {plain_ms:.4f} ms")
+    rec = records.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    keep_timing(records, name, size, (ms, plain_ms, None), nbytes, ops)
+    entry = rec if size == HEADLINE_N else rec["512"]
+    entry.update(f32_ms=f32_ms, bf16_steps=worst)
+
+
+def time_in_turns(torch, label, bf16_fn, f32_fn):
+    """Median CUDA-event ms of one call with bf16 and with f32 storage, in
+    turns f32, bf16, bf16, f32; logged, not recorded."""
+    samples = {"0": [], "1": []}
+    for knob in "0110":
+        with knobs(LMVN_FUSED_SPEC_BF16=knob):
+            samples[knob] += event_times_ms(torch, bf16_fn if knob == "1" else f32_fn)
+    f32_ms, ms = (statistics.median(samples[k]) for k in "01")
+    log(f"{label}: bf16 {ms:.4f} ms, f32 {f32_ms:.4f} ms (bf16 at {f32_ms / ms:.3f}x)")
+
+
+def phase_bf16_kernels(torch, dev, records):
+    """28 a: K4-K10 in bf16 storage against their plain versions and their
+    f32 entries, 256³ and 512³; K5 and K6 also timed on random spectra."""
+    from libmultiviewnative_torch.core.wrap import wrap_kernel
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    log("# phase 28 a: K4-K10 with bf16 spectra (LMVN_FUSED_SPEC_BF16) vs their plain versions")
+    check_fp32_matmuls(torch)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(28)
+    k1, _ = bench_kernels()
+    kernel = torch.from_numpy(k1[0]).to(dev)
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def wide(pair):
+        return tuple(t.float() for t in pair)
+
+    spectrum = lambda o: ((), o)  # noqa: E731
+    volume = lambda o: ((o,), ())  # noqa: E731
+    both = lambda o: ((o[0],), o[1])  # noqa: E731
+    for size in (HEADLINE_N, BIG_N):
+        shape = (size,) * 3
+        Z, Y, X = shape
+        label = "x".join(map(str, shape))
+        plan = make_fused_plan(shape)
+        c = fu.plan_tensors(plan, dev)
+        psi = rand((Z, X, Y), 1.0, 100.0)
+        view = rand((Z, X, Y), 1.0, 200.0)
+        conj = size == BIG_N
+        weights = 0.25 if conj else rand((Z, X, Y), 0.0, 0.5)
+        with knobs(LMVN_FUSED_SPEC_BF16="1"):
+            k16 = fu.kernel_spectrum_fused(kernel, shape)
+        u16 = fu.pass_a_plain(psi, c, bf16)
+        v16 = fu.pass_b_plain(*u16, *k16, c, conj, bf16)
+        uk16 = fu.pass_a_plain(wrap_kernel(kernel, shape).transpose(1, 2).contiguous(), c, bf16)
+        k32, u32, v32, uk32 = map(wide, (k16, u16, v16, uk16))
+        buf16 = tuple(torch.empty_like(t) for t in u16)
+        buf32 = tuple(torch.empty_like(t) for t in u32)
+        out = torch.empty_like(psi)
+        # bytes the functions need at 2 bytes a stored spectral value: a
+        # spectrum input's Kx rows, a spectrum output's Kxp rows
+        vol, spec, spec_in = 4 * psi.numel(), 4 * u16[0].numel(), 4 * plan.kxh * Z * Y
+        w_vols = 2 if conj else 3
+        flops = fused_flops(plan)
+        w_label = f"{'scalar' if conj else 'voxel'}-w lam={LAM}"
+        checks = (
+            ("pass_a", label, lambda: fu.pass_a(psi, plan, out=buf16),
+             lambda: fu.pass_a_plain(psi, c, bf16),
+             lambda: fu.pass_a(psi, plan, out=buf32), vol + spec, spectrum, 0.0),
+            ("pass_bf", f"{label} kernel1 21^3", lambda: fu.pass_bf(*uk16, plan),
+             lambda: fu.pass_bf_plain(*uk16, c, bf16),
+             lambda: fu.pass_bf(*uk32, plan), spec_in + spec, spectrum, 0.0),
+            ("pass_b", f"{label} conj={conj}",
+             lambda: fu.pass_b(*u16, *k16, plan, conj_k=conj, out=buf16),
+             lambda: fu.pass_b_plain(*u16, *k16, c, conj, bf16),
+             lambda: fu.pass_b(*u32, *k32, plan, conj_k=conj, out=buf32),
+             2 * spec_in + spec, spectrum, 0.0),
+            ("pass_c", label, lambda: fu.pass_c(*v16, plan), lambda: fu.pass_c_plain(*v16, c),
+             lambda: fu.pass_c(*v32, plan), spec_in + vol, volume, 0.0),
+            ("pass_cqa", label, lambda: fu.pass_cqa(*v16, view, plan, out=buf16),
+             lambda: fu.pass_cqa_plain(*v16, view, c, bf16),
+             lambda: fu.pass_cqa(*v32, view, plan, out=buf32),
+             spec_in + vol + spec, spectrum, 0.0),
+            ("pass_cu", f"{label} {w_label}",
+             lambda: fu.pass_cu(*v16, psi, weights, plan, LAM, MIN_VALUE, out=out),
+             lambda: fu.pass_cu_plain(*v16, psi, weights, c, LAM, MIN_VALUE),
+             lambda: fu.pass_cu(*v32, psi, weights, plan, LAM, MIN_VALUE, out=out),
+             spec_in + w_vols * vol, volume, tikhonov_atol(LAM)),
+            ("pass_cua", f"{label} {w_label}",
+             lambda: fu.pass_cua(*v16, psi, weights, plan, LAM, MIN_VALUE, out=out, u_out=buf16),
+             lambda: fu.pass_cua_plain(*v16, psi, weights, c, LAM, MIN_VALUE, bf16),
+             lambda: fu.pass_cua(*v32, psi, weights, plan, LAM, MIN_VALUE, out=out, u_out=buf32),
+             spec_in + spec + w_vols * vol, both, tikhonov_atol(LAM)),
+        )
+        fu.reset_launches()
+        for name, what, kernel_fn, plain_fn, f32_fn, nbytes, split, atol in checks:
+            check_bf16_kernel(torch, records, f"{name}_bf16", what, kernel_fn, plain_fn, f32_fn,
+                              nbytes, flops[name], size, split, atol)
+        ran = {k: v for k, v in fu.launches.items() if v}
+        if set(ran) != set(FUSED_PASSES + BF16_PASSES):
+            raise AssertionError(f"phase 28 a {label}: launches {ran}")
+        # the wrapped kernel's spectrum is zero in most z planes; K5 and K6
+        # also on spectra with none (pass A of psi, a random kernel spectrum)
+        kr16 = fu.pass_a_plain(rand((Z, X, Y), 1.0, 100.0), c, bf16)
+        kr32 = wide(kr16)
+        time_in_turns(torch, f"pass_bf_bf16      {label} on pass A of psi",
+                      lambda: fu.pass_bf(*u16, plan), lambda: fu.pass_bf(*u32, plan))
+        time_in_turns(torch, f"pass_b_bf16       {label} conj={conj} random K",
+                      lambda: fu.pass_b(*u16, *kr16, plan, conj_k=conj, out=buf16),
+                      lambda: fu.pass_b(*u32, *kr32, plan, conj_k=conj, out=buf32))
+        del psi, view, k16, u16, v16, uk16, k32, u32, v32, uk32, kr16, kr32, buf16, buf32, out
+        del weights
+        torch.cuda.empty_cache()
+
+
+def phase_bf16_main(torch, dev, rng, launches_out):
+    """28 b-e: the main path with bf16 spectra beside the f32 one, the dense
+    forwarding on request, the interleaved rung and a 1×1 mesh."""
+    from libmultiviewnative_torch.deconv.dispatch import deconvolve_auto
+    from libmultiviewnative_torch.deconv.interleaved import deconvolve_interleaved
+    from libmultiviewnative_torch.deconv.rl import (
+        FUSED_XMODE, PreparedSpectra, deconvolve, deconvolve_prepared, prepare_spectra_fused,
+        prepare_workspace, rl_view_step_fused,
+    )
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.parallel import sharded
+
+    out = {"card": card_line()}
+    log(f"# phase 28 b: the main path with LMVN_FUSED_SPEC_BF16=1 beside f32 ({out['card']})")
+    for label, make, kw, reps, n_fwd in (
+        (f"{HEADLINE_N}^3", headline_data, {}, 4, 2 * V),
+        (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2, V),
+    ):
+        data, psi0 = make(torch, dev, rng)
+        shape = tuple(psi0.shape)
+        steps = {"pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS}
+        prep = {}
+        paths = (
+            ("auto", lambda n: deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
+                                               device=dev, **kw),
+             {"pass_a": V * ITERS + n_fwd, "pass_cu": V * ITERS, **steps}, "0"),
+            ("prepared", lambda n: deconvolve_prepared(psi0, data, prep["spectra"], n, lam=LAM,
+                                                       min_value=MIN_VALUE),
+             {"pass_a": V * ITERS, "pass_cu": V * ITERS, **steps}, "0"),
+            ("carried", lambda n: deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
+                                                  device=dev, **kw),
+             {"pass_a": n_fwd + 1, "pass_cua": V * ITERS, **steps}, "1"),
+        )
+        for path, run_n, want, carry in paths:
+            res = {}
+            for knob in ("0", "1"):
+                with knobs(LMVN_FUSED_SPEC_BF16=knob, LMVN_FUSED_CARRY=carry):
+                    if path == "prepared":
+                        prep["spectra"] = prepare_workspace(data, shape, algorithm="fused",
+                                                            adjoint_kernel2=bool(kw))
+                    run_n(1)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    reset_counts()
+                    got = run_n(ITERS)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+                    sfx = "_bf16" if knob == "1" else ""
+                    expect_counts(counts, {k + sfx: v for k, v in want.items()},
+                                  f"{label} {path} bf16={knob}")
+                    check_output(torch, got, shape, f"{label} {path} bf16={knob}")
+                    if knob == "1":
+                        if label.startswith(str(HEADLINE_N)) and path == "auto":
+                            launches_out.update({k: v for k, v in counts.items() if v})
+                        elif label.startswith(str(HEADLINE_N)) and path == "carried":
+                            launches_out["pass_cua_bf16"] = counts["pass_cua_bf16"]
+                        again = run_n(ITERS)
+                        if not torch.equal(again, got):
+                            raise AssertionError(f"{label} {path}: a second bf16 call differs")
+                        del again
+                    value, slope = rate(torch, run_n, reps=reps)
+                    res[knob] = (got, value, slope, peak)
+                    log(f"{label} {path} bf16={knob}: {value!r} it/s, slope {slope!r} it/s,"
+                        f" peak {peak:.3f} GiB")
+            (p32, v32, s32, m32), (p16, v16, s16, m16) = res["0"], res["1"]
+            d = p16 - p32
+            max_rel = float(d.abs().max()) / float(p32.abs().max())
+            l2 = float(torch.linalg.vector_norm(d)) / float(torch.linalg.vector_norm(p32))
+            log(f"{label} {path}: bf16 against f32 after {ITERS} iterations: max-relative"
+                f" {max_rel:.4e}, relative L2 {l2:.4e}; it/s {v16 / v32:.4f}x, slope"
+                f" {s16 / s32:.4f}x, peak {m16:.3f} against {m32:.3f} GiB")
+            if not (math.isfinite(max_rel) and math.isfinite(l2)):
+                raise AssertionError(f"{label} {path}: non-finite difference")
+            out[f"{label.split('^')[0]}_{path}"] = {
+                "its": [v32, v16], "slope": [s32, s16], "peak_gib": [m32, m16],
+                "max_rel": max_rel, "rel_l2": l2}
+            del res, p32, p16, d
+        prep.clear()
+        if label.startswith(str(HEADLINE_N)):
+            # one view step in bf16 against the f32 step: JAX's envelope
+            psi_t = psi0.transpose(-1, -2).contiguous()
+            view_t = data.views[0].transpose(-1, -2).contiguous()
+            w_t = data.weights[0].transpose(-1, -2).contiguous()
+            step = {}
+            for knob in ("0", "1"):
+                with knobs(LMVN_FUSED_SPEC_BF16=knob):
+                    ks = [fu.kernel_spectrum_fused(k[0], shape) for k in (data.kernel1,
+                                                                        data.kernel2)]
+                    step[knob] = rl_view_step_fused(psi_t, view_t, *ks, w_t, LAM, MIN_VALUE)
+            rel = float((step["1"] - step["0"]).abs().max()) / float(step["0"].abs().max())
+            log(f"one view step at {label}, bf16 against f32: max-relative {rel:.4e}"
+                f" (envelope {BF16_VIEW_STEP:g})")
+            if not rel < BF16_VIEW_STEP:
+                raise AssertionError(f"bf16 view step beyond the envelope: {rel:.3e}")
+            out["view_step_rel"] = rel
+            # the forwarding of the call's 8 spectra, in both storages
+            forward = lambda: [prepare_spectra_fused(k, shape)  # noqa: E731
+                               for k in (data.kernel1, data.kernel2)]
+            time_in_turns(torch, f"forwarding of {2 * V} spectra at {label}", forward, forward)
+            headline = (data, psi0)
+        del data, psi0
+        torch.cuda.empty_cache()
+
+    data, psi0 = headline
+    shape = tuple(psi0.shape)
+    log(f"# phase 28 c: the dense forwarding at {shape} (f32), and {THIN_SHAPE} in bf16")
+    reset_counts()
+    dense = [[fu._spectrum_dense(k, shape) for k in ks] for ks in (data.kernel1, data.kernel2)]
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), {"pass_a": 2 * V, "pass_bf": 2 * V}, f"dense forwarding {shape}")
+    dense = [tuple(torch.stack(part) for part in zip(*ks)) for ks in dense]
+    sparse = [prepare_spectra_fused(k, shape) for k in (data.kernel1, data.kernel2)]
+    for which, dn, sp in zip(("kernel1", "kernel2"), dense, sparse):
+        err, scale = compare(torch, f"dense vs sparse {which}", dn, sp)
+        log(f"spectra {which} {shape}: dense against sparse max_abs_err {err:.3e} rel"
+            f" {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
+        if not err <= FUSED_TOLERANCE * scale:
+            raise AssertionError(f"dense and sparse forwarding disagree for {which}")
+    runs = [deconvolve_prepared(psi0, data, PreparedSpectra("fused", shape, *ks,
+                                                            xmode=FUSED_XMODE),
+                                ITERS, lam=LAM, min_value=MIN_VALUE) for ks in (dense, sparse)]
+    rel = float((runs[0] - runs[1]).abs().max()) / float(runs[1].abs().max())
+    log(f"{ITERS} iterations on the dense against the z-sparse spectra: max-relative {rel:.3e}"
+        f" (tol {FUSED_TOLERANCE:g})")
+    check_output(torch, runs[0], shape, "dense forwarding")
+    if not rel <= FUSED_TOLERANCE:
+        raise AssertionError(f"the run on the dense spectra differs: {rel:.3e}")
+    out["dense_run_rel"] = rel
+    del dense, sparse, runs
+    thin, thin_psi0 = thin_data(torch, dev, rng)
+    with knobs(LMVN_FUSED_SPEC_BF16="1"):
+        reset_counts()
+        got = deconvolve(thin_psi0, thin, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="fused")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(counts, {"pass_a_bf16": V * ITERS + 2 * V, "pass_bf_bf16": 2 * V,
+                               "pass_b_bf16": 2 * V * ITERS, "pass_cqa_bf16": V * ITERS,
+                               "pass_cu_bf16": V * ITERS}, f"bf16 {THIN_SHAPE}")
+        launches_out["pass_bf_bf16"] = counts["pass_bf_bf16"]
+    check_output(torch, got, THIN_SHAPE, f"bf16 {THIN_SHAPE}")
+    del thin, thin_psi0, got
+    torch.cuda.empty_cache()
+
+    log(f"# phase 28 d: the interleaved rung with bf16 spectra, 4 views at {shape},"
+        f" chunk_z {CHUNK_Z}, {BF16_ITERS} iterations")
+    host = [list(x.cpu().numpy()) for x in (data.views, data.kernel1, data.kernel2, data.weights)]
+    n_chunks = -(-shape[0] // CHUNK_Z)
+    res = {}
+    for knob in ("1", "0"):
+        with knobs(LMVN_FUSED_SPEC_BF16=knob):
+            def run():
+                return deconvolve_interleaved(psi0.cpu().numpy(), *host, BF16_ITERS, lam=LAM,
+                                              min_value=MIN_VALUE, chunk_z=CHUNK_Z,
+                                              algorithm="fused", device=dev)
+            reset_counts()
+            res[knob] = run()
+            counts = read_counts()
+            if knob == "1":
+                sfx, it = "_bf16", BF16_ITERS
+                expect_counts(counts, {"pass_a" + sfx: 2 * V * it + 2 * V, "pass_b" + sfx: 2 * V * it,
+                                       "pass_c" + sfx: 2 * V * it, "quotient": V * it * n_chunks,
+                                       "rl_update": V * it * n_chunks}, "interleaved bf16")
+                launches_out["pass_c_bf16"] = counts["pass_c_bf16"]
+                if not (np.isfinite(res[knob]).all() and np.array_equal(run(), res[knob])):
+                    raise AssertionError("interleaved bf16: not finite, or a second call differs")
+    rel = float(np.abs(res["1"] - res["0"]).max() / np.abs(res["0"]).max())
+    log(f"interleaved bf16 against f32 after {BF16_ITERS} iterations: max-relative {rel:.4e}")
+    out["interleaved_max_rel"] = rel
+
+    log(f"# phase 28 e: a 1x1 mesh with bf16 spectra against in-core, {BF16_ITERS} iterations")
+    with knobs(LMVN_FUSED_SPEC_BF16="1"):
+        mesh = sharded.make_mesh(1, 1, devices=[dev])
+        psi_m, data_m = sharded.shard_workspace(data, psi0, mesh)
+        reset_counts()
+        got = sharded.deconvolve_sharded(psi_m, data_m, BF16_ITERS, mesh, lam=LAM,
+                                         min_value=MIN_VALUE, algorithm="fused",
+                                         view_order="sequential").full(dev)
+        counts = read_counts()
+        if counts["pass_cu_bf16"] != V * BF16_ITERS or any(counts[k] for k in FUSED_PASSES):
+            raise AssertionError(f"mesh 1x1 bf16: launches {counts}")
+        ref = deconvolve(psi0, data, BF16_ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="fused")
+        out["mesh_1x1_rel"] = within(got, ref, "mesh 1x1 bf16 vs in-core")
+        log(f"mesh 1x1 bf16 bitwise in-core: {bool(torch.equal(got, ref))}")
+    del data, psi0, got, ref, psi_m, data_m
+    torch.cuda.empty_cache()
+    log("bf16: " + json.dumps(out))
+    return out
+
 
 
 def phase_cli(torch, dev):
@@ -2550,6 +2941,9 @@ def main():
     phase_mesh(torch, dev, rng)
     torch.cuda.empty_cache()
     phase_batched(torch, dev, rng)
+    torch.cuda.empty_cache()
+    phase_bf16_kernels(torch, dev, records)
+    rates["bf16"] = phase_bf16_main(torch, dev, rng, launches)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

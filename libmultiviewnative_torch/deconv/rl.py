@@ -399,6 +399,12 @@ def deconvolve(
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
     made and are ignored here.
 
+    The fused engine stores its spectra as :func:`..ops.fused.spec_dtype`
+    says, read by each pass: float32, or bfloat16 with
+    ``LMVN_FUSED_SPEC_BF16=1`` (opt-in, outside the fp32 contract).  Fused
+    spectra prepared under the other setting are read as they are, widened
+    where a pass reads them, as in JAX.
+
     Batches, as in the JAX package: psi may be (*B, Z, Y, X), one problem
     per leading entry, and the result has psi's shape, entry b equal to the
     call on entry b.  Views are (V, Z, Y, X), shared by the batch, or

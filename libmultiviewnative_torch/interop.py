@@ -84,10 +84,13 @@ def prepared_from_jax(
     ``"fft"``: complex64 (V, Z, Y, X//2+1) stacks.  ``"dft"``: (re, im)
     pairs of float32 stacks in the dft3 layout, compact (X//2+1 wide) or
     full (``FullDFTPlan``, any axis over 256).  ``"fused"``: (re, im) pairs
-    of float32 (V, Kxp, Z, Y) stacks with the JAX object's ``xmode``;
-    'splitx' spectra are moved into the port's 'standard' row order
-    (:func:`splitx_rows`).  JAX materialises the adjoint's conjugate
-    spectrum, so ``k2`` is used as given."""
+    of (V, Kxp, Z, Y) stacks with the JAX object's ``xmode``; 'splitx'
+    spectra are moved into the port's 'standard' row order
+    (:func:`splitx_rows`).  A fused stack JAX stored in bf16
+    (``LMVN_FUSED_SPEC_BF16=1``; numpy sees ``ml_dtypes.bfloat16``) stays
+    bf16: it goes through float32 to ``torch.bfloat16``, both steps exact,
+    so the port reads the values JAX read.  JAX materialises the adjoint's
+    conjugate spectrum, so ``k2`` is used as given."""
     spatial = tuple(int(s) for s in spatial)
 
     def pair(k):
@@ -102,10 +105,17 @@ def prepared_from_jax(
     if algorithm == "dft":
         return PreparedSpectra(algorithm, spatial, pair(k1), pair(k2))
     if algorithm == "fused":
-        if xmode == "splitx":
-            k1, k2 = (_splitx_to_standard(*(np.asarray(a, np.float32) for a in k), spatial)
-                      for k in (k1, k2))
-        elif xmode != FUSED_XMODE:
+        if xmode not in ("splitx", FUSED_XMODE):
             raise ValueError(f"unknown fused x-row layout {xmode!r}")
-        return PreparedSpectra(algorithm, spatial, pair(k1), pair(k2), xmode=FUSED_XMODE)
+
+        def fused_pair(k):
+            dtypes = [torch.bfloat16 if np.asarray(a).dtype.name == "bfloat16" else torch.float32
+                      for a in k]
+            k = [np.asarray(a, np.float32) for a in k]
+            if xmode == "splitx":
+                k = _splitx_to_standard(*k, spatial)  # moves and negates: exact
+            return tuple(torch.tensor(a, device=device).to(d) for a, d in zip(k, dtypes))
+
+        return PreparedSpectra(algorithm, spatial, fused_pair(k1), fused_pair(k2),
+                               xmode=FUSED_XMODE)
     raise ValueError(f"prepared spectra of the {algorithm!r} engine do not exist")

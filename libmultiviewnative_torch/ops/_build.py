@@ -79,6 +79,11 @@ _SIGNATURES = {
         ctypes.c_float, ctypes.c_float, _P,
     ),
 }
+# each fused pass's bf16-spectrum twin takes the arguments of its f32 entry
+_SIGNATURES.update({
+    f"{name}_bf16": argtypes for name, argtypes in _SIGNATURES.items()
+    if name.startswith("lmvn_fused_")
+})
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -39,11 +39,24 @@
 //
 // Butterflies use __fmaf_rn where a multiply-add is meant (the library is
 // built with -fmad=false).
+//
+// Storage.  The spectral side of the y and z stages (u, v, the kernel
+// spectrum K and the spectra K4, K5, K6, K8 and K10 write) is stored as
+// float or as __nv_bfloat16 (the JAX package's LMVN_FUSED_SPEC_BF16,
+// fused_dft2.py:530-550): a bf16 value is widened to f32 on load and
+// rounded to nearest even on store, and everything between, the shared
+// memory, the twiddles and the scratch pair t, stays f32.  The x stages
+// read and write only t and real volumes, so they have one form.  Four
+// spectral values move as a float4 or an 8-byte bf16 quad, two as a float2
+// or a 4-byte bf16 pair (a warp still covers whole 32-byte sectors).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "rl_update.cuh"
 
@@ -86,6 +99,64 @@ __device__ __forceinline__ void batched(int n, Load load, Store store) {
 struct Pair4 {
   float4 re, im;
 };
+
+// ------------------------------------------------------------ storage
+__device__ __forceinline__ float widen(unsigned short b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
+}
+
+__device__ __forceinline__ unsigned short narrow(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// a 4-byte bf16 pair: value 0 in the low half (the lower address)
+__device__ __forceinline__ float2 widen2(unsigned w) {
+  return make_float2(widen(w & 0xffffu), widen(w >> 16));
+}
+
+__device__ __forceinline__ unsigned narrow2(float a, float b) {
+  return narrow(a) | (static_cast<unsigned>(narrow(b)) << 16);
+}
+
+// four values at p, through the read-only cache (p aliases no output)
+__device__ __forceinline__ float4 ld_quad(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ld_quad(const __nv_bfloat16* p) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = widen2(w.x), b = widen2(w.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void st_quad(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void st_quad(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(narrow2(v.x, v.y), narrow2(v.z, v.w));
+}
+
+// two values at p; NC through the read-only cache
+template <bool NC>
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  return NC ? __ldg(q) : *q;
+}
+
+template <bool NC>
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  const unsigned* q = reinterpret_cast<const unsigned*>(p);
+  return widen2(NC ? __ldg(q) : *q);
+}
+
+__device__ __forceinline__ void st_pair(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<unsigned*>(p) = narrow2(v.x, v.y);
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -590,11 +661,15 @@ __device__ __forceinline__ int split_freq(int j, int R, int M) {
 // Forward (K4 launch 2): rows g >= valid (the pad x-frequencies) are
 // written as zeros and not read.  Inverse (K7 launch 1): scale = 1/Y; pad
 // rows are neither read nor written (the x stage reads k < Kx only).
-template <int P, bool INV>
+// The spectral side (Out forward, In inverse) is float or bf16; the
+// scratch side is t, always float.
+template <int P, bool INV, class Out, class In>
 __global__ void __launch_bounds__(kThreads)
-    y_kernel(float* __restrict__ o_re, float* __restrict__ o_im,
-             const float* __restrict__ i_re, const float* __restrict__ i_im,
+    y_kernel(Out* __restrict__ o_re, Out* __restrict__ o_im,
+             const In* __restrict__ i_re, const In* __restrict__ i_im,
              const LmvnFft f, int valid, int R, int M, float scale) {
+  static_assert(std::is_same<typename std::conditional<INV, Out, In>::type, float>::value,
+                "the scratch pair t is float");
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
   const int Y = f.n, quads = Y / 4, g0 = blockIdx.x * P;
@@ -602,8 +677,8 @@ __global__ void __launch_bounds__(kThreads)
     if (!INV) {
       for (int e = threadIdx.x; e < P * quads; e += kThreads) {
         const size_t o = static_cast<size_t>(g0 + e % P) * Y + 4 * (e / P);
-        *reinterpret_cast<float4*>(o_re + o) = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(o_im + o) = make_float4(0.f, 0.f, 0.f, 0.f);
+        st_quad(o_re + o, make_float4(0.f, 0.f, 0.f, 0.f));
+        st_quad(o_im + o, make_float4(0.f, 0.f, 0.f, 0.f));
       }
     }
     return;
@@ -615,8 +690,8 @@ __global__ void __launch_bounds__(kThreads)
         Pair4 v = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
         if (g < valid) {
           const size_t i = static_cast<size_t>(g) * Y + 4 * (e / P);
-          v.re = __ldg(reinterpret_cast<const float4*>(i_re + i));
-          v.im = __ldg(reinterpret_cast<const float4*>(i_im + i));
+          v.re = ld_quad(i_re + i);
+          v.im = ld_quad(i_im + i);
         }
         return v;
       },
@@ -644,8 +719,8 @@ __global__ void __launch_bounds__(kThreads)
       vi[h] = INV ? v.y * scale : v.y;
     }
     const size_t o = static_cast<size_t>(g) * Y + j;
-    *reinterpret_cast<float4*>(o_re + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
-    *reinterpret_cast<float4*>(o_im + o) = make_float4(vi[0], vi[1], vi[2], vi[3]);
+    st_quad(o_re + o, make_float4(vr[0], vr[1], vr[2], vr[3]));
+    st_quad(o_im + o, make_float4(vi[0], vi[1], vi[2], vi[3]));
   }
 }
 
@@ -683,10 +758,11 @@ constexpr int kZCols = 16;
 
 inline size_t z_smem(int Z) { return sizeof(float2) * kZCols * Z; }
 
-template <int P, bool FWD_ONLY>
+// S, the storage type of u, K and the output: float or bf16.
+template <int P, bool FWD_ONLY, class S>
 __global__ void __launch_bounds__(kThreads)
-    z_kernel(float* o_re, float* o_im, const float* u_re, const float* u_im,
-             const float* __restrict__ k_re, const float* __restrict__ k_im,
+    z_kernel(S* o_re, S* o_im, const S* u_re, const S* u_im,
+             const S* __restrict__ k_re, const S* __restrict__ k_im,
              float ksign, const LmvnFft f, int Y, int Kx, int R, int M,
              float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -699,8 +775,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = c0 + 2 * (e % Q);
       if (c >= Y) continue;
       const size_t o = base + static_cast<size_t>(e / Q) * Y + c;
-      *reinterpret_cast<float2*>(o_re + o) = make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(o_im + o) = make_float2(0.f, 0.f);
+      st_pair(o_re + o, make_float2(0.f, 0.f));
+      st_pair(o_im + o, make_float2(0.f, 0.f));
     }
     return;
   }
@@ -710,8 +786,8 @@ __global__ void __launch_bounds__(kThreads)
         const int c = c0 + 2 * (e % Q);
         if (c >= Y) return make_float4(0.f, 0.f, 0.f, 0.f);
         const size_t i = base + static_cast<size_t>(e / Q) * Y + c;
-        const float2 re = *reinterpret_cast<const float2*>(u_re + i);
-        const float2 im = *reinterpret_cast<const float2*>(u_im + i);
+        const float2 re = ld_pair<false>(u_re + i);
+        const float2 im = ld_pair<false>(u_im + i);
         return make_float4(re.x, im.x, re.y, im.y);
       },
       [&](int e, float4 v) { *reinterpret_cast<float4*>(buf + 2 * e) = v; });
@@ -723,8 +799,8 @@ __global__ void __launch_bounds__(kThreads)
       const int j = e / Q, t = e % Q, c = c0 + 2 * t;
       if (c >= Y) continue;
       const size_t i = base + static_cast<size_t>(j) * Y + c;
-      const float2 kr = __ldg(reinterpret_cast<const float2*>(k_re + i));
-      const float2 ki = __ldg(reinterpret_cast<const float2*>(k_im + i));
+      const float2 kr = ld_pair<true>(k_re + i);
+      const float2 ki = ld_pair<true>(k_im + i);
       float4* at = reinterpret_cast<float4*>(
           buf + __ldg(f.pos + split_freq(j, R, M)) * P + 2 * t);
       const float4 v = *at;
@@ -741,8 +817,8 @@ __global__ void __launch_bounds__(kThreads)
     const int at = FWD_ONLY ? __ldg(f.pos + split_freq(j, R, M)) : j;
     const float4 v = *reinterpret_cast<const float4*>(buf + at * P + 2 * t);
     const size_t o = base + static_cast<size_t>(j) * Y + c;
-    *reinterpret_cast<float2*>(o_re + o) = make_float2(v.x * scale, v.z * scale);
-    *reinterpret_cast<float2*>(o_im + o) = make_float2(v.y * scale, v.w * scale);
+    st_pair(o_re + o, make_float2(v.x * scale, v.z * scale));
+    st_pair(o_im + o, make_float2(v.y * scale, v.w * scale));
   }
 }
 
@@ -780,54 +856,54 @@ inline int x_stage(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P, bool INV>
-inline int y_launch(float* o_re, float* o_im, const float* i_re,
-                    const float* i_im, const LmvnFft& f, int rows, int valid,
-                    int R, int M, cudaStream_t s) {
+template <int P, bool INV, class Out, class In>
+inline int y_launch(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
+                    const LmvnFft& f, int rows, int valid, int R, int M,
+                    cudaStream_t s) {
   const size_t smem = sizeof(float2) * P * f.n;
   cudaError_t e = cudaFuncSetAttribute(
-      y_kernel<P, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      y_kernel<P, INV, Out, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  y_kernel<P, INV><<<blocks(rows, P), kThreads, smem, s>>>(
+  y_kernel<P, INV, Out, In><<<blocks(rows, P), kThreads, smem, s>>>(
       o_re, o_im, i_re, i_im, f, valid, R, M,
       INV ? 1.0f / static_cast<float>(f.n) : 1.0f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The y stage over rows = Kxp*Z rows, of which valid = Kx*Z are not pad.
-template <bool INV>
-inline int y_stage(float* o_re, float* o_im, const float* i_re,
-                   const float* i_im, const LmvnFft& f, int rows, int valid,
-                   int R, int M, cudaStream_t s) {
+// The y stage over rows = Kxp*Z rows, of which valid = Kx*Z are not pad:
+// forward from t into a float or bf16 spectrum, inverse back into t.
+template <bool INV, class Out, class In>
+inline int y_stage(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
+                   const LmvnFft& f, int rows, int valid, int R, int M,
+                   cudaStream_t s) {
   return y_rows(f.n) == 16
              ? y_launch<16, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s)
              : y_launch<8, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s);
 }
 
-template <int P, bool FWD_ONLY>
-inline int z_launch(float* o_re, float* o_im, const float* u_re,
-                    const float* u_im, const float* k_re, const float* k_im,
-                    float ksign, const LmvnFft& f, int Y, int Kx, int Kxp,
-                    int R, int M, cudaStream_t s) {
+template <int P, bool FWD_ONLY, class S>
+inline int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im,
+                    const S* k_re, const S* k_im, float ksign,
+                    const LmvnFft& f, int Y, int Kx, int Kxp, int R, int M,
+                    cudaStream_t s) {
   const size_t smem = sizeof(float2) * P * f.n;
   cudaError_t e = cudaFuncSetAttribute(
-      z_kernel<P, FWD_ONLY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      z_kernel<P, FWD_ONLY, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  z_kernel<P, FWD_ONLY><<<dim3(blocks(Y, P), Kxp), kThreads, smem, s>>>(
+  z_kernel<P, FWD_ONLY, S><<<dim3(blocks(Y, P), Kxp), kThreads, smem, s>>>(
       o_re, o_im, u_re, u_im, k_re, k_im, ksign, f, Y, Kx, R, M,
       FWD_ONLY ? 1.0f : 1.0f / static_cast<float>(f.n));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The z stage over the Kxp slices of a (Kxp, Z, Y) pair, of which Kx are
-// not pad; z's split is (R, M).
-template <bool FWD_ONLY>
-inline int z_stage(float* o_re, float* o_im, const float* u_re,
-                   const float* u_im, const float* k_re, const float* k_im,
-                   bool conj_k, const LmvnFft& f, int Y, int Kx, int Kxp,
-                   int R, int M, cudaStream_t s) {
+// not pad; z's split is (R, M).  S is float or bf16.
+template <bool FWD_ONLY, class S>
+inline int z_stage(S* o_re, S* o_im, const S* u_re, const S* u_im,
+                   const S* k_re, const S* k_im, bool conj_k, const LmvnFft& f,
+                   int Y, int Kx, int Kxp, int R, int M, cudaStream_t s) {
   return z_launch<kZCols, FWD_ONLY>(o_re, o_im, u_re, u_im, k_re, k_im,
                                     conj_k ? -1.f : 1.f, f, Y, Kx, Kxp, R, M, s);
 }

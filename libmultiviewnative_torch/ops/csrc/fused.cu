@@ -1,4 +1,4 @@
-// The fused RL-step engine's passes for Hopper (sm_90a), fp32.
+// The fused RL-step engine's passes for Hopper (sm_90a), fp32 compute.
 //
 // Hand-written counterparts of the TPU kernels in
 // libmultiviewnative_tpu/ops/pallas/fused_dft2.py (dense packed x-mode,
@@ -12,8 +12,17 @@
 //   K10 lmvn_fused_pass_cua  <- _run_pass_cua / _pass_cua_kernel
 //
 // Layouts are the JAX package's: volumes (Z, X, Y); spectra split re/im
-// (Kxp, Z, Y) float32, z and y in the interleaved split order, pad rows
-// k in [Kx, Kxp) written as zeros.  Plan constants come from ops/fused_plan.py.
+// (Kxp, Z, Y), z and y in the interleaved split order, pad rows k in
+// [Kx, Kxp) written as zeros.  Plan constants come from ops/fused_plan.py.
+//
+// Each entry has a _bf16 twin: the same pass with every spectrum it reads
+// or writes (u, v, K, its spectral output) stored as bf16, the JAX
+// package's LMVN_FUSED_SPEC_BF16 storage (fused_dft2.py:530-550).  Values
+// are widened to f32 on load and rounded to nearest even on store; the
+// x stage, the scratch pair t and the real volumes are f32 in both forms,
+// so a bf16 pass computes what the f32 pass computes on the widened inputs,
+// rounded once where it stores a spectrum.  The twins share the template
+// bodies below; the f32 entries are their float instances.
 //
 // Every pass is built from the shared-memory FFT stages of fft_stage.cuh,
 // where the TPU kernels multiply by dense DFT matrices: fp32 CUDA cores make
@@ -45,6 +54,7 @@
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -91,20 +101,23 @@ int start_call(int device, const LmvnFusedPlan* p) {
 }
 
 // The first launch of passes C, CQA, CU and CUA: K7's inverse y stage from
-// v into the scratch pair t.
+// v (stored as S) into the scratch pair t.
+template <class S>
 int y_inverse(float* tr, float* ti, const void* v_re, const void* v_im,
               const LmvnFusedPlan* p, cudaStream_t s) {
-  return lmvn_fft::y_stage<true>(tr, ti, static_cast<const float*>(v_re),
-                                 static_cast<const float*>(v_im), p->fy,
+  return lmvn_fft::y_stage<true>(tr, ti, static_cast<const S*>(v_re),
+                                 static_cast<const S*>(v_im), p->fy,
                                  p->Kxp * p->Z, p->Kx * p->Z, p->Ry, p->My, s);
 }
 
-// The last launch of passes A, CQA and CUA: K4's forward y stage from t into u.
+// The last launch of passes A, CQA and CUA: K4's forward y stage from t into
+// u (stored as S).
+template <class S>
 int y_forward(void* u_re, void* u_im, const float* tr, const float* ti,
               const LmvnFusedPlan* p, cudaStream_t s) {
-  return lmvn_fft::y_stage<false>(static_cast<float*>(u_re),
-                                  static_cast<float*>(u_im), tr, ti, p->fy,
-                                  p->Kxp * p->Z, p->Kx * p->Z, p->Ry, p->My, s);
+  return lmvn_fft::y_stage<false>(static_cast<S*>(u_re), static_cast<S*>(u_im),
+                                  tr, ti, p->fy, p->Kxp * p->Z, p->Kx * p->Z,
+                                  p->Ry, p->My, s);
 }
 
 lmvn_fft::RlUpdateOp rl_update_op(const void* psi, void* out, const void* w,
@@ -113,14 +126,12 @@ lmvn_fft::RlUpdateOp rl_update_op(const void* psi, void* out, const void* w,
           static_cast<const float*>(w), lmvn::rl_params(w_scalar, lam, min_value)};
 }
 
-}  // namespace
-
-extern "C" {
+// The passes, for S = float or bf16 spectra.
 
 // K4: u = pass A(xt), two FFT stages.  t is a (Kxp, Z, Y) scratch pair.
-int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
-                      void* u_im, void* t_re, void* t_im, const void* xt,
-                      void* stream) {
+template <class S>
+int pass_a(int device, const LmvnFusedPlan* p, void* u_re, void* u_im,
+           void* t_re, void* t_im, const void* xt, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -128,44 +139,44 @@ int lmvn_fused_pass_a(int device, const LmvnFusedPlan* p, void* u_re,
   float* ti = static_cast<float*>(t_im);
   err = lmvn_fft::x_forward(tr, ti, static_cast<const float*>(xt), p->fx, p->Z,
                             p->Y, p->Kx, s);
-  if (!err) err = y_forward(u_re, u_im, tr, ti, p, s);
+  if (!err) err = y_forward<S>(u_re, u_im, tr, ti, p, s);
   return err;
 }
 
 // K6: out = pass B(u, K), one FFT z stage (out may alias u); conj_k != 0
 // multiplies by conj(K).
-int lmvn_fused_pass_b(int device, const LmvnFusedPlan* p, void* o_re,
-                      void* o_im, const void* u_re, const void* u_im,
-                      const void* k_re, const void* k_im, int conj_k,
-                      void* stream) {
+template <class S>
+int pass_b(int device, const LmvnFusedPlan* p, void* o_re, void* o_im,
+           const void* u_re, const void* u_im, const void* k_re,
+           const void* k_im, int conj_k, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
-  return lmvn_fft::z_stage<false>(
-      static_cast<float*>(o_re), static_cast<float*>(o_im),
-      static_cast<const float*>(u_re), static_cast<const float*>(u_im),
-      static_cast<const float*>(k_re), static_cast<const float*>(k_im),
-      conj_k != 0, p->fz, p->Y, p->Kx, p->Kxp, p->Rz, p->Mz,
-      static_cast<cudaStream_t>(stream));
+  return lmvn_fft::z_stage<false, S>(
+      static_cast<S*>(o_re), static_cast<S*>(o_im), static_cast<const S*>(u_re),
+      static_cast<const S*>(u_im), static_cast<const S*>(k_re),
+      static_cast<const S*>(k_im), conj_k != 0, p->fz, p->Y, p->Kx, p->Kxp,
+      p->Rz, p->Mz, static_cast<cudaStream_t>(stream));
 }
 
 // K8: u = pass A(view · (1/pass C(v))), three FFT stages: K7's y stage into
 // the scratch pair t, the x stage in place on t, K4's y stage into u.  t is
 // a scratch pair distinct from v and u; u may alias v (v is read in full by
 // the first launch, u written by the last).
-int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
-                        void* u_im, void* t_re, void* t_im, const void* v_re,
-                        const void* v_im, const void* view, void* stream) {
+template <class S>
+int pass_cqa(int device, const LmvnFusedPlan* p, void* u_re, void* u_im,
+             void* t_re, void* t_im, const void* v_re, const void* v_im,
+             const void* view, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = y_inverse(tr, ti, v_re, v_im, p, s);
+  err = y_inverse<S>(tr, ti, v_re, v_im, p, s);
   if (!err)
     err = lmvn_fft::x_stage<true>(
         tr, ti, p->fx, p->Z, p->Y, p->Kx,
         lmvn_fft::QuotientOp{static_cast<const float*>(view)}, s);
-  if (!err) err = y_forward(u_re, u_im, tr, ti, p, s);
+  if (!err) err = y_forward<S>(u_re, u_im, tr, ti, p, s);
   return err;
 }
 
@@ -173,17 +184,17 @@ int lmvn_fused_pass_cqa(int device, const LmvnFusedPlan* p, void* u_re,
 // stage into the scratch pair t, then K7's x stage with K1's update in place
 // of its store.  w == NULL selects the scalar weight w_scalar; out may alias
 // psi.
-int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
-                       void* t_re, void* t_im, const void* v_re,
-                       const void* v_im, const void* psi, const void* w,
-                       float w_scalar, float lam, float min_value,
-                       void* stream) {
+template <class S>
+int pass_cu(int device, const LmvnFusedPlan* p, void* out, void* t_re,
+            void* t_im, const void* v_re, const void* v_im, const void* psi,
+            const void* w, float w_scalar, float lam, float min_value,
+            void* stream) {
   int err = start_call(device, p);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = y_inverse(tr, ti, v_re, v_im, p, s);
+  err = y_inverse<S>(tr, ti, v_re, v_im, p, s);
   if (!err)
     err = lmvn_fft::x_stage<false>(
         tr, ti, p->fx, p->Z, p->Y, p->Kx,
@@ -193,29 +204,28 @@ int lmvn_fused_pass_cu(int device, const LmvnFusedPlan* p, void* out,
 
 // K5: o = pass BF(u), the forward z FFT alone, frequencies stored in z's
 // split order.  o must not alias u.
-int lmvn_fused_pass_bf(int device, const LmvnFusedPlan* p, void* o_re,
-                       void* o_im, const void* u_re, const void* u_im,
-                       void* stream) {
+template <class S>
+int pass_bf(int device, const LmvnFusedPlan* p, void* o_re, void* o_im,
+            const void* u_re, const void* u_im, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
-  return lmvn_fft::z_stage<true>(
-      static_cast<float*>(o_re), static_cast<float*>(o_im),
-      static_cast<const float*>(u_re), static_cast<const float*>(u_im),
-      nullptr, nullptr, false, p->fz, p->Y, p->Kx, p->Kxp, p->Rz, p->Mz,
-      static_cast<cudaStream_t>(stream));
+  return lmvn_fft::z_stage<true, S>(
+      static_cast<S*>(o_re), static_cast<S*>(o_im), static_cast<const S*>(u_re),
+      static_cast<const S*>(u_im), nullptr, nullptr, false, p->fz, p->Y, p->Kx,
+      p->Kxp, p->Rz, p->Mz, static_cast<cudaStream_t>(stream));
 }
 
 // K7: out = pass C(v), the real (Z, X, Y) volume, two FFT stages.  t is a
 // scratch pair.
-int lmvn_fused_pass_c(int device, const LmvnFusedPlan* p, void* out,
-                      void* t_re, void* t_im, const void* v_re,
-                      const void* v_im, void* stream) {
+template <class S>
+int pass_c(int device, const LmvnFusedPlan* p, void* out, void* t_re,
+           void* t_im, const void* v_re, const void* v_im, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = y_inverse(tr, ti, v_re, v_im, p, s);
+  err = y_inverse<S>(tr, ti, v_re, v_im, p, s);
   if (!err)
     err = lmvn_fft::x_stage<false>(tr, ti, p->fx, p->Z, p->Y, p->Kx,
                                    lmvn_fft::StoreOp{static_cast<float*>(out)}, s);
@@ -227,23 +237,76 @@ int lmvn_fused_pass_c(int device, const LmvnFusedPlan* p, void* out,
 // stored to out and replaces the value in shared memory before the forward
 // x FFT.  w == NULL selects the scalar weight w_scalar.  t is a scratch pair
 // distinct from v and u; u may alias v, out may alias psi.
-int lmvn_fused_pass_cua(int device, const LmvnFusedPlan* p, void* out,
-                        void* u_re, void* u_im, void* t_re, void* t_im,
-                        const void* v_re, const void* v_im, const void* psi,
-                        const void* w, float w_scalar, float lam,
-                        float min_value, void* stream) {
+template <class S>
+int pass_cua(int device, const LmvnFusedPlan* p, void* out, void* u_re,
+             void* u_im, void* t_re, void* t_im, const void* v_re,
+             const void* v_im, const void* psi, const void* w, float w_scalar,
+             float lam, float min_value, void* stream) {
   int err = start_call(device, p);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = y_inverse(tr, ti, v_re, v_im, p, s);
+  err = y_inverse<S>(tr, ti, v_re, v_im, p, s);
   if (!err)
     err = lmvn_fft::x_stage<true>(
         tr, ti, p->fx, p->Z, p->Y, p->Kx,
         rl_update_op(psi, out, w, w_scalar, lam, min_value), s);
-  if (!err) err = y_forward(u_re, u_im, tr, ti, p, s);
+  if (!err) err = y_forward<S>(u_re, u_im, tr, ti, p, s);
   return err;
 }
+
+}  // namespace
+
+// The C entries: each pass as f32 and as bf16 (_bf16) spectra, with the
+// arguments of the template above it.
+#define LMVN_PASS(name, params, args)                                \
+  int lmvn_fused_##name params { return name<float> args; }          \
+  int lmvn_fused_##name##_bf16 params { return name<__nv_bfloat16> args; }
+
+extern "C" {
+
+LMVN_PASS(pass_a,
+          (int device, const LmvnFusedPlan* p, void* u_re, void* u_im,
+           void* t_re, void* t_im, const void* xt, void* stream),
+          (device, p, u_re, u_im, t_re, t_im, xt, stream))
+
+LMVN_PASS(pass_b,
+          (int device, const LmvnFusedPlan* p, void* o_re, void* o_im,
+           const void* u_re, const void* u_im, const void* k_re,
+           const void* k_im, int conj_k, void* stream),
+          (device, p, o_re, o_im, u_re, u_im, k_re, k_im, conj_k, stream))
+
+LMVN_PASS(pass_cqa,
+          (int device, const LmvnFusedPlan* p, void* u_re, void* u_im,
+           void* t_re, void* t_im, const void* v_re, const void* v_im,
+           const void* view, void* stream),
+          (device, p, u_re, u_im, t_re, t_im, v_re, v_im, view, stream))
+
+LMVN_PASS(pass_cu,
+          (int device, const LmvnFusedPlan* p, void* out, void* t_re,
+           void* t_im, const void* v_re, const void* v_im, const void* psi,
+           const void* w, float w_scalar, float lam, float min_value,
+           void* stream),
+          (device, p, out, t_re, t_im, v_re, v_im, psi, w, w_scalar, lam,
+           min_value, stream))
+
+LMVN_PASS(pass_bf,
+          (int device, const LmvnFusedPlan* p, void* o_re, void* o_im,
+           const void* u_re, const void* u_im, void* stream),
+          (device, p, o_re, o_im, u_re, u_im, stream))
+
+LMVN_PASS(pass_c,
+          (int device, const LmvnFusedPlan* p, void* out, void* t_re,
+           void* t_im, const void* v_re, const void* v_im, void* stream),
+          (device, p, out, t_re, t_im, v_re, v_im, stream))
+
+LMVN_PASS(pass_cua,
+          (int device, const LmvnFusedPlan* p, void* out, void* u_re,
+           void* u_im, void* t_re, void* t_im, const void* v_re,
+           const void* v_im, const void* psi, const void* w, float w_scalar,
+           float lam, float min_value, void* stream),
+          (device, p, out, u_re, u_im, t_re, t_im, v_re, v_im, psi, w,
+           w_scalar, lam, min_value, stream))
 
 }  // extern "C"

@@ -38,10 +38,22 @@ the next (:func:`fused_rl_step_carried`):
   the quotient: psi' is stored and kept in shared memory for the forward x
   FFT.
 
-Spectra are split (re, im) float32 pairs shaped (Kxp, Z, Y), with z and y in
-the interleaved order of :func:`.fused_plan.split_perm` and the pad rows
-k in [Kx, Kxp) zero.  The kernels are the FFT stages of
+Spectra are split (re, im) pairs shaped (Kxp, Z, Y), with z and y in the
+interleaved order of :func:`.fused_plan.split_perm` and the pad rows k in
+[Kx, Kxp) zero.  The kernels are the FFT stages of
 ``ops/csrc/fft_stage.cuh``, launched from the entries of ``ops/csrc/fused.cu``.
+
+Storage (:func:`spec_dtype`, the JAX package's ``LMVN_FUSED_SPEC_BF16``,
+``fused_dft2.py:530-550``): spectra are stored as float32, or as bfloat16
+with ``LMVN_FUSED_SPEC_BF16=1``.  Compute is float32 either way: a pass widens
+the spectra it reads and rounds the spectrum it writes once, to nearest
+even, as JAX's ``_ld`` and ``astype`` do; the scratch pair between a pass's
+stages and every real volume stay float32.  A pass reads either dtype, so
+spectra made under the other setting mix in as they do in JAX.  On the card,
+a pass whose spectra are all bf16 launches its entry's ``_bf16`` twin
+(counted under ``<pass>_bf16`` in :data:`launches`); any other mix widens
+its bf16 inputs and launches the f32 entry, and rounds what it writes where
+the storage is bf16.
 
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,16 +86,30 @@ from .fused_plan import (
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
-# launch counts of the seven passes; a plain-version call never counts
-launches = {
-    "pass_a": 0, "pass_bf": 0, "pass_b": 0, "pass_c": 0, "pass_cqa": 0, "pass_cu": 0,
-    "pass_cua": 0,
-}
+PASSES = ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")
+# launch counts of the seven passes and of their bf16 twins ("pass_a_bf16",
+# ...); a plain-version call never counts
+launches = {name + sfx: 0 for sfx in ("", "_bf16") for name in PASSES}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+_SPEC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def spec_dtype() -> torch.dtype:
+    """The storage dtype of the fused spectra: ``torch.bfloat16`` when
+    ``LMVN_FUSED_SPEC_BF16`` is ``1``; unset (the JAX default ``"0"``) or any
+    other value, ``torch.float32`` (``fused_dft2.py:530-545``).  Read by each
+    pass, as JAX's passes read ``_spec_dtype()``.  bf16 storage is opt-in
+    and outside the fp32 contract: it rounds every spectrum to 8 significant
+    bits where a pass stores it."""
+    if os.environ.get("LMVN_FUSED_SPEC_BF16", "0") == "1":
+        return torch.bfloat16
+    return torch.float32
 
 
 # The opt-in maximum of one block's shared memory, in bytes (kSmemMax in
@@ -311,8 +338,15 @@ def _zero_pad_rows(u_re, u_im, kx: int):
     return u_re, u_im
 
 
-def pass_a_plain(xt: torch.Tensor, c: PlanTensors) -> Pair:
-    """Plain K4: t = fxp @ plane for every plane, then the split y-DFT."""
+def _stored(pair: Pair, spec: torch.dtype) -> Pair:
+    """A spectrum computed in float32, in the storage dtype (rounded to
+    nearest even for bf16, as JAX's ``astype``)."""
+    return tuple(t.to(spec) for t in pair)
+
+
+def pass_a_plain(xt: torch.Tensor, c: PlanTensors, spec=torch.float32) -> Pair:
+    """Plain K4: t = fxp @ plane for every plane, then the split y-DFT;
+    stored as ``spec``."""
     plan, R = c.plan, c.plan.sy.R
     kxp = plan.kxp
     t = torch.matmul(c.fxp, xt)  # (Z, 2Kxp, Y)
@@ -321,31 +355,37 @@ def pass_a_plain(xt: torch.Tensor, c: PlanTensors) -> Pair:
     )
     u_re = torch.cat(o_re, dim=-1).transpose(0, 1).contiguous()
     u_im = torch.cat(o_im, dim=-1).transpose(0, 1).contiguous()
-    return _zero_pad_rows(u_re, u_im, plan.kxh)
+    return _stored(_zero_pad_rows(u_re, u_im, plan.kxh), spec)
 
 
-def pass_b_plain(u_re, u_im, k_re, k_im, c: PlanTensors, conj_k: bool = False) -> Pair:
-    """Plain K6: split z-DFT, × K̂ (or conj K̂), split z-inverse, per slice."""
+def pass_b_plain(u_re, u_im, k_re, k_im, c: PlanTensors, conj_k: bool = False,
+                 spec=torch.float32) -> Pair:
+    """Plain K6: split z-DFT, × K̂ (or conj K̂), split z-inverse, per slice,
+    on the widened spectra; stored as ``spec``."""
     plan, R = c.plan, c.plan.sz.R
+    u_re, u_im, k_re, k_im = (t.float() for t in (u_re, u_im, k_re, k_im))
     v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
     kr, ki = _blocks(k_re, R, 1), _blocks(-k_im if conj_k else k_im, R, 1)
     p_re = [v_re[q] * kr[q] - v_im[q] * ki[q] for q in range(R)]
     p_im = [v_re[q] * ki[q] + v_im[q] * kr[q] for q in range(R)]
     w_re, w_im = _inv_split(p_re, p_im, c.wiz, plan.sz.omi, False)
-    return _zero_pad_rows(torch.cat(w_re, dim=1), torch.cat(w_im, dim=1), plan.kxh)
+    return _stored(_zero_pad_rows(torch.cat(w_re, dim=1), torch.cat(w_im, dim=1), plan.kxh), spec)
 
 
-def pass_bf_plain(u_re, u_im, c: PlanTensors) -> Pair:
-    """Plain K5: the split z-DFT of pass B alone, per x-frequency slice."""
+def pass_bf_plain(u_re, u_im, c: PlanTensors, spec=torch.float32) -> Pair:
+    """Plain K5: the split z-DFT of pass B alone, per x-frequency slice, on
+    the widened spectrum; stored as ``spec``."""
     plan, R = c.plan, c.plan.sz.R
+    u_re, u_im = u_re.float(), u_im.float()
     v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
-    return _zero_pad_rows(torch.cat(v_re, dim=1), torch.cat(v_im, dim=1), plan.kxh)
+    return _stored(_zero_pad_rows(torch.cat(v_re, dim=1), torch.cat(v_im, dim=1), plan.kxh), spec)
 
 
 def pass_c_plain(v_re, v_im, c: PlanTensors) -> torch.Tensor:
-    """Plain K7: split y-inverse and packed x-irfft, (Kxp, Z, Y) -> (Z, X, Y).
-    Also the C half of K8, K9 and K10."""
+    """Plain K7: split y-inverse and packed x-irfft, (Kxp, Z, Y) -> (Z, X, Y),
+    on the widened spectrum.  Also the C half of K8, K9 and K10."""
     plan, R = c.plan, c.plan.sy.R
+    v_re, v_im = v_re.float(), v_im.float()
     t_re, t_im = _inv_split(
         _blocks(v_re.transpose(0, 1), R, -1), _blocks(v_im.transpose(0, 1), R, -1),
         c.wiy, plan.sy.omi, True,
@@ -355,9 +395,10 @@ def pass_c_plain(v_re, v_im, c: PlanTensors) -> torch.Tensor:
     )
 
 
-def pass_cqa_plain(v_re, v_im, view_t, c: PlanTensors) -> Pair:
-    """Plain K8: pass A of view · (1/blurred), blurred = pass C of v."""
-    return pass_a_plain(compute_quotient(view_t, pass_c_plain(v_re, v_im, c)), c)
+def pass_cqa_plain(v_re, v_im, view_t, c: PlanTensors, spec=torch.float32) -> Pair:
+    """Plain K8: pass A of view · (1/blurred), blurred = pass C of v; the
+    quotient stays float32, the spectrum is stored as ``spec``."""
+    return pass_a_plain(compute_quotient(view_t, pass_c_plain(v_re, v_im, c)), c, spec)
 
 
 def pass_cu_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value) -> torch.Tensor:
@@ -365,10 +406,12 @@ def pass_cu_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value) ->
     return rl_update_plain(psi_t, pass_c_plain(v_re, v_im, c), weights, lam, min_value)
 
 
-def pass_cua_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value):
-    """Plain K10: plain K9, then plain K4 of its psi'; (psi', (u_re, u_im))."""
+def pass_cua_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value,
+                   spec=torch.float32):
+    """Plain K10: plain K9, then plain K4 of its psi'; (psi', (u_re, u_im)),
+    the spectrum stored as ``spec``."""
     new = pass_cu_plain(v_re, v_im, psi_t, weights, c, lam, min_value)
-    return new, pass_a_plain(new, c)
+    return new, pass_a_plain(new, c, spec)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -383,8 +426,8 @@ def _plan_for(xt_shape, plan: Optional[FusedPlan]) -> FusedPlan:
     return plan
 
 
-def _check_f32(name, t, shape):
-    _check(name, t, torch.float32, shape)
+def _check_f32(name, t, shape, dtype=torch.float32):
+    _check(name, t, dtype, shape)
     if t.is_neg():
         raise ValueError(f"{name} is a lazy negative view; call resolve_neg() first")
 
@@ -394,20 +437,60 @@ def _spec_shape(plan: FusedPlan):
     return (plan.kxp, Z, Y)
 
 
-def _check_pair(name, pair, plan):
+def _check_pair(name, pair, plan, dtype=None):
+    """An (re, im) spectrum pair: float32 or bfloat16 (``dtype`` when
+    given), both parts alike."""
     if len(pair) != 2:
         raise ValueError(f"{name} must be an (re, im) pair")
+    dtype = dtype or getattr(pair[0], "dtype", None)
+    if dtype not in _SPEC_DTYPES:
+        raise TypeError(f"{name} must be a float32 or bfloat16 pair, got {dtype}")
     for part, t in zip(("re", "im"), pair):
-        _check_f32(f"{name}_{part}", t, _spec_shape(plan))
+        _check_f32(f"{name}_{part}", t, _spec_shape(plan), dtype)
 
 
-def _outputs(out, plan, like):
+def _outputs(out, plan, like, dtype):
+    """``out``, or a new spectrum pair of ``dtype`` on ``like``'s device."""
     if out is not None:
-        _check_pair("out", out, plan)
         return out
-    return torch.empty(_spec_shape(plan), device=like.device), torch.empty(
-        _spec_shape(plan), device=like.device
-    )
+    return tuple(torch.empty(_spec_shape(plan), dtype=dtype, device=like.device) for _ in "ri")
+
+
+def _scratch(plan, like) -> Pair:
+    """The scratch pair t that carries values between a pass's stages:
+    float32 whatever the storage, as the values stay f32 in VMEM between a
+    JAX pass's stages."""
+    return _outputs(None, plan, like, torch.float32)
+
+
+def _kind(spec: torch.dtype, inputs) -> torch.dtype:
+    """The storage a CUDA pass that writes a spectrum launches with: bf16
+    (its ``_bf16`` twin) where every spectrum it reads is bf16 and the
+    storage dtype ``spec`` is bf16 too; else float32."""
+    dtypes = {t.dtype for t in inputs} | {spec}
+    return torch.bfloat16 if dtypes == {torch.bfloat16} else torch.float32
+
+
+def _store(res: Pair, spec: torch.dtype, out: Optional[Pair]) -> Pair:
+    """A spectrum a launch wrote, in the storage dtype: ``res`` itself (which
+    is ``out`` when given), or, after a float32 launch under bf16 storage,
+    rounded once to nearest even, into ``out`` when given."""
+    if res[0].dtype == spec:
+        return res
+    if out is None:
+        return _stored(res, spec)
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
+
+
+def _launch(name: str, kind: torch.dtype, dev: torch.device, *args) -> None:
+    """Launch pass ``name``'s entry for ``kind`` spectra (``lmvn_fused_<name>``
+    or its ``_bf16`` twin) on the current stream and count it."""
+    entry = name if kind == torch.float32 else f"{name}_bf16"
+    err = getattr(_build.library(), f"lmvn_fused_{entry}")(dev.index, *args, _stream(dev))
+    _build.check(entry, err)
+    launches[entry] += 1
 
 
 def _finish(out, res):
@@ -442,81 +525,72 @@ def _check_aligned(**tensors):
 
 
 def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pair] = None) -> Pair:
-    """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum."""
-    plan = _plan_for(xt.shape, plan)
+    """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum, stored
+    as :func:`spec_dtype`."""
+    plan, spec = _plan_for(xt.shape, plan), spec_dtype()
     _check_f32("xt", xt, None)
+    if out is not None:
+        _check_pair("out", out, plan, spec)
     dev = _device(xt, *(out or ()))
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
-        if out is not None:
-            _check_pair("out", out, plan)
-        return _finish(out, pass_a_plain(xt, c))
+        return _finish(out, pass_a_plain(xt, c, spec))
     _no_graph("pass_a", xt)
-    lib = _build.library()
-    u_re, u_im = _outputs(out, plan, xt)
-    _check_aligned(xt=xt, out_re=u_re, out_im=u_im)
-    t_re, t_im = torch.empty_like(u_re), torch.empty_like(u_im)
-    err = lib.lmvn_fused_pass_a(
-        dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),
-        _ptr(xt), _stream(dev),
-    )
-    _build.check("pass_a", err)
-    launches["pass_a"] += 1
-    check_kernel_output("pass_a", u_re, u_im)
-    return u_re, u_im
+    u = _outputs(out, plan, xt, spec)
+    t = _scratch(plan, xt)
+    _check_aligned(xt=xt, out_re=u[0], out_im=u[1])
+    _launch("pass_a", spec, dev, ctypes.addressof(c.args), *map(_ptr, u), *map(_ptr, t), _ptr(xt))
+    check_kernel_output("pass_a", *u)
+    return u
 
 
 def pass_b(
-    u_re, u_im, k_re, k_im, plan: FusedPlan, conj_k: bool = False, out: Optional[Pair] = None
+    u_re, u_im, k_re, k_im, plan: FusedPlan, conj_k: bool = False, out: Optional[Pair] = None,
 ) -> Pair:
     """K6: z-DFT · K̂ (or conj K̂ with ``conj_k``) · z-inverse on a (Kxp, Z, Y)
-    pair; ``out`` may be ``(u_re, u_im)``."""
+    pair, stored as :func:`spec_dtype`; ``out`` may be ``(u_re, u_im)``."""
+    spec = spec_dtype()
     _check_pair("u", (u_re, u_im), plan)
     _check_pair("k", (k_re, k_im), plan)
+    if out is not None:
+        _check_pair("out", out, plan, spec)
     dev = _device(u_re, u_im, k_re, k_im, *(out or ()))
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
-        if out is not None:
-            _check_pair("out", out, plan)
-        return _finish(out, pass_b_plain(u_re, u_im, k_re, k_im, c, conj_k))
+        return _finish(out, pass_b_plain(u_re, u_im, k_re, k_im, c, conj_k, spec))
     _no_graph("pass_b", u_re, u_im, k_re, k_im)
-    lib = _build.library()
-    o_re, o_im = _outputs(out, plan, u_re)
-    _check_aligned(u_re=u_re, u_im=u_im, k_re=k_re, k_im=k_im, out_re=o_re, out_im=o_im)
-    err = lib.lmvn_fused_pass_b(
-        dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
-        _ptr(k_re), _ptr(k_im), int(bool(conj_k)), _stream(dev),
-    )
-    _build.check("pass_b", err)
-    launches["pass_b"] += 1
-    check_kernel_output("pass_b", o_re, o_im)
-    return o_re, o_im
+    kind = _kind(spec, (u_re, k_re))
+    u_re, u_im, k_re, k_im = (x.to(kind) for x in (u_re, u_im, k_re, k_im))
+    o = _outputs(out if kind == spec else None, plan, u_re, kind)
+    _check_aligned(u_re=u_re, u_im=u_im, k_re=k_re, k_im=k_im, out_re=o[0], out_im=o[1])
+    _launch("pass_b", kind, dev, ctypes.addressof(c.args), *map(_ptr, o), _ptr(u_re), _ptr(u_im),
+            _ptr(k_re), _ptr(k_im), int(bool(conj_k)))
+    check_kernel_output("pass_b", *o)
+    return _store(o, spec, out)
 
 
 def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
-    """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair."""
+    """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair, stored as
+    :func:`spec_dtype`."""
+    spec = spec_dtype()
     _check_pair("u", (u_re, u_im), plan)
     dev = _device(u_re, u_im)
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
-        return pass_bf_plain(u_re, u_im, c)
+        return pass_bf_plain(u_re, u_im, c, spec)
     _no_graph("pass_bf", u_re, u_im)
-    lib = _build.library()
-    o_re, o_im = _outputs(None, plan, u_re)
+    kind = _kind(spec, (u_re,))
+    u_re, u_im = u_re.to(kind), u_im.to(kind)
+    o = _outputs(None, plan, u_re, kind)
     _check_aligned(u_re=u_re, u_im=u_im)
-    err = lib.lmvn_fused_pass_bf(
-        dev.index, ctypes.addressof(c.args), _ptr(o_re), _ptr(o_im), _ptr(u_re), _ptr(u_im),
-        _stream(dev),
-    )
-    _build.check("pass_bf", err)
-    launches["pass_bf"] += 1
-    check_kernel_output("pass_bf", o_re, o_im)
-    return o_re, o_im
+    _launch("pass_bf", kind, dev, ctypes.addressof(c.args), *map(_ptr, o), _ptr(u_re), _ptr(u_im))
+    check_kernel_output("pass_bf", *o)
+    return _store(o, spec, None)
 
 
 def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
-    """K7: split y-inverse and packed x-irfft of a (Kxp, Z, Y) pair, the
-    real (Z, X, Y) volume."""
+    """K7: split y-inverse and packed x-irfft of a (Kxp, Z, Y) pair (float32
+    or bf16), the real (Z, X, Y) volume."""
     _check_pair("v", (v_re, v_im), plan)
     Z, Y, X = plan.shape
     dev = _device(v_re, v_im)
@@ -524,53 +598,47 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     if dev.type == "cpu":
         return pass_c_plain(v_re, v_im, c)
     _no_graph("pass_c", v_re, v_im)
-    lib = _build.library()
     _check_aligned(v_re=v_re, v_im=v_im)
-    out = torch.empty((Z, X, Y), device=dev)
-    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
-    err = lib.lmvn_fused_pass_c(
-        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(t_re), _ptr(t_im),
-        _ptr(v_re), _ptr(v_im), _stream(dev),
-    )
-    _build.check("pass_c", err)
-    launches["pass_c"] += 1
+    out = torch.empty((Z, X, Y), device=v_re.device)
+    t = _scratch(plan, v_re)
+    _launch("pass_c", v_re.dtype, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, t),
+            _ptr(v_re), _ptr(v_im))
     check_kernel_output("pass_c", out)
     return out
 
 
 def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) -> Pair:
-    """K8: pass A of view · (1/blurred), blurred = pass C of v; ``out`` may
-    be ``(v_re, v_im)``."""
+    """K8: pass A of view · (1/blurred), blurred = pass C of v, stored as
+    :func:`spec_dtype`; ``out`` may be ``(v_re, v_im)``."""
+    spec = spec_dtype()
     _check_pair("v", (v_re, v_im), plan)
     Z, Y, X = plan.shape
     _check_f32("view_t", view_t, (Z, X, Y))
+    if out is not None:
+        _check_pair("out", out, plan, spec)
     dev = _device(v_re, v_im, view_t, *(out or ()))
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
-        if out is not None:
-            _check_pair("out", out, plan)
-        return _finish(out, pass_cqa_plain(v_re, v_im, view_t, c))
+        return _finish(out, pass_cqa_plain(v_re, v_im, view_t, c, spec))
     _no_graph("pass_cqa", v_re, v_im, view_t)
-    lib = _build.library()
-    u_re, u_im = _outputs(out, plan, v_re)
-    _check_aligned(v_re=v_re, v_im=v_im, view_t=view_t, out_re=u_re, out_im=u_im)
-    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
-    err = lib.lmvn_fused_pass_cqa(
-        dev.index, ctypes.addressof(c.args), _ptr(u_re), _ptr(u_im), _ptr(t_re), _ptr(t_im),
-        _ptr(v_re), _ptr(v_im), _ptr(view_t), _stream(dev),
-    )
-    _build.check("pass_cqa", err)
-    launches["pass_cqa"] += 1
-    check_kernel_output("pass_cqa", u_re, u_im)
-    return u_re, u_im
+    kind = _kind(spec, (v_re,))
+    v_re, v_im = v_re.to(kind), v_im.to(kind)
+    u = _outputs(out if kind == spec else None, plan, v_re, kind)
+    _check_aligned(v_re=v_re, v_im=v_im, view_t=view_t, out_re=u[0], out_im=u[1])
+    t = _scratch(plan, v_re)
+    _launch("pass_cqa", kind, dev, ctypes.addressof(c.args), *map(_ptr, u), *map(_ptr, t),
+            _ptr(v_re), _ptr(v_im), _ptr(view_t))
+    check_kernel_output("pass_cqa", *u)
+    return _store(u, spec, out)
 
 
 def pass_cu(
     v_re, v_im, psi_t, weights, plan: FusedPlan, lam, min_value: float,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K9: the RL update of psi with the integral pass C of v.  ``weights``
-    is a (Z, X, Y) tensor or a scalar; ``out`` may be ``psi_t``."""
+    """K9: the RL update of psi with the integral pass C of v (float32 or
+    bf16).  ``weights`` is a (Z, X, Y) tensor or a scalar; ``out`` may be
+    ``psi_t``."""
     _check_pair("v", (v_re, v_im), plan)
     Z, Y, X = plan.shape
     _check_f32("psi_t", psi_t, (Z, X, Y))
@@ -587,19 +655,14 @@ def pass_cu(
     if dev.type == "cpu":
         return _finish(out, pass_cu_plain(v_re, v_im, psi_t, weights, c, lam, min_value))
     _no_graph("pass_cu", *operands)
-    lib = _build.library()
     if out is None:
         out = torch.empty_like(psi_t)
     _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out,
                    **({"weights": weights} if per_voxel else {}))
-    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
-    err = lib.lmvn_fused_pass_cu(
-        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(t_re), _ptr(t_im),
-        _ptr(v_re), _ptr(v_im), _ptr(psi_t), _ptr(weights) if per_voxel else None,
-        0.0 if per_voxel else float(weights), float(lam), float(min_value), _stream(dev),
-    )
-    _build.check("pass_cu", err)
-    launches["pass_cu"] += 1
+    t = _scratch(plan, v_re)
+    _launch("pass_cu", v_re.dtype, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, t),
+            _ptr(v_re), _ptr(v_im), _ptr(psi_t), _ptr(weights) if per_voxel else None,
+            0.0 if per_voxel else float(weights), float(lam), float(min_value))
     check_kernel_output("pass_cu", out)
     return out
 
@@ -609,8 +672,9 @@ def pass_cua(
     out: Optional[torch.Tensor] = None, u_out: Optional[Pair] = None,
 ) -> Tuple[torch.Tensor, Pair]:
     """K10: pass CU, then pass A of its psi' (the next view step's first
-    pass): (psi', (u_re, u_im)).  ``out`` may be ``psi_t``, ``u_out`` may be
-    ``(v_re, v_im)``."""
+    pass): (psi', (u_re, u_im)), the spectrum stored as :func:`spec_dtype`.
+    ``out`` may be ``psi_t``, ``u_out`` may be ``(v_re, v_im)``."""
+    spec = spec_dtype()
     _check_pair("v", (v_re, v_im), plan)
     Z, Y, X = plan.shape
     _check_f32("psi_t", psi_t, (Z, X, Y))
@@ -623,30 +687,27 @@ def pass_cua(
         _check_f32("out", out, (Z, X, Y))
         operands.append(out)
     if u_out is not None:
-        _check_pair("u_out", u_out, plan)
+        _check_pair("u_out", u_out, plan, spec)
     dev = _device(*operands)
     c = plan_tensors(plan, dev)
     if dev.type == "cpu":
-        new, u = pass_cua_plain(v_re, v_im, psi_t, weights, c, lam, min_value)
+        new, u = pass_cua_plain(v_re, v_im, psi_t, weights, c, lam, min_value, spec)
         return _finish(out, new), _finish(u_out, u)
     _no_graph("pass_cua", *operands)
-    lib = _build.library()
     if out is None:
         out = torch.empty_like(psi_t)
-    u_re, u_im = _outputs(u_out, plan, v_re)
-    _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out, u_re=u_re, u_im=u_im,
+    kind = _kind(spec, (v_re,))
+    v_re, v_im = v_re.to(kind), v_im.to(kind)
+    u = _outputs(u_out if kind == spec else None, plan, v_re, kind)
+    _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out, u_re=u[0], u_im=u[1],
                    **({"weights": weights} if per_voxel else {}))
-    t_re, t_im = torch.empty_like(v_re), torch.empty_like(v_im)
-    err = lib.lmvn_fused_pass_cua(
-        dev.index, ctypes.addressof(c.args), _ptr(out), _ptr(u_re), _ptr(u_im),
-        _ptr(t_re), _ptr(t_im), _ptr(v_re), _ptr(v_im), _ptr(psi_t),
-        _ptr(weights) if per_voxel else None, 0.0 if per_voxel else float(weights),
-        float(lam), float(min_value), _stream(dev),
-    )
-    _build.check("pass_cua", err)
-    launches["pass_cua"] += 1
-    check_kernel_output("pass_cua", out, u_re, u_im)
-    return out, (u_re, u_im)
+    t = _scratch(plan, v_re)
+    _launch("pass_cua", kind, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, u),
+            *map(_ptr, t), _ptr(v_re), _ptr(v_im), _ptr(psi_t),
+            _ptr(weights) if per_voxel else None, 0.0 if per_voxel else float(weights),
+            float(lam), float(min_value))
+    check_kernel_output("pass_cua", out, *u)
+    return out, _store(u, spec, u_out)
 
 
 # ---------------------------------------------------------------- steps, convolve, spectra
@@ -784,19 +845,21 @@ def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
     Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction over them
     (``torch.einsum``, in fp32 whatever the caller set for matmuls: the JAX
     branch pins ``precision=HIGHEST``, :func:`_fp32_matmuls`), against the
-    table :func:`_sparse_table` keeps on the device."""
+    table :func:`_sparse_table` keeps on the device.  Rounded where JAX
+    rounds: pass A's spectrum is stored as :func:`spec_dtype` and widened
+    for the contraction, and the two sums are formed in f32 and stored as
+    :func:`spec_dtype`."""
     Z, Y, X = shape
-    plan = make_fused_plan(shape)
+    plan, spec = make_fused_plan(shape), spec_dtype()
     kz = int(kernel.shape[0])
     zs = -(-kz // 8) * 8
     small = wrap_kernel(kernel, (zs, Y, X))
-    u_re, u_im = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
+    u = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
+    u_re, u_im = (t.float() for t in u)
     tr, ti = _sparse_table(Z, kz, plan.sz.R, plan.sz.M, str(kernel.device))
     e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
     # einsum may return a permuted layout (it does on CUDA); the passes
     # take contiguous (Kxp, Z, Y) spectra
+    store = lambda t: t.contiguous().to(spec)
     with _fp32_matmuls():
-        return (
-            (e(tr, u_re) - e(ti, u_im)).contiguous(),
-            (e(tr, u_im) + e(ti, u_re)).contiguous(),
-        )
+        return store(e(tr, u_re) - e(ti, u_im)), store(e(tr, u_im) + e(ti, u_re))

@@ -40,6 +40,21 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _clear_jax_plan_caches():
+    """The JAX references here run ``deconvolve_sharded`` eagerly, so the DFT
+    plans the JAX package caches (``core.dft.make_plan``,
+    ``_cached_axis_plan``) are first built inside a shard_map trace and keep
+    its tracers; a later jitted mesh call in the same process (as in
+    tests/test_dispatch.py) then fails on them.  Drop those plans when this
+    module is done."""
+    yield
+    from libmultiviewnative_tpu.core import dft as jdft
+
+    jdft.make_plan.cache_clear()
+    jdft._cached_axis_plan.cache_clear()
+
+
 def _arrays(num_views=4, shape=(16, 8, 8), seed=5, kshape=(3, 3, 3), sigma0=0.8,
             scalar_weights=False):
     rng = np.random.default_rng(seed)
