@@ -38,13 +38,14 @@ Phases, each raising on failure (there is no CPU fallback):
 12. fused 512³: phase 7's configuration through the fused engine (K4 44);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
-    of ``ops.fused.fused_limit`` (small shapes: X = 1816, where the x stage
-    fills a block's shared memory, Y = 3632, Z = 736, and Y = 384, X = 840),
-    K4 and K7 at lengths with odd prime factors (the FFT stages' radix-3/5
-    and generic stages), K8, K9 and K10 there too and at every y split R
-    from 1 to 8 with X = 40 and 264, out of place and in place, K5 and K6 at
-    Z of 200, 264, 712 and 736 (radices 5, 11, 89 and 23), and shapes past
-    the limits (X = 1824, Y = 3640, Z = 744) refused before any launch;
+    of the FFT stages' widest tiles (small shapes: X = 1816, where 16
+    sequences of the x stage fill a block's shared memory, Y = 3632 for 8
+    rows, Z = 736, and Y = 384, X = 840) and one step past each (X = 1824,
+    Y = 3640, Z = 744, where a narrower tile takes over), K4 and K7 at
+    lengths with odd prime factors (the FFT stages' radix-3/5 and generic
+    stages), K8, K9 and K10 there too and at every y split R from 1 to 8
+    with X = 40 and 264, out of place and in place, and K5 and K6 at Z of
+    200, 264, 712 and 736 (radices 5, 11, 89 and 23);
 15. K5 pass BF, K7 pass C and K10 pass CUA against their plain versions at
     256³ and 512³ (K5 also against ``torch.fft.fft`` over z, K7 against
     ``torch.fft.irfft2``), K10's psi' bitwise against K9's, and the dense
@@ -82,8 +83,9 @@ Phases, each raising on failure (there is no CPU fallback):
     shift-and-add (1e-5), the caller's setting kept;
 22. the ``auto`` table: fft, dft and fused in turns at 4 views 64³ and 128³,
     the 256³ headline and its prepared path, 512³ adjoint and (32, 512,
-    512), medians of two turns beside ``resolve_algorithm``'s pick
-    (printed, not asserted);
+    512), and fft and fused alone at phase 29's (256, 1024, 2048) and
+    (1024, 512, 512), medians of two turns and each engine's peak memory
+    beside ``resolve_algorithm``'s pick (printed, not asserted);
 23. the dispatch ladder: ``deconvolve_auto`` at 4 views 512³ with per-voxel
     weights on pinned host tensors, 3 iterations, on its natural rung (in-core) and
     on the interleaved and the streamed rung forced by ``headroom`` (from the
@@ -158,7 +160,22 @@ Phases, each raising on failure (there is no CPU fallback):
     within 1e-5 of the run on the z-sparse ones) and (32, 512, 512) in bf16
     (K5 bf16 8 a call); d. the interleaved rung at 256³ in bf16 (K4, K6, K7
     bf16; finite, a second call bitwise), against f32; e. a 1×1 mesh in
-    bf16 against in-core.
+    bf16 against in-core;
+29. the fused engine past the old limits (X > 1816, Y > 3632, Z > 736), where
+    the FFT stages narrow their tiles: 4 views with the bench kernels,
+    per-voxel weights and 10 iterations at (256, 1024, 2048) and (1024,
+    512, 512) through ``deconvolve(algorithm="fused")`` (K4 48, K6 80, K8
+    40, K9 40) against fft (1e-3) and ``deconvolve_auto`` (in-core, its
+    pick against phase 22's turns there), the interleaved rung on fused at
+    (256, 1024, 2048), 2 iterations, against in-core (rtol 2e-5, atol
+    2e-4); then the seven passes at both shapes, and at X of 1824, 2048,
+    2304, 3640, 7272 and 14528, Y of 3640, 4608, 7272 and 14528, Z of 744,
+    1024, 1816, 1824, 3640, 7272 and 14528, and 8168 = 8·1021 on each axis
+    (the other axes 8 to 24), against their plain versions evaluated in
+    float64 (1e-5; the float32 plain versions' own deviation logged
+    beside), each with its time and byte bound; the bf16 twins at one such shape per axis, held as
+    in phase 28; and shapes past the new limits (14536 on each axis, 8248 =
+    8·1031) refused before any launch.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -172,6 +189,7 @@ instantiations as entries of their own, ``pass_*_bf16``); the last line is
 """
 
 import contextlib
+import copy
 import ctypes
 import json
 import math
@@ -233,18 +251,39 @@ BF16_FLOOR = 2e-6
 # envelope (tests/test_pallas_ops.py:538-573)
 BF16_VIEW_STEP = 2e-2
 BF16_ITERS = 2  # phase 28's interleaved and mesh runs
-# (Z, Y, X) at the edges of ops/fused.py's fused_limit on the card: Z at the
-# z stage's edge (736), a 5-way split z stage, an 8-way split y stage, X at
-# the FFT x stage's shared-memory bound (16 sequences of 1816), an unsplit Y
-# at the FFT y stage's (8 rows of 3632), a 3-way split y stage and X = 840;
-# then one step past each bound
+# (Z, Y, X) at the edges of the widest tiles of the FFT stages: Z = 736 (the
+# z stage's edge before its tile narrowed by length), a 5-way split z stage,
+# an 8-way split y stage, X at the x stage's bound for 16 sequences (1816),
+# an unsplit Y at the y stage's for 8 rows (3632), a 3-way split y stage and
+# X = 840; then one step past each of those old edges, where a narrower tile
+# takes over
 EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 1816), (8, 3632, 8),
-               (8, 384, 8), (8, 8, 840))
-OVER_SHAPES = ((744, 8, 8), (8, 8, 1824), (8, 3640, 8))
+               (8, 384, 8), (8, 8, 840), (744, 8, 8), (8, 8, 1824), (8, 3640, 8))
+# past ops/fused.py's fused_limit on the card (phase 29): no tile fits 14536
+# on any axis; 8248 = 8·1031 has a prime factor over a generic stage's 1024
+OVER_SHAPES = ((14536, 8, 8), (8, 14536, 8), (8, 8, 14536), (8248, 8, 8), (8, 8248, 8),
+               (8, 8, 8248))
 # lengths for K5 and K6's FFT z stage: Z = 200 (8·5·5), 264 (8·3·11), 712
 # (8·89), 736 (32·23), with Y a whole, a partial and a single column tile
 Z_SHAPES = ((200, 64, 8), (264, 48, 16), (712, 40, 8), (736, 24, 16))
 GRAD_N = 16
+# phase 29: (Z, Y, X) with the long axis at each narrow tile of its FFT stage
+# and the other two at 8-24 (a few MiB): X past 1816 (8 sequences to 3632, 4
+# to 7264, 2 to 14528), Y past 3632 (4 rows to 7264, 2 to 14528), Z past the
+# old edge of 736 (16 columns to 1816, 8 to 3632, 4 to 7264, 2 to 14528), and
+# 8168 = 8·1021, the largest generic radix, on each axis; Y = 24 leaves a
+# partial tile where one is 16 or 32 columns wide
+NARROW_SHAPES = (
+    tuple((8, 24, x) for x in (1824, 2048, 2304, 3640, 7272, 14528, 8168))
+    + tuple((8, y, 16) for y in (3640, 4608, 7272, 14528, 8168))
+    + tuple((z, 24, 8) for z in (744, 1024, 1816, 1824, 3640, 7272, 14528, 8168))
+)
+NARROW_BF16_SHAPES = ((8, 24, 3640), (8, 7272, 16), (1824, 24, 8))  # one per axis
+# phase 29's main path, 4 views, the bench kernels, per-voxel weights: a
+# 2048-wide sCMOS frame cropped to 1024 rows with 256 planes (2 GiB a
+# volume), and a 1024-plane stack
+WIDE_SHAPES = ((256, 1024, 2048), (1024, 512, 512))
+WIDE_INTERLEAVED_ITERS = 2
 BATCH = 4  # phase 27: volumes in one call of the headline configuration
 BATCH_N = 64  # phase 27's other batched cases, BATCH_SMALL volumes each
 BATCH_SMALL = 2
@@ -964,13 +1003,13 @@ def phase_fused_cross_check(torch, dev):
 
 
 def phase_fused_limits(torch, dev):
-    """The kernels run at the edges of what ``fused_limit`` accepts, and a
-    shape past an edge is refused before any launch."""
+    """The kernels run at the edges of their widest tiles and one step past
+    each (phase 29 runs the narrow tiles and the shapes refused)."""
     from libmultiviewnative_torch.ops import fused as fu
     from libmultiviewnative_torch.ops.fused_plan import fft_radices, make_fused_plan
     from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
-    log("# phase 14: fused kernels at the edges of their shape limits, K4/K7 at odd lengths,"
+    log("# phase 14: fused kernels at the edges of their widest tiles, K4/K7 at odd lengths,"
         " K8-K10 there and at every y split")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernel = torch.from_numpy(gaussian_kernel((3, 3, 3), 1.0)).to(dev)
@@ -1064,27 +1103,6 @@ def phase_fused_limits(torch, dev):
                 f" rel {err / scale:.3e} (tol {FUSED_TOLERANCE:g})")
             if not err <= FUSED_TOLERANCE * scale:
                 raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
-    for shape in OVER_SHAPES:
-        Z, Y, X = shape
-        plan = make_fused_plan(shape)
-        vol = torch.ones((Z, X, Y), device=dev)
-        spec = torch.ones((plan.kxp, Z, Y), device=dev)
-        for name, call in (
-            ("pass_a", lambda: fu.pass_a(vol)),
-            ("pass_bf", lambda: fu.pass_bf(spec, spec, plan)),
-            ("pass_c", lambda: fu.pass_c(spec, spec, plan)),
-            ("pass_cua", lambda: fu.pass_cua(spec, spec, vol, 0.25, plan, 0.0, MIN_VALUE)),
-        ):
-            before = dict(fu.launches)
-            try:
-                call()
-            except NotImplementedError as e:
-                log(f"{name} ZYX={shape} refused: {e}")
-            else:
-                raise AssertionError(f"{name} at ZYX={shape} was not refused")
-            if fu.launches != before:
-                raise AssertionError(f"{name} at ZYX={shape} counted a launch")
-
 
 def phase_rest_kernels(torch, dev, records):
     """K5, K7 and K10 against their plain versions at the main-path shapes,
@@ -1643,36 +1661,42 @@ def phase_direct(torch, dev):
         raise AssertionError(f"the direct conv left fp32 under allow_tf32: {err / scale:.3e}")
 
 
-# phase 22's rows: (label, data maker, deconvolve keywords, prepared,
-# iterations a call); 3 at 512³, where the dft engine takes a second an
-# iteration and the per-call constants are under 2 % of a call
-AUTO_ROWS = (
-    ("4 views 64^3", lambda t, d, r: cube_data(t, d, r, 64), {}, False, ITERS),
-    ("4 views 128^3", lambda t, d, r: cube_data(t, d, r, 128), {}, False, ITERS),
-    (f"4 views {HEADLINE_N}^3 headline", headline_data, {}, False, ITERS),
-    (f"4 views {HEADLINE_N}^3 prepared", headline_data, {}, True, ITERS),
-    (f"4 views {BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, False, 3),
-    (f"4 views {THIN_SHAPE}", thin_data, {}, False, ITERS),
-)
 AUTO_ENGINES = ("fft", "dft", "fused")
+# phase 22's rows: (label, data maker, deconvolve keywords, prepared,
+# iterations a call, engines); 3 at 512³, where the dft engine takes a second
+# an iteration and the per-call constants are under 2 % of a call; fft and
+# fused alone at phase 29's shapes (dft made 0.90 it/s at 512³)
+AUTO_ROWS = (
+    ("4 views 64^3", lambda t, d, r: cube_data(t, d, r, 64), {}, False, ITERS, AUTO_ENGINES),
+    ("4 views 128^3", lambda t, d, r: cube_data(t, d, r, 128), {}, False, ITERS, AUTO_ENGINES),
+    (f"4 views {HEADLINE_N}^3 headline", headline_data, {}, False, ITERS, AUTO_ENGINES),
+    (f"4 views {HEADLINE_N}^3 prepared", headline_data, {}, True, ITERS, AUTO_ENGINES),
+    (f"4 views {BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, False, 3, AUTO_ENGINES),
+    (f"4 views {THIN_SHAPE}", thin_data, {}, False, ITERS, AUTO_ENGINES),
+) + tuple(
+    (f"4 views {shape}", lambda t, d, r, shape=shape: wide_data(t, d, r, shape), {}, False, ITERS,
+     ("fft", "fused"))
+    for shape in WIDE_SHAPES
+)
 
 
 def phase_auto_table(torch, dev, rng):
-    """fft, dft and fused in turns (fft, dft, fused, fused, dft, fft), one
+    """The row's engines in turns (fft, dft, fused, fused, dft, fft), one
     timed call per turn after a warm-up, at each row of AUTO_ROWS; the median
     of the two turns (it/s: iterations over the call's seconds) beside
-    ``resolve_algorithm``'s pick.  Printed, not asserted: the evidence for
-    the committed rule."""
+    ``resolve_algorithm``'s pick, and each engine's peak device memory in
+    its turns (the inputs included).  Printed, not asserted: the evidence
+    for the committed rule."""
     from libmultiviewnative_torch.deconv import rl
 
     log("# phase 22: the auto table, fft / dft / fused in turns, it/s of one call")
     table = {}
-    for label, make, kw, prepared, iters in AUTO_ROWS:
+    for label, make, kw, prepared, iters, engines in AUTO_ROWS:
         data, psi0 = make(torch, dev, rng)
         shape = tuple(psi0.shape)
         spectra = {}
         if prepared:
-            for engine in AUTO_ENGINES:
+            for engine in engines:
                 spectra[engine] = rl.prepare_workspace(data, shape, algorithm=engine)
 
         def call(engine):
@@ -1682,23 +1706,27 @@ def phase_auto_table(torch, dev, rng):
             return rl.deconvolve(psi0, data, iters, lam=LAM, min_value=MIN_VALUE,
                                  algorithm=engine, **kw)
 
-        turns = {engine: [] for engine in AUTO_ENGINES}
-        for engine in AUTO_ENGINES:
+        turns = {engine: [] for engine in engines}
+        peaks = {engine: 0.0 for engine in engines}
+        for engine in engines:
             call(engine)  # warm-up: plans, cuFFT plans, cuBLAS handles
-        for engine in AUTO_ENGINES + AUTO_ENGINES[::-1]:
-            _, seconds = timed_call(torch, lambda: call(engine))
+        for engine in engines + engines[::-1]:
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, seconds = timed_call(torch, lambda: call(engine))
+            del out  # not held into the next turn's peak
             turns[engine].append(iters / seconds)
+            peaks[engine] = max(peaks[engine], torch.cuda.max_memory_allocated(dev) / 2**30)
         rates = {engine: statistics.median(t) for engine, t in turns.items()}
         pick = rl.resolve_algorithm("auto", shape, dev)
         best = max(rates, key=rates.get)
         spread = {engine: abs(t[0] - t[1]) / statistics.median(t) for engine, t in turns.items()}
         log(f"auto table {label}, {iters} iterations a call: " + ", ".join(
-            f"{e} {rates[e]!r} it/s (turns {turns[e][0]:.2f}, {turns[e][1]:.2f})"
-            for e in AUTO_ENGINES)
+            f"{e} {rates[e]!r} it/s (turns {turns[e][0]:.2f}, {turns[e][1]:.2f};"
+            f" peak {peaks[e]:.2f} GiB)" for e in engines)
             + f"; fastest {best}, auto picks {pick} ({rates[pick] / rates[best]:.3f} of the"
               " fastest)")
         table[label] = {"it_s": rates, "turns": turns, "spread": spread, "pick": pick,
-                        "fastest": best}
+                        "fastest": best, "peak_gib": peaks}
         del data, psi0, spectra
         torch.cuda.empty_cache()
     log("auto table: " + json.dumps(table))
@@ -2509,8 +2537,7 @@ def bf16_steps(torch, got, ref):
     return float((diff / lim).max()), float(diff.max()), scale
 
 
-def check_bf16_kernel(torch, records, name, label, kernel, plain, f32_kernel, nbytes, ops,
-                      size, split, atol):
+def hold_bf16_twin(torch, name, label, kernel, plain, f32_kernel, split, atol):
     """Hold one bf16-storage pass against its plain version on the same bf16
     inputs: a spectrum it writes within one bf16 step elementwise
     (:func:`bf16_steps`), a volume it writes within FUSED_TOLERANCE (+
@@ -2518,10 +2545,7 @@ def check_bf16_kernel(torch, records, name, label, kernel, plain, f32_kernel, nb
     widened inputs (``f32_kernel``, under the knob's "0"), whose spectrum is
     rounded once to nearest even: the twin differs from that entry only in
     its loads and stores.  ``split(out)`` is (volumes, spectrum pair or
-    ()).  Time the bf16 kernel, its plain version and the f32 kernel in
-    turns (plain, bf16, f32, f32, bf16, plain; medians of 20 CUDA-event
-    launches each) and keep the record under ``name`` with its bf16 byte
-    bound."""
+    ()).  Returns (max_abs_err, worst bf16 steps)."""
     with knobs(LMVN_FUSED_SPEC_BF16="1"):
         vols, spec = (tuple(t.clone() for t in part) for part in split(kernel()))
     with knobs(LMVN_FUSED_SPEC_BF16="0"):
@@ -2545,7 +2569,16 @@ def check_bf16_kernel(torch, records, name, label, kernel, plain, f32_kernel, nb
         if not worst <= 1.0:
             raise AssertionError(f"{name} {label}: {worst:.3f} bf16 steps from its plain version")
         abs_err = max(abs_err, err)
-    del vols, spec, ref_vols, ref_spec
+    return abs_err, worst
+
+
+def check_bf16_kernel(torch, records, name, label, kernel, plain, f32_kernel, nbytes, ops,
+                      size, split, atol):
+    """:func:`hold_bf16_twin`, then time the bf16 kernel, its plain version
+    and the f32 kernel in turns (plain, bf16, f32, f32, bf16, plain; medians
+    of 20 CUDA-event launches each) and keep the record under ``name`` with
+    its bf16 byte bound."""
+    abs_err, worst = hold_bf16_twin(torch, name, label, kernel, plain, f32_kernel, split, atol)
     samples = {fn: [] for fn in (plain, kernel, f32_kernel)}
     for fn in (plain, kernel, f32_kernel, f32_kernel, kernel, plain):
         with knobs(LMVN_FUSED_SPEC_BF16="0" if fn is f32_kernel else "1"):
@@ -2861,6 +2894,332 @@ def phase_bf16_main(torch, dev, rng, launches_out):
 
 
 
+def wide_data(torch, dev, rng, shape):
+    """4 views of gamma(2, 20) data of ``shape`` drawn on the card from a
+    seed of ``rng`` (drawn on the host, 4 volumes of 2 GiB take tens of
+    seconds), the bench kernels, per-voxel weights 1/V, psi0 the mean."""
+    from libmultiviewnative_torch.deconv.workspace import MultiViewData
+
+    k1, k2 = bench_kernels()
+    torch.manual_seed(int(rng.integers(2**31)))
+    gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev), torch.tensor(1 / 20, device=dev))
+    views = gamma.sample((V,) + shape)
+    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
+                         torch.full((V,) + shape, 1.0 / V, device=dev))
+    return data, torch.full(shape, float(views.mean()), device=dev)
+
+
+def fused_bytes(plan):
+    """(volume, spectrum out, spectrum in) bytes of a fused pass at f32: a
+    spectrum output's Kxp rows (pad rows written), an input's Kx rows."""
+    Z, Y, X = plan.shape
+    return 4 * Z * X * Y, 8 * plan.kxp * Z * Y, 8 * plan.kxh * Z * Y
+
+
+def plain_plan(shape):
+    """The fused plan of ``shape`` with the dense matrices the plain passes
+    read built (a plan builds them at their first read)."""
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    plan = make_fused_plan(shape)
+    plan.fxp, plan.sy, plan.sz  # noqa: B018
+    return plan
+
+
+def plain_f64(c):
+    """A plan's plain-version constants (their float32 values) widened to
+    float64: the plain passes then sum their dense DFTs in float64."""
+    d = copy.copy(c)
+    d.fxp, d.bxp = c.fxp.double(), c.bxp.double()
+    for name in ("wfy", "wiy", "wfz", "wiz"):
+        setattr(d, name, tuple(t.double() for t in getattr(c, name)))
+    return d
+
+
+def hold_passes(torch, dev, gen, shape, plan):
+    """The seven passes at one of WIDE_SHAPES or NARROW_SHAPES against their
+    plain versions evaluated in float64 on the same inputs and the plan's
+    float32 constants (FUSED_TOLERANCE of max|plain|; psi' at λ 0.006 plus
+    tikhonov_atol), each timed (median CUDA-event ms of TIMED_LAUNCHES)
+    beside its byte bound.  In float32 the plain versions' dense DFTs of up
+    to 14528 terms carry up to 1e-5 of max|·| themselves (cuBLAS; pass B at
+    Z = 14528), so that deviation is logged beside, not gated.  K8-K10 take
+    pass A of psi, so the blurred estimate and the integral are psi, away
+    from 0.  A check widens its own inputs to float64, so at a main-path
+    shape (2 GiB a volume) only one pass's float64 operands are held."""
+    from libmultiviewnative_torch.ops import fused as fu
+
+    Z, Y, X = shape
+    c = fu.plan_tensors(plan, dev)
+    c64, f64 = plain_f64(c), torch.float64
+
+    def rand(shp, lo, hi):
+        return torch.rand(shp, generator=gen, device=dev) * (hi - lo) + lo
+
+    psi, view, w = rand((Z, X, Y), 1.0, 100.0), rand((Z, X, Y), 1.0, 200.0), rand((Z, X, Y), 0.0, 0.5)
+    k = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in "ri")
+    for t in k:
+        t[plan.kxh:] = 0.0  # pad rows, as pass A leaves them
+    u = fu.pass_a_plain(psi, c)
+    v = fu.pass_b_plain(*u, *k, c)
+    d = lambda *ts: tuple(t.double() for t in ts)  # noqa: E731
+    vol, spec, spec_in = fused_bytes(plan)
+    flops = fused_flops(plan)
+    atol = tikhonov_atol(LAM)
+    checks = (
+        ("pass_a", lambda: fu.pass_a(psi, plan), lambda: fu.pass_a_plain(psi, c),
+         lambda: fu.pass_a_plain(*d(psi), c64, f64), vol + spec, 0.0),
+        ("pass_bf", lambda: fu.pass_bf(*u, plan), lambda: fu.pass_bf_plain(*u, c),
+         lambda: fu.pass_bf_plain(*d(*u), c64, f64), spec_in + spec, 0.0),
+        ("pass_b", lambda: fu.pass_b(*u, *k, plan), lambda: fu.pass_b_plain(*u, *k, c),
+         lambda: fu.pass_b_plain(*d(*u, *k), c64, False, f64), 2 * spec_in + spec, 0.0),
+        ("pass_c", lambda: fu.pass_c(*v, plan), lambda: fu.pass_c_plain(*v, c),
+         lambda: fu.pass_c_plain(*d(*v), c64), spec_in + vol, 0.0),
+        ("pass_cqa", lambda: fu.pass_cqa(*u, view, plan), lambda: fu.pass_cqa_plain(*u, view, c),
+         lambda: fu.pass_cqa_plain(*d(*u, view), c64, f64), spec_in + vol + spec, 0.0),
+        ("pass_cu", lambda: fu.pass_cu(*u, psi, w, plan, LAM, MIN_VALUE),
+         lambda: fu.pass_cu_plain(*u, psi, w, c, LAM, MIN_VALUE),
+         lambda: fu.pass_cu_plain(*d(*u, psi, w), c64, LAM, MIN_VALUE), spec_in + 3 * vol, atol),
+        ("pass_cua", lambda: fu.pass_cua(*u, psi, w, plan, LAM, MIN_VALUE),
+         lambda: fu.pass_cua_plain(*u, psi, w, c, LAM, MIN_VALUE),
+         lambda: fu.pass_cua_plain(*d(*u, psi, w), c64, LAM, MIN_VALUE, f64),
+         spec_in + spec + 3 * vol, atol),
+    )
+    tiles = f"tiles x {fu._x_seq(X)}, y {fu._y_rows(Y)}, z {fu._z_cols(Z)}"
+    out = {}
+    for name, kernel, plain32, plain, nbytes, slack in checks:
+        got, want, want32 = kernel(), plain(), plain32()
+        # (output, f64 plain, f32 plain, absolute slack): K10's psi' takes
+        # K1's Tikhonov slack, its spectrum none
+        parts = ([(got[0], want[0], want32[0], slack), (got[1], want[1], want32[1], 0.0)]
+                 if name == "pass_cua" else [(got, want, want32, slack)])
+        rel = rel32 = 0.0
+        for g, r, r32, extra in parts:
+            err, scale = compare(torch, f"{name} {shape}", g, r)
+            if not err <= FUSED_TOLERANCE * scale + extra:
+                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
+            rel = max(rel, err / scale)
+            rel32 = max(rel32, compare(torch, f"{name} {shape} f32", r32, r)[0] / scale)
+        del got, want, want32, parts
+        ms = statistics.median(event_times_ms(torch, kernel))
+        bound_ms, bound_by = bound(nbytes, flops[name])
+        log(f"{name:9s} ZYX={shape} ({tiles}): rel {rel:.3e} (tol {FUSED_TOLERANCE:g}; the"
+            f" float32 plain version {rel32:.3e} off); {ms:.4f} ms, bound {bound_ms:.4f} ms"
+            f" ({bound_by}), {bound_ms / ms:.3f} of it")
+        out[name] = {"rel": rel, "plain_f32_rel": rel32, "ms": ms, "bound_ms": bound_ms}
+    return out
+
+
+def narrow_bf16_twins(torch, dev, gen, shape, plan):
+    """The seven bf16 twins at one of NARROW_BF16_SHAPES, held as phase 28
+    holds them (:func:`hold_bf16_twin`), against their plain versions
+    evaluated in float64 (:func:`plain_f64`; in float32 the plain pass B
+    is 5e-6 of max|·| off at Z = 1824 itself, past BF16_FLOOR) and rounded
+    to bf16 where they store a spectrum."""
+    from libmultiviewnative_torch.ops import fused as fu
+
+    Z, Y, X = shape
+    bf16 = torch.bfloat16
+    c = fu.plan_tensors(plan, dev)
+    c64 = plain_f64(c)
+
+    def rand(shp, lo, hi):
+        return torch.rand(shp, generator=gen, device=dev) * (hi - lo) + lo
+
+    def wide(pair, dtype=torch.float32):
+        return tuple(t.to(dtype) for t in pair)
+
+    psi, view, w = rand((Z, X, Y), 1.0, 100.0), rand((Z, X, Y), 1.0, 200.0), rand((Z, X, Y), 0.0, 0.5)
+    k16 = fu.pass_a_plain(rand((Z, X, Y), 0.0, 1.0), c, bf16)
+    u16 = fu.pass_a_plain(psi, c, bf16)
+    k32, u32 = wide(k16), wide(u16)
+    k64, u64 = wide(k16, torch.float64), wide(u16, torch.float64)
+    psi64, view64, w64 = psi.double(), view.double(), w.double()
+    spectrum = lambda o: ((), o)  # noqa: E731
+    volume = lambda o: ((o,), ())  # noqa: E731
+    both = lambda o: ((o[0],), o[1])  # noqa: E731
+    atol = tikhonov_atol(LAM)
+    checks = (
+        ("pass_a", lambda: fu.pass_a(psi, plan), lambda: fu.pass_a_plain(psi64, c64, bf16),
+         lambda: fu.pass_a(psi, plan), spectrum, 0.0),
+        ("pass_bf", lambda: fu.pass_bf(*u16, plan), lambda: fu.pass_bf_plain(*u64, c64, bf16),
+         lambda: fu.pass_bf(*u32, plan), spectrum, 0.0),
+        ("pass_b", lambda: fu.pass_b(*u16, *k16, plan),
+         lambda: fu.pass_b_plain(*u64, *k64, c64, False, bf16),
+         lambda: fu.pass_b(*u32, *k32, plan), spectrum, 0.0),
+        ("pass_c", lambda: fu.pass_c(*u16, plan), lambda: fu.pass_c_plain(*u64, c64),
+         lambda: fu.pass_c(*u32, plan), volume, 0.0),
+        ("pass_cqa", lambda: fu.pass_cqa(*u16, view, plan),
+         lambda: fu.pass_cqa_plain(*u64, view64, c64, bf16),
+         lambda: fu.pass_cqa(*u32, view, plan), spectrum, 0.0),
+        ("pass_cu", lambda: fu.pass_cu(*u16, psi, w, plan, LAM, MIN_VALUE),
+         lambda: fu.pass_cu_plain(*u64, psi64, w64, c64, LAM, MIN_VALUE),
+         lambda: fu.pass_cu(*u32, psi, w, plan, LAM, MIN_VALUE), volume, atol),
+        ("pass_cua", lambda: fu.pass_cua(*u16, psi, w, plan, LAM, MIN_VALUE),
+         lambda: fu.pass_cua_plain(*u64, psi64, w64, c64, LAM, MIN_VALUE, bf16),
+         lambda: fu.pass_cua(*u32, psi, w, plan, LAM, MIN_VALUE), both, atol),
+    )
+    fu.reset_launches()
+    for name, kernel, plain, f32_kernel, split, slack in checks:
+        err, worst = hold_bf16_twin(torch, f"{name}_bf16", str(shape), kernel, plain, f32_kernel,
+                                    split, slack)
+        log(f"{name}_bf16 ZYX={shape}: max_abs_err {err:.3e}, worst {worst:.3f} bf16 steps,"
+            " bitwise its f32 entry rounded")
+    ran = {k for k, n in fu.launches.items() if n}
+    if ran != set(FUSED_PASSES + BF16_PASSES):
+        raise AssertionError(f"phase 29 bf16 twins at {shape}: launches {sorted(ran)}")
+
+
+def refuse_over_shapes(torch, dev):
+    """Each shape past fused_limit is refused by every entry before a launch
+    (a plan of the refused shape holds no dense matrix until a plain pass
+    reads one)."""
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    for shape in OVER_SHAPES:
+        Z, Y, X = shape
+        plan = make_fused_plan(shape)
+        vol = torch.ones((Z, X, Y), device=dev)
+        spec = torch.ones((plan.kxp, Z, Y), device=dev)
+        for name, call in (
+            ("pass_a", lambda: fu.pass_a(vol)),
+            ("pass_bf", lambda: fu.pass_bf(spec, spec, plan)),
+            ("pass_c", lambda: fu.pass_c(spec, spec, plan)),
+            ("pass_cua", lambda: fu.pass_cua(spec, spec, vol, 0.25, plan, 0.0, MIN_VALUE)),
+        ):
+            before = dict(fu.launches)
+            try:
+                call()
+            except NotImplementedError as e:
+                log(f"{name} ZYX={shape} refused: {e}")
+            else:
+                raise AssertionError(f"{name} at ZYX={shape} was not refused")
+            if fu.launches != before:
+                raise AssertionError(f"{name} at ZYX={shape} counted a launch")
+
+
+def phase_wide(torch, dev, rng, auto_table):
+    """29: the fused engine past the old limits: the main path at
+    WIDE_SHAPES through ``deconvolve`` and ``deconvolve_auto`` (launches,
+    fused against fft after 10 iterations, ``auto``'s pick beside phase 22's
+    turns, the interleaved rung at the first shape), then every pass at
+    WIDE_SHAPES and NARROW_SHAPES against its plain version with its time
+    and byte bound (:func:`hold_passes`), the bf16 twins at NARROW_BF16_SHAPES and the shapes past the new limits
+    refused.  The narrow shapes' plans (dense plain-version matrices of up
+    to 14528² values, seconds of host time each) are built on a host thread
+    while the card runs the main path."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libmultiviewnative_torch.deconv.dispatch import deconvolve_auto
+    from libmultiviewnative_torch.deconv.interleaved import deconvolve_interleaved
+    from libmultiviewnative_torch.deconv.rl import deconvolve, resolve_algorithm
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops import fused_plan as fp
+
+    log("# phase 29: the fused engine past the old limits (X > 1816, Y > 3632, Z > 736)")
+    t0 = time.perf_counter()
+    builder = ThreadPoolExecutor(1)
+    plans = {shape: builder.submit(plain_plan, shape) for shape in NARROW_SHAPES + NARROW_BF16_SHAPES}
+    kw = dict(lam=LAM, min_value=MIN_VALUE)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    results = {}
+    for shape in WIDE_SHAPES:
+        label = f"4 views {shape}"
+        data, psi0 = wide_data(torch, dev, rng, shape)
+        reset_counts()
+        fused = deconvolve(psi0, data, ITERS, algorithm="fused", **kw)
+        torch.cuda.synchronize()
+        expect_counts(read_counts(), {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
+                                      "pass_cqa": V * ITERS, "pass_cu": V * ITERS},
+                      f"fused {shape}")
+        check_output(torch, fused, shape, f"fused {shape}")
+        fft = deconvolve(psi0, data, ITERS, algorithm="fft", **kw)
+        diff = float((fused - fft).abs().max()) / float(fft.abs().max())
+        log(f"fused vs fft at {shape} after {ITERS} iterations: max|diff|/max|psi| = {diff:.3e}"
+            " (tol 1e-3)")
+        if not diff <= 1e-3:
+            raise AssertionError(f"fused and fft engines disagree at {shape}: {diff:.3e}")
+        pick = resolve_algorithm("auto", shape, dev)
+        lines = io.StringIO()
+        with knobs(LMVN_TRACE="1"), contextlib.redirect_stdout(lines):
+            auto = deconvolve_auto(psi0, data, ITERS, device=dev, **kw)
+        trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
+        same = {"fused": fused, "fft": fft}[pick]
+        exact = bool(torch.equal(auto, same))
+        rel = float((auto - same).abs().max()) / float(same.abs().max())
+        log(f"deconvolve_auto at {shape}: " + " | ".join(trace) + f"; picks {pick}, against"
+            f" deconvolve(algorithm={pick!r}) max|diff|/max|psi| {rel:.3e}, bitwise {exact}")
+        if not any("dispatch: in-core on one device" in ln for ln in trace) or not rel <= 1e-6:
+            raise AssertionError(f"deconvolve_auto at {shape} did not run {pick} in-core")
+        row = auto_table.get(label)
+        if row is not None:
+            best, spread = row["fastest"], max(row["spread"].values())
+            gap = 1.0 - row["it_s"][pick] / row["it_s"][best]
+            log(f"auto at {shape}: phase 22's turns {json.dumps(row['it_s'])} it/s, fastest"
+                f" {best}, spread up to {spread:.3f}; the pick {pick} trails the fastest by"
+                f" {gap:.3f}: {'within' if gap <= spread else 'beyond'} the spread")
+        results[label] = {"fused_vs_fft": diff, "pick": pick, "auto_bitwise": exact}
+        if shape == WIDE_SHAPES[0]:
+            results[label]["interleaved"] = wide_interleaved(
+                torch, dev, data, psi0, deconvolve, deconvolve_interleaved)
+        del data, psi0, fused, fft, auto, same
+        torch.cuda.empty_cache()
+        results[label]["kernels"] = hold_passes(torch, dev, gen, shape, fp.make_fused_plan(shape))
+        fu._tensors.clear()
+        torch.cuda.empty_cache()
+    log(f"phase 29 main path: {time.perf_counter() - t0:.1f} s")
+
+    narrow = {}
+    for shape in NARROW_SHAPES:
+        narrow[str(shape)] = hold_passes(torch, dev, gen, shape, plans[shape].result())
+        fu._tensors.clear()  # the plain versions' constants, up to 5 GB a shape on the card
+        torch.cuda.empty_cache()
+    for shape in NARROW_BF16_SHAPES:
+        narrow_bf16_twins(torch, dev, gen, shape, plans[shape].result())
+        fu._tensors.clear()
+    builder.shutdown()
+    del plans
+    fp._make_fused_plan.cache_clear()
+    refuse_over_shapes(torch, dev)
+    log("narrow tiles: " + json.dumps(narrow))
+    log("phase 29: " + json.dumps(results) + f"; {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def wide_interleaved(torch, dev, data, psi0, deconvolve, deconvolve_interleaved):
+    """The interleaved rung on the fused engine at the first of WIDE_SHAPES,
+    WIDE_INTERLEAVED_ITERS iterations with the stacks in pinned host memory,
+    against in-core (rtol 2e-5, atol 2e-4)."""
+    shape, iters = tuple(psi0.shape), WIDE_INTERLEAVED_ITERS
+    kw = dict(lam=LAM, min_value=MIN_VALUE)
+    incore = deconvolve(psi0, data, iters, algorithm="fused", **kw)
+    host = lambda t: torch.empty(shape, pin_memory=True).copy_(t)  # noqa: E731
+    views = [host(data.views[v]) for v in range(V)]
+    weights = [host(data.weights[v]) for v in range(V)]
+    k1 = [data.kernel1[v].cpu().numpy() for v in range(V)]
+    k2 = [data.kernel2[v].cpu().numpy() for v in range(V)]
+    start = psi0.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    got, seconds = timed_call(torch, lambda: deconvolve_interleaved(
+        start, views, k1, k2, weights, iters, chunk_z=CHUNK_Z, algorithm="fused", device=dev,
+        **kw))
+    counts = {k: n for k, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    got = torch.from_numpy(got).to(dev)
+    excess = float(((got - incore).abs() - (2e-4 + 2e-5 * incore.abs())).max())
+    rel = float((got - incore).abs().max()) / float(incore.abs().max())
+    log(f"interleaved fused at {shape}, {iters} iterations: {seconds!r} s, launches {counts},"
+        f" peak device memory {peak:.2f} GiB (the in-core stacks still held); against in-core"
+        f" max|diff|/max|psi| {rel:.3e}, within rtol 2e-5, atol 2e-4: {excess <= 0}")
+    if not excess <= 0 or counts.get("pass_a", 0) == 0:
+        raise AssertionError(f"the interleaved rung at {shape} disagrees with in-core")
+    return {"seconds": seconds, "rel": rel, "peak_gib": peak}
+
+
 def phase_cli(torch, dev):
     """cli.main on TIFFs at 64³ with --dispatch auto against deconvolve_auto."""
     import tempfile
@@ -2931,7 +3290,7 @@ def main():
     rates.update(phase_dft(torch, dev, rng))
     phase_direct(torch, dev)
     torch.cuda.empty_cache()
-    phase_auto_table(torch, dev, rng)
+    auto_table = phase_auto_table(torch, dev, rng)
     phase_ladder(torch, dev)
     torch.cuda.empty_cache()
     phase_models(torch, dev, rng)
@@ -2944,6 +3303,8 @@ def main():
     torch.cuda.empty_cache()
     phase_bf16_kernels(torch, dev, records)
     rates["bf16"] = phase_bf16_main(torch, dev, rng, launches)
+    torch.cuda.empty_cache()
+    phase_wide(torch, dev, rng, auto_table)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -53,6 +53,7 @@ from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
 from ..ops.fused import (
+    _largest_prime_factor,
     check_transposed_shape,
     fused_forward_transposed,
     fused_limit,
@@ -102,8 +103,12 @@ def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = 
 
     On the CPU, ``"auto"`` is the JAX package's rule on a CPU backend: dft
     up to 256 per axis, fft above, never fused.  On a CUDA device it is
-    :func:`_cuda_auto`, the table measured on the H100.  Other names are
-    returned as they are, or raise ``ValueError`` when unknown."""
+    :func:`_cuda_auto`, the table measured on the H100: past Z = 736 or
+    X = 1816 fused only in the classes timed against fft there
+    (:func:`_fused_timed`; fft / fused 5.226 / 6.144 it/s at (256, 1024,
+    2048), 10.156 / 13.765 at (1024, 512, 512), NVIDIA H100 80GB HBM3 at
+    700 W).  Other names are returned as they are, or raise ``ValueError``
+    when unknown."""
     if algorithm != "auto":
         if algorithm not in ENGINES:
             raise ValueError(f"unknown algorithm {algorithm!r}")
@@ -118,7 +123,8 @@ def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = 
 def _cuda_auto(spatial, device: torch.device, chunk: bool) -> str:
     """``"auto"`` on a CUDA device, the table ``chip_smoke.py`` phase 22
     measured on an NVIDIA H100 (``PERF.md`` §6): the fused engine where
-    every axis is at least 256 and :func:`fused_eligible` holds, else fft.
+    every axis is at least 256, :func:`fused_eligible` holds and the shape
+    is of a class timed against fft (:func:`_fused_timed`), else fft.
 
     It departs from the JAX package's rule (``rl.py:355-368``) in two rows,
     each beyond the turn-to-turn spread: below 256 per axis fft beat dft by
@@ -126,8 +132,32 @@ def _cuda_auto(spatial, device: torch.device, chunk: bool) -> str:
     picks fused: its rule looks at the longest axis).  dft lost every row,
     so ``"auto"`` never picks it here; a streamed chunk takes fft."""
     if not chunk and min(spatial) >= 256 and fused_eligible(spatial, device):
-        return "fused"
+        if _fused_timed(spatial):
+            return "fused"
     return "fft"
+
+
+def _fused_timed(spatial) -> bool:
+    """Whether a fused-eligible (Z, Y, X) shape is of a class where fused
+    was timed against fft.
+
+    Up to Z = 736, Y = 3632 and X = 1816 the FFT stages run their widest
+    tiles (16 or 8 sequences), and fused beat fft at every row of 256 per
+    axis and up.  Past those lengths two rows were timed, 4 views, 10
+    iterations, NVIDIA H100 80GB HBM3 at 700 W, fft / fused in turns:
+    (256, 1024, 2048), x tile 8, 5.226 / 6.144 it/s (fused 1.18x, spread
+    1.0 %), and (1024, 512, 512), z tile 16, 10.156 / 13.765 (1.36x, spread
+    0.1 %).  So fused is kept there only where those rows vouch for it:
+    X and Y up to 3632, Z up to 1816 (the tiles of 8 and 16 timed), and
+    every length a product of 2, 3, 5 and 7 (no generic radix stage).
+    Narrower tiles and generic radices there were never timed end to end
+    against fft, and take fft as they did before fused served them."""
+    Z, Y, X = spatial
+    if Z <= 736 and Y <= 3632 and X <= 1816:
+        return True
+    if Z > 1816 or Y > 3632 or X > 3632:
+        return False
+    return all(_largest_prime_factor(n) <= 7 for n in spatial)
 
 
 def fused_eligible(spatial_shape, device=None) -> bool:

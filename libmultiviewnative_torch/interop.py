@@ -61,7 +61,7 @@ def _splitx_to_standard(re: np.ndarray, im: np.ndarray, spatial):
     Z, Y, X = spatial
     plan = make_fused_plan(spatial)
     neg = []
-    for n, split in ((Z, (plan.sz.R, plan.sz.M)), (Y, (plan.sy.R, plan.sy.M))):
+    for n, split in ((Z, plan.split_z), (Y, plan.split_y)):
         freq = split_perm(n, split)  # position -> frequency
         at = np.empty(n, np.int64)
         at[freq] = np.arange(n)  # frequency -> position

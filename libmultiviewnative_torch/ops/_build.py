@@ -3,11 +3,13 @@
 At first use, ``nvcc`` compiles the sources under ``ops/csrc/`` into one
 shared library with a plain C interface, in ``build/torch_kernels/<hash>/``
 beside the package (a directory ``.gitignore`` lists), keyed by a hash of
-the sources, the headers and the flags.  Each source is compiled by its own
-``nvcc`` process, all started together, and the objects are then linked
-(11.6-18.6 s on an H100 host with 8 cores, most of it ``fused.cu`` with the
-FFT stage kernels; with no FFT stages, 6.1-6.4 s against 8.0-9.0 s for
-one ``nvcc`` over both sources).  The library is loaded with ``ctypes``: every pointer
+the sources, the headers and the flags.  Each unit is compiled by its own
+``nvcc`` process, all started together, and the objects are then linked:
+``elementwise.cu``, ``fused.cu`` (the passes' entries, no kernels) and
+``fft_tiles.cu`` once per tile width of the FFT stages (``-DLMVN_TILE``),
+each holding that width's 13 stage kernels: 15.6-17.5 s on an H100 host
+with 8 cores, where one ``nvcc`` over the 52 stage kernels would take about
+three times the longest unit.  The library is loaded with ``ctypes``: every pointer
 and the stream go in as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 
@@ -30,8 +32,14 @@ from typing import Optional
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("elementwise.cu", "fused.cu")
 _HEADERS = ("fft_stage.cuh", "rl_update.cuh")
+# the tile widths of the FFT stages (with_tile in fft_stage.cuh)
+_TILES = (16, 8, 4, 2)
+# (source, flags, object stem) of each unit
+_UNITS = (("elementwise.cu", (), "elementwise"), ("fused.cu", (), "fused")) + tuple(
+    ("fft_tiles.cu", (f"-DLMVN_TILE={p}",), f"fft_tiles{p}") for p in _TILES
+)
+_SOURCES = tuple(dict.fromkeys(source for source, _, _ in _UNITS))
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -99,7 +107,10 @@ def nvcc_path() -> str:
 
 
 def _digest() -> str:
+    """A hash of the flags, each unit's source and flags, and the sources'
+    and headers' contents."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h.update(repr(_UNITS).encode())
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
@@ -108,7 +119,7 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path.  One ``nvcc -c`` per source runs at the same time,
+    the library's path.  One ``nvcc -c`` per unit runs at the same time,
     then one link.  nvcc's report (``-Xptxas -v``: registers, spills) is
     kept beside the library as ``nvcc.log``.  Raises with nvcc's stderr on a
     failed build."""
@@ -121,10 +132,10 @@ def build() -> Path:
         raise RuntimeError(f"nvcc not found at {nvcc}: cannot build the CUDA kernels")
     out_dir.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
-    objs = [out_dir / f".{Path(s).stem}.{pid}.o" for s in _SOURCES]
+    objs = [out_dir / f".{stem}.{pid}.o" for _, _, stem in _UNITS]
     cmds = [
-        [nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
-        for s, o in zip(_SOURCES, objs)
+        [nvcc, *_FLAGS, *flags, "-c", "-o", str(o), str(_CSRC / s)]
+        for (s, flags, _), o in zip(_UNITS, objs)
     ]
     tmp = out_dir / f".liblmvn_kernels.{pid}.so"
     cmds_link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]

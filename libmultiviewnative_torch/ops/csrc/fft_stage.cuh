@@ -407,21 +407,57 @@ __device__ void run_stages_dif(float2* buf, const LmvnFft& f) {
   }
 }
 
+// ------------------------------------------------------------ tiles
+// Each stage holds a tile of P complex sequences of its length n in shared
+// memory, 8 P n bytes, interleaved as above.  The tile is the widest that
+// fits one block's opt-in maximum, halving from the stage's widest down to
+// kMinTile; plan_ok refuses a length that no tile fits.  So each stage keeps
+// its widest tile up to 232448 / (8 widest) and narrows only past it: x and z
+// 16 up to 1816, 8 to 3632, 4 to 7264, 2 to 14528.  ops/fused.py mirrors
+// these rules (_x_seq, _y_rows, _z_cols), and tests/test_torch_fft_stages.py
+// reads them from here.
+constexpr size_t kSmemMax = 232448;  // the opt-in maximum of a block on sm_90
+constexpr int kMinTile = 2;
+
+inline int widest_tile(int widest, int n) {
+  for (int p = widest; p >= kMinTile; p /= 2)
+    if (sizeof(float2) * p * n <= kSmemMax) return p;
+  return 0;
+}
+
+// fn(std::integral_constant<int, P>()) for a tile width P the stages are
+// built for; cudaErrorInvalidValue for any other.
+template <class Fn>
+int with_tile(int p, Fn fn) {
+  switch (p) {
+    case 16:
+      return fn(std::integral_constant<int, 16>());
+    case 8:
+      return fn(std::integral_constant<int, 8>());
+    case 4:
+      return fn(std::integral_constant<int, 4>());
+    case 2:
+      return fn(std::integral_constant<int, 2>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ------------------------------------------------------------ x stages
-// A block per (y-column tile of kXCols, plane z): the column pairs (2s,
-// 2s+1) of the tile are the real and imaginary parts of sequence s, so one
-// complex FFT of length X transforms two real columns.
-constexpr int kXCols = 32;
-constexpr int kXSeq = kXCols / 2;
-constexpr int kXQuads = kXCols / 4;  // float4 loads per row of the tile
+// A block per (y-column tile of 2S columns, plane z): the column pairs (2s,
+// 2s+1) of the tile are the real and imaginary parts of sequence s < S, so
+// one complex FFT of length X transforms two real columns.  A row of the
+// tile moves as S/2 float4 vectors (quads).
+constexpr int kXSeqMax = 16;
 
-inline size_t x_smem(int X) { return sizeof(float2) * X * kXSeq; }
+inline int x_seq(int X) { return widest_tile(kXSeqMax, X); }
 
-// Vector e of the block's tile of an (X, Y) plane: row e / kXQuads, columns
-// c0 + 4 (e % kXQuads) on; zeros past Y.
+// Vector e of the block's tile of an (X, Y) plane: row e / (S/2), columns
+// c0 + 4 (e % (S/2)) on; zeros past Y.
+template <int S>
 __device__ __forceinline__ float4 tile_quad(const float* __restrict__ plane,
                                             int e, int c0, int Y) {
-  const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+  constexpr int Q = S / 2;
+  const int x = e / Q, c = c0 + 4 * (e % Q);
   return c < Y ? __ldg(reinterpret_cast<const float4*>(
                      plane + static_cast<size_t>(x) * Y + c))
                : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -433,15 +469,16 @@ __device__ __forceinline__ float4 tile_quad(const float* __restrict__ plane,
 // (z, cols) column of t.  F_k sits at position k after run_stages, at pos[k]
 // after run_stages_dif (AT_POS).  Rows k >= Kx of t are not written: the y
 // stage writes the pad rows of its output as zeros without reading them.
-template <bool AT_POS>
+template <int S, bool AT_POS>
 __device__ __forceinline__ void store_half_spectra(float* t_re, float* t_im,
                                                    const float2* buf,
                                                    const LmvnFft& f, int Z,
                                                    int Y, int Kx, int c0,
                                                    int z) {
+  constexpr int Q = S / 2;
   const int X = f.n;
-  for (int e = threadIdx.x; e < Kx * kXQuads; e += kThreads) {
-    const int k = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
+  for (int e = threadIdx.x; e < Kx * Q; e += kThreads) {
+    const int k = e / Q, q = e % Q, c = c0 + 4 * q;
     if (c >= Y) continue;
     const int kn = k == 0 ? 0 : X - k;
     const int at = AT_POS ? __ldg(f.pos + k) : k;
@@ -449,8 +486,8 @@ __device__ __forceinline__ void store_half_spectra(float* t_re, float* t_im,
     float re[4], im[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float2 a = buf[at * kXSeq + 2 * q + h];
-      const float2 b = buf[atn * kXSeq + 2 * q + h];
+      const float2 a = buf[at * S + 2 * q + h];
+      const float2 b = buf[atn * S + 2 * q + h];
       re[2 * h] = (a.x + b.x) * 0.5f;
       im[2 * h] = (a.y - b.y) * 0.5f;
       re[2 * h + 1] = (a.y + b.y) * 0.5f;
@@ -469,18 +506,19 @@ __device__ __forceinline__ void store_half_spectra(float* t_re, float* t_im,
 // imaginary parts of A and B at k = 0 and X/2 are dropped, as the zero sine
 // columns of the plan's bxp drop them.  NC reads t through the read-only
 // cache, for a kernel that does not write t.
-template <bool NC>
+template <int S, bool NC>
 __device__ __forceinline__ void load_half_spectra(float2* buf,
                                                   const float* t_re,
                                                   const float* t_im,
                                                   const LmvnFft& f, int Z,
                                                   int Y, int Kx, int c0,
                                                   int z) {
+  constexpr int Q = S / 2;
   const int X = f.n;
   batched<Pair4>(
-      Kx * kXQuads,
+      Kx * Q,
       [&](int e) {
-        const int k = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+        const int k = e / Q, c = c0 + 4 * (e % Q);
         Pair4 v = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
         if (c < Y) {
           const size_t i = (static_cast<size_t>(k) * Z + z) * Y + c;
@@ -492,41 +530,43 @@ __device__ __forceinline__ void load_half_spectra(float2* buf,
         return v;
       },
       [&](int e, Pair4 v) {
-        const int k = e / kXQuads, q = e % kXQuads;
+        const int k = e / Q, q = e % Q;
         const float4 re = v.re;
         const bool edge = k == 0 || 2 * k == X;
         const float4 im = edge ? make_float4(0.f, 0.f, 0.f, 0.f) : v.im;
         // sequence 2q: A = (re.x, im.x), B = (re.y, im.y); 2q + 1: (.z), (.w)
-        *reinterpret_cast<float4*>(buf + __ldg(f.pos + k) * kXSeq + 2 * q) =
+        *reinterpret_cast<float4*>(buf + __ldg(f.pos + k) * S + 2 * q) =
             make_float4(re.x - im.y, im.x + re.y, re.z - im.w, im.z + re.w);
         if (!edge)
-          *reinterpret_cast<float4*>(buf + __ldg(f.pos + X - k) * kXSeq + 2 * q) =
+          *reinterpret_cast<float4*>(buf + __ldg(f.pos + X - k) * S + 2 * q) =
               make_float4(re.x + im.y, re.y - im.x, re.z + im.w, re.w - im.z);
       });
 }
 
 // K4 launch 1: t[k, z, cols] = sum_x xt[z, x, cols] W_X^{k x} for k < Kx.
+template <int S>
 __global__ void __launch_bounds__(kThreads)
     x_forward_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
                      const float* __restrict__ xt, const LmvnFft f, int Z,
                      int Y, int Kx) {
+  constexpr int Q = S / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
+  const int X = f.n, c0 = blockIdx.x * 2 * S, z = blockIdx.y;
   const float* plane = xt + static_cast<size_t>(z) * X * Y;
   batched<float4>(
-      X * kXQuads, [&](int e) { return tile_quad(plane, e, c0, Y); },
+      X * Q, [&](int e) { return tile_quad<S>(plane, e, c0, Y); },
       [&](int e, float4 v) {
-        const int x = e / kXQuads, q = e % kXQuads;
-        *reinterpret_cast<float4*>(buf + __ldg(f.pos + x) * kXSeq + 2 * q) = v;
+        const int x = e / Q, q = e % Q;
+        *reinterpret_cast<float4*>(buf + __ldg(f.pos + x) * S + 2 * q) = v;
       });
   __syncthreads();
-  run_stages<kXSeq, false>(buf, f);
-  store_half_spectra<false>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
+  run_stages<S, false>(buf, f);
+  store_half_spectra<S, false>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
 }
 
 // The x stages that start from half spectra, a block per (y-column tile of
-// kXCols, plane z): K7's, K8's, K9's and K10's.  load_half_spectra and the
+// 2S columns, plane z): K7's, K8's, K9's and K10's.  load_half_spectra and the
 // inverse stages leave x in natural order in shared memory, where the value
 // K7 stores, value * scale (scale = 1/X: out[z, x, cols] =
 // scale * sum_k w_k Re(t[k, z, cols] W_X^{-k x}) over k < Kx, w the hermitian
@@ -600,28 +640,29 @@ struct RlUpdateOp {
   }
 };
 
-template <bool FORWARD, class Op>
+template <int S, bool FORWARD, class Op>
 __global__ void __launch_bounds__(kThreads)
     x_stage_kernel(float* t_re, float* t_im, const LmvnFft f, int Z, int Y,
                    int Kx, float scale, const Op op) {
   using In = typename Op::In;
+  constexpr int Q = S / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * kXCols, z = blockIdx.y;
-  load_half_spectra<!FORWARD>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
+  const int X = f.n, c0 = blockIdx.x * 2 * S, z = blockIdx.y;
+  load_half_spectra<S, !FORWARD>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
   __syncthreads();
-  run_stages<kXSeq, true>(buf, f);
+  run_stages<S, true>(buf, f);
   const size_t plane = static_cast<size_t>(z) * X * Y;
   batched<In>(
-      X * kXQuads,
+      X * Q,
       [&](int e) {
-        const int x = e / kXQuads, c = c0 + 4 * (e % kXQuads);
+        const int x = e / Q, c = c0 + 4 * (e % Q);
         return c < Y ? op.load(plane + static_cast<size_t>(x) * Y + c) : In{};
       },
       [&](int e, In in) {
-        const int x = e / kXQuads, q = e % kXQuads, c = c0 + 4 * q;
+        const int x = e / Q, q = e % Q, c = c0 + 4 * q;
         if (c >= Y) return;
-        float4* at = reinterpret_cast<float4*>(buf + x * kXSeq + 2 * q);
+        float4* at = reinterpret_cast<float4*>(buf + x * S + 2 * q);
         const float4 v = *at;
         const float4 r = op.apply(
             in, make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale),
@@ -630,8 +671,8 @@ __global__ void __launch_bounds__(kThreads)
       });
   if constexpr (FORWARD) {
     __syncthreads();
-    run_stages_dif<kXSeq>(buf, f);
-    store_half_spectra<true>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
+    run_stages_dif<S>(buf, f);
+    store_half_spectra<S, true>(t_re, t_im, buf, f, Z, Y, Kx, c0, z);
   }
 }
 
@@ -643,16 +684,16 @@ __global__ void __launch_bounds__(kThreads)
 // the inverse reads it from there; the omega combination of the split
 // stages is not needed.  Threads take the row fastest in the loads and
 // stores too: a row is read and written in 32-byte sectors.
-// 16 rows a block up to Y = 512, else 8 (32-byte sectors still); the 8 rows
-// must fit one block's shared memory, so Y <= 3632 (ops/fused.py
-// fused_limit).
+// Rows a block: 16 up to Y = 512 (64 KB, for occupancy), then the widest
+// tile from 8 (32-byte sectors still): 8 to 3632, 4 to 7264, 2 to 14528.
 constexpr size_t kYSmemTarget = 64 * 1024;  // per block, for occupancy
+constexpr int kYRowsMax = 16;
 
 inline int y_rows(int Y) {
-  return 16 * sizeof(float2) * Y <= kYSmemTarget ? 16 : 8;
+  return kYRowsMax * sizeof(float2) * Y <= kYSmemTarget
+             ? kYRowsMax
+             : widest_tile(kYRowsMax / 2, Y);
 }
-
-inline size_t y_smem(int Y) { return sizeof(float2) * y_rows(Y) * Y; }
 
 __device__ __forceinline__ int split_freq(int j, int R, int M) {
   return R * (j % M) + j / M;
@@ -748,15 +789,16 @@ __global__ void __launch_bounds__(kThreads)
 // Pad x-frequencies k >= Kx are written as zeros and not read.
 // Like the x and y stages it is bound by HBM bytes: u (and K) read once,
 // the output written once, the transform in shared memory.
-// Columns per block: 16 at every Z (32 KB at Z = 256, 64 KB at 512, 94 KB
-// at 736).  A 32-column form was timed against it once on an H100 80GB HBM3
-// at 700 W (chip_smoke.py phases 9 and 15 of the same run): at Z = 256 pass B
-// tied (0.1426 ms at 32, 0.1453 at 16) and pass BF lost (0.0951 against
-// 0.0900); at Z = 512, where 32 columns take 128 KB and one block an SM,
-// both lost (pass B 1.6278 against 0.9624 ms, pass BF 0.7984 against 0.5921).
-constexpr int kZCols = 16;
+// Columns per block: the widest tile from 16 (32 KB at Z = 256, 64 KB at
+// 512, 227 KB at 1816), then 8 to 3632, 4 to 7264, 2 to 14528.  A 32-column
+// form was timed against 16 once on an H100 80GB HBM3 at 700 W (chip_smoke.py
+// phases 9 and 15 of the same run): at Z = 256 pass B tied (0.1426 ms at 32,
+// 0.1453 at 16) and pass BF lost (0.0951 against 0.0900); at Z = 512, where
+// 32 columns take 128 KB and one block an SM, both lost (pass B 1.6278
+// against 0.9624 ms, pass BF 0.7984 against 0.5921).
+constexpr int kZColsMax = 16;
 
-inline size_t z_smem(int Z) { return sizeof(float2) * kZCols * Z; }
+inline int z_cols(int Z) { return widest_tile(kZColsMax, Z); }
 
 // S, the storage type of u, K and the output: float or bf16.
 template <int P, bool FWD_ONLY, class S>
@@ -829,37 +871,42 @@ inline unsigned blocks(int a, int b) {
   return static_cast<unsigned>((a + b - 1) / b);
 }
 
-inline int x_forward(float* t_re, float* t_im, const float* xt,
-                     const LmvnFft& f, int Z, int Y, int Kx, cudaStream_t s) {
-  const size_t smem = x_smem(f.n);
+// The launches are templates on the tile width, defined here and
+// instantiated by LMVN_FFT_TILE below, one width per nvcc process.
+
+template <int S>
+int x_forward(float* t_re, float* t_im, const float* xt, const LmvnFft& f,
+              int Z, int Y, int Kx, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * S * f.n;
   cudaError_t e = cudaFuncSetAttribute(
-      x_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      x_forward_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  x_forward_kernel<<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
+  x_forward_kernel<S><<<dim3(blocks(Y, 2 * S), Z), kThreads, smem, s>>>(
       t_re, t_im, xt, f, Z, Y, Kx);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The x stage of K7, K8, K9 or K10 on the scratch pair t (in place when
 // FORWARD).
-template <bool FORWARD, class Op>
-inline int x_stage(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y,
-                   int Kx, const Op& op, cudaStream_t s) {
-  const size_t smem = x_smem(f.n);
+template <int S, bool FORWARD, class Op>
+int x_launch(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y, int Kx,
+             const Op& op, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * S * f.n;
   cudaError_t e = cudaFuncSetAttribute(
-      x_stage_kernel<FORWARD, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      x_stage_kernel<S, FORWARD, Op>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  x_stage_kernel<FORWARD, Op><<<dim3(blocks(Y, kXCols), Z), kThreads, smem, s>>>(
-      t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n), op);
+  x_stage_kernel<S, FORWARD, Op>
+      <<<dim3(blocks(Y, 2 * S), Z), kThreads, smem, s>>>(
+          t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n), op);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int P, bool INV, class Out, class In>
-inline int y_launch(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
-                    const LmvnFft& f, int rows, int valid, int R, int M,
-                    cudaStream_t s) {
+int y_launch(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
+             const LmvnFft& f, int rows, int valid, int R, int M,
+             cudaStream_t s) {
   const size_t smem = sizeof(float2) * P * f.n;
   cudaError_t e = cudaFuncSetAttribute(
       y_kernel<P, INV, Out, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -871,22 +918,10 @@ inline int y_launch(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The y stage over rows = Kxp*Z rows, of which valid = Kx*Z are not pad:
-// forward from t into a float or bf16 spectrum, inverse back into t.
-template <bool INV, class Out, class In>
-inline int y_stage(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
-                   const LmvnFft& f, int rows, int valid, int R, int M,
-                   cudaStream_t s) {
-  return y_rows(f.n) == 16
-             ? y_launch<16, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s)
-             : y_launch<8, INV>(o_re, o_im, i_re, i_im, f, rows, valid, R, M, s);
-}
-
 template <int P, bool FWD_ONLY, class S>
-inline int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im,
-                    const S* k_re, const S* k_im, float ksign,
-                    const LmvnFft& f, int Y, int Kx, int Kxp, int R, int M,
-                    cudaStream_t s) {
+int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im, const S* k_re,
+             const S* k_im, float ksign, const LmvnFft& f, int Y, int Kx,
+             int Kxp, int R, int M, cudaStream_t s) {
   const size_t smem = sizeof(float2) * P * f.n;
   cudaError_t e = cudaFuncSetAttribute(
       z_kernel<P, FWD_ONLY, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -898,27 +933,102 @@ inline int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launches of tile width P: PREFIX extern declares them, as below for
+// every width, so that no file that includes this header compiles their
+// kernels; empty instantiates them, which fft_tiles.cu does for one width,
+// -DLMVN_TILE=P.  Each width's 13 kernels compile in an nvcc process of
+// their own.
+#define LMVN_X_LAUNCH(PREFIX, P, FWD, OP)                                   \
+  PREFIX template int x_launch<P, FWD, OP>(float*, float*, const LmvnFft&, \
+                                           int, int, int, const OP&,      \
+                                           cudaStream_t);
+#define LMVN_Y_LAUNCH(PREFIX, P, INV, OUT, IN)                              \
+  PREFIX template int y_launch<P, INV, OUT, IN>(                            \
+      OUT*, OUT*, const IN*, const IN*, const LmvnFft&, int, int, int, int, \
+      cudaStream_t);
+#define LMVN_Z_LAUNCH(PREFIX, P, FWD_ONLY, S)                                \
+  PREFIX template int z_launch<P, FWD_ONLY, S>(                              \
+      S*, S*, const S*, const S*, const S*, const S*, float, const LmvnFft&, \
+      int, int, int, int, int, cudaStream_t);
+#define LMVN_FFT_TILE(PREFIX, P)                                          \
+  PREFIX template int x_forward<P>(float*, float*, const float*,         \
+                                   const LmvnFft&, int, int, int,        \
+                                   cudaStream_t);                        \
+  LMVN_X_LAUNCH(PREFIX, P, false, StoreOp)                                \
+  LMVN_X_LAUNCH(PREFIX, P, true, QuotientOp)                              \
+  LMVN_X_LAUNCH(PREFIX, P, false, RlUpdateOp)                             \
+  LMVN_X_LAUNCH(PREFIX, P, true, RlUpdateOp)                              \
+  LMVN_Y_LAUNCH(PREFIX, P, false, float, float)                           \
+  LMVN_Y_LAUNCH(PREFIX, P, false, __nv_bfloat16, float)                   \
+  LMVN_Y_LAUNCH(PREFIX, P, true, float, float)                            \
+  LMVN_Y_LAUNCH(PREFIX, P, true, float, __nv_bfloat16)                    \
+  LMVN_Z_LAUNCH(PREFIX, P, false, float)                                  \
+  LMVN_Z_LAUNCH(PREFIX, P, true, float)                                   \
+  LMVN_Z_LAUNCH(PREFIX, P, false, __nv_bfloat16)                          \
+  LMVN_Z_LAUNCH(PREFIX, P, true, __nv_bfloat16)
+
+LMVN_FFT_TILE(extern, 16)
+LMVN_FFT_TILE(extern, 8)
+LMVN_FFT_TILE(extern, 4)
+LMVN_FFT_TILE(extern, 2)
+
+// The stages as the passes call them, each at the tile width of its
+// length.
+
+inline int x_forward_stage(float* t_re, float* t_im, const float* xt,
+                           const LmvnFft& f, int Z, int Y, int Kx,
+                           cudaStream_t s) {
+  return with_tile(x_seq(f.n), [&](auto w) {
+    return x_forward<decltype(w)::value>(t_re, t_im, xt, f, Z, Y, Kx, s);
+  });
+}
+
+// The x stage of K7, K8, K9 or K10 on the scratch pair t (in place when
+// FORWARD).
+template <bool FORWARD, class Op>
+int x_stage(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y, int Kx,
+            const Op& op, cudaStream_t s) {
+  return with_tile(x_seq(f.n), [&](auto w) {
+    return x_launch<decltype(w)::value, FORWARD>(t_re, t_im, f, Z, Y, Kx, op, s);
+  });
+}
+
+// The y stage over rows = Kxp*Z rows, of which valid = Kx*Z are not pad:
+// forward from t into a float or bf16 spectrum, inverse back into t.
+template <bool INV, class Out, class In>
+int y_stage(Out* o_re, Out* o_im, const In* i_re, const In* i_im,
+            const LmvnFft& f, int rows, int valid, int R, int M,
+            cudaStream_t s) {
+  return with_tile(y_rows(f.n), [&](auto w) {
+    return y_launch<decltype(w)::value, INV>(o_re, o_im, i_re, i_im, f, rows,
+                                             valid, R, M, s);
+  });
+}
+
 // The z stage over the Kxp slices of a (Kxp, Z, Y) pair, of which Kx are
 // not pad; z's split is (R, M).  S is float or bf16.
 template <bool FWD_ONLY, class S>
-inline int z_stage(S* o_re, S* o_im, const S* u_re, const S* u_im,
-                   const S* k_re, const S* k_im, bool conj_k, const LmvnFft& f,
-                   int Y, int Kx, int Kxp, int R, int M, cudaStream_t s) {
-  return z_launch<kZCols, FWD_ONLY>(o_re, o_im, u_re, u_im, k_re, k_im,
-                                    conj_k ? -1.f : 1.f, f, Y, Kx, Kxp, R, M, s);
+int z_stage(S* o_re, S* o_im, const S* u_re, const S* u_im, const S* k_re,
+            const S* k_im, bool conj_k, const LmvnFft& f, int Y, int Kx,
+            int Kxp, int R, int M, cudaStream_t s) {
+  return with_tile(z_cols(f.n), [&](auto w) {
+    return z_launch<decltype(w)::value, FWD_ONLY>(o_re, o_im, u_re, u_im, k_re,
+                                                  k_im, conj_k ? -1.f : 1.f,
+                                                  f, Y, Kx, Kxp, R, M, s);
+  });
 }
 
 // What the kernels rely on: the tables match the length, every stage radix
-// fits a generic round, and a block's sequences fit shared memory.
-inline bool plan_ok(const LmvnFft& f, int n, size_t smem, size_t smem_max) {
+// fits a generic round, and the stage has a tile for the length (tile > 0).
+inline bool plan_ok(const LmvnFft& f, int n, int tile) {
   if (f.n != n || f.nstages < 0 || f.nstages > kMaxStages) return false;
-  if (!f.tw || !f.pos) return false;
+  if (!f.tw || !f.pos || tile <= 0) return false;
   long long prod = 1;
   for (int j = 0; j < f.nstages; ++j) {
     if (f.radix[j] < 2 || f.radix[j] > kMaxGenericRadix) return false;
     prod *= f.radix[j];
   }
-  return prod == n && smem <= smem_max;
+  return prod == n;
 }
 
 }  // namespace lmvn_fft

@@ -35,16 +35,20 @@
 //   y stages are row-local (a row = the Y values of one (k, z)): a block per
 //     few rows, one FFT per row, frequencies stored in the split order
 //     (y_kernel);
-//   x stages are column-local within a plane: a block per (plane, 32 y
-//     columns), one complex FFT per pair of real columns (x_forward_kernel,
-//     x_stage_kernel); the x stage of passes C, CQA, CU and CUA starts from
+//   x stages are column-local within a plane: a block per (plane, 2S y
+//     columns, S = 16 sequences up to X = 1816, fewer past it), one complex
+//     FFT per pair of real columns (x_forward_kernel, x_stage_kernel); the
+//     x stage of passes C, CQA, CU and CUA starts from
 //     half spectra and holds the inverse x FFT, the pass's pointwise step
 //     (CQA: K2's quotient; CU and CUA: K1's update) and, for CQA and CUA, the
 //     forward x FFT in one block, writing the scratch pair in place;
 //   the z stage of passes B and BF is column-local within an x-frequency
-//     slice: a block per (k, 16 y columns) keeps its columns in shared
-//     memory from the forward FFT through the product with the kernel
-//     spectrum to the inverse (z_kernel).
+//     slice: a block per (k, P y columns, 16 up to Z = 1816, fewer past it)
+//     keeps its columns in shared memory from the forward FFT through the
+//     product with the kernel spectrum to the inverse (z_kernel).
+// Each stage's tile is the widest that fits 227 KB at its length
+// (fft_stage.cuh, "tiles"), so the passes serve every axis up to 14528
+// whose prime factors are at most 1024.
 // Launches per pass call: A 2 (x stage into a scratch spectrum, y stage),
 // BF 1, B 1, C 2 (y stage into the scratch, x stage), CU 2 (C's, with the RL
 // update in place of C's store), CQA 3 and CUA 3 (C's y stage into the
@@ -75,23 +79,19 @@ struct LmvnFusedPlan {
 
 namespace {
 
-// The opt-in maximum of one block's shared memory on sm_90.
-constexpr size_t kSmemMax = 232448;
-// The largest Z the engine serves: the edge its z stage has run at.  The FFT
-// z stage itself fits up to Z = 1816 (16 columns of Z complex values in
-// 227 KB); a larger bound needs its own run at the new edge.
-constexpr int kMaxZ = 736;
-
 // the checks the kernels rely on; cudaErrorInvalidValue otherwise.  Any
 // split (R, M) of y and z is served: the stages read and write the split
-// order directly.
+// order directly.  Each length needs a tile of its stage that fits one
+// block's shared memory (x_seq, y_rows, z_cols: up to 14528) and stage
+// radices up to kMaxGenericRadix; ops/fused.py fused_limit mirrors this.
+// So Z, grid y of the x stages, and Kxp, grid y of the z stage, stay far
+// under 65536.
 bool plan_ok(const LmvnFusedPlan* p) {
   if (p->Ry < 1 || p->Rz < 1) return false;
   if (p->Ry * p->My != p->Y || p->Rz * p->Mz != p->Z) return false;
-  return p->Z <= kMaxZ &&
-         lmvn_fft::plan_ok(p->fx, p->X, lmvn_fft::x_smem(p->X), kSmemMax) &&
-         lmvn_fft::plan_ok(p->fy, p->Y, lmvn_fft::y_smem(p->Y), kSmemMax) &&
-         lmvn_fft::plan_ok(p->fz, p->Z, lmvn_fft::z_smem(p->Z), kSmemMax);
+  return lmvn_fft::plan_ok(p->fx, p->X, lmvn_fft::x_seq(p->X)) &&
+         lmvn_fft::plan_ok(p->fy, p->Y, lmvn_fft::y_rows(p->Y)) &&
+         lmvn_fft::plan_ok(p->fz, p->Z, lmvn_fft::z_cols(p->Z));
 }
 
 int start_call(int device, const LmvnFusedPlan* p) {
@@ -137,8 +137,8 @@ int pass_a(int device, const LmvnFusedPlan* p, void* u_re, void* u_im,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* tr = static_cast<float*>(t_re);
   float* ti = static_cast<float*>(t_im);
-  err = lmvn_fft::x_forward(tr, ti, static_cast<const float*>(xt), p->fx, p->Z,
-                            p->Y, p->Kx, s);
+  err = lmvn_fft::x_forward_stage(tr, ti, static_cast<const float*>(xt), p->fx,
+                                  p->Z, p->Y, p->Kx, s);
   if (!err) err = y_forward<S>(u_re, u_im, tr, ti, p, s);
   return err;
 }

@@ -112,31 +112,61 @@ def spec_dtype() -> torch.dtype:
     return torch.float32
 
 
-# The opt-in maximum of one block's shared memory, in bytes (kSmemMax in
-# ops/csrc/fused.cu, which plan_ok there holds every FFT stage to)
+# The opt-in maximum of one block's shared memory, in bytes, and the tile
+# rules of the FFT stages: kSmemMax, kMinTile, kXSeqMax, kYRowsMax,
+# kYSmemTarget and kZColsMax in ops/csrc/fft_stage.cuh, where plan_ok
+# (ops/csrc/fused.cu) holds every length to them.
 _FFT_SMEM_MAX = 232448
-# kMaxZ in fused.cu: the edge the z stage has run at (phase 14 of chip_smoke.py)
-_Z_MAX = 736
-_CARD_LATER = "ROADMAP P7, the CUDA passes' shape limits"
+_MIN_TILE = 2
+_Y_SMEM_TARGET = 64 * 1024
+# the largest prime factor a generic stage takes (kMaxGenericRadix)
+_MAX_RADIX = 1024
+_CARD_REFUSED = (
+    "the CUDA passes serve axes up to 14528 whose prime factors are at most 1024"
+    " (ROADMAP queue 3: the one shape difference from the JAX package)"
+)
 
 
-def _x_smem(X: int) -> int:
-    """The x stage of every pass but B and BF (``x_smem`` in ``ops/csrc/
-    fft_stage.cuh``): 16 sequences of X complex values."""
-    return 16 * 8 * X
+def _widest_tile(widest: int, n: int) -> int:
+    """``widest_tile``: the widest tile of P length-n complex sequences, P
+    halving from ``widest`` to 2, that fits one block's shared memory; 0
+    if none does."""
+    p = widest
+    while p >= _MIN_TILE:
+        if 8 * p * n <= _FFT_SMEM_MAX:
+            return p
+        p //= 2
+    return 0
 
 
-def _zstage_smem(Z: int) -> int:
-    """The FFT z stage of passes B and BF (``z_smem`` in ``ops/csrc/
-    fft_stage.cuh``): 16 y columns of Z complex values."""
-    return 16 * 8 * Z
+def _x_seq(X: int) -> int:
+    """Sequences (column pairs) a block of the FFT x stage holds, every pass
+    but B and BF (``x_seq``): 16 up to X = 1816, 8 to 3632, 4 to 7264, 2 to
+    14528, else 0."""
+    return _widest_tile(16, X)
 
 
-def _fft_y_smem(Y: int) -> int:
-    """The y stage of every pass but B and BF (``y_smem`` in ``ops/csrc/
-    fft_stage.cuh``): 16 rows of Y complex values up to 64 KB, else 8."""
-    rows = 16 if 16 * 8 * Y <= 64 * 1024 else 8
-    return rows * 8 * Y
+def _y_rows(Y: int) -> int:
+    """Rows a block of the FFT y stage holds, every pass but B and BF
+    (``y_rows``): 16 up to Y = 512, then 8 to 3632, 4 to 7264, 2 to 14528,
+    else 0."""
+    return 16 if 16 * 8 * Y <= _Y_SMEM_TARGET else _widest_tile(8, Y)
+
+
+def _z_cols(Z: int) -> int:
+    """Columns a block of the FFT z stage holds, passes B and BF
+    (``z_cols``): 16 up to Z = 1816, 8 to 3632, 4 to 7264, 2 to 14528,
+    else 0."""
+    return _widest_tile(16, Z)
+
+
+def _largest_prime_factor(n: int) -> int:
+    largest, p = 1, 2
+    while p * p <= n:
+        while n % p == 0:
+            largest, n = p, n // p
+        p += 1
+    return max(largest, n)
 
 
 def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
@@ -146,36 +176,33 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     Every device: every axis a multiple of 8 (so X is even), as
     ``fused_dft2._check_transposed``.  A CUDA device adds the limits of the
     kernels (``plan_ok`` in ``ops/csrc/fused.cu``), which hold for every
-    pass, since one plan serves them all:
+    pass, since one plan serves them all: each axis needs a tile of its FFT
+    stage in one block's shared memory and stage radices a generic stage
+    takes.
 
-    * Y <= 3632: 8 rows of Y complex values in one block's shared memory,
-      the FFT y stage of every pass but B and BF.  Any split of Y (R blocks
-      of 128, R = 1 below 256) is served;
-    * X <= 1816: 16 sequences of X complex values in one block's shared
-      memory, the FFT x stage of every pass but B and BF (X = 1816 fills the
-      opt-in maximum exactly);
-    * Z <= 736: the edge the z stage of passes B and BF has run at.  Its
-      FFT z stage holds 16 columns of Z complex values (:func:`_zstage_smem`,
-      94 KB at 736) and would fit up to Z = 1816; a larger bound is run at
-      its new edge first.
-
-    The FFT stages' other conditions follow from these: every prime factor
-    of X, Y and Z, a generic stage's radix, is at most 454, under its 1024,
-    and each length has at most 16 stages."""
+    * X: the x stage of every pass but B and BF holds :func:`_x_seq`
+      sequences of X complex values, 16 up to 1816 and down to 2 at 14528;
+    * Y: the y stage of the same passes holds :func:`_y_rows` rows, 16 up to
+      512, 8 to 3632, down to 2 at 14528; any split of Y is served;
+    * Z: the z stage of passes B and BF holds :func:`_z_cols` columns, 16 up
+      to 1816, down to 2 at 14528;
+    * every prime factor of X, Y and Z at most 1024, the largest radix of a
+      generic stage; every multiple of 8 up to 8192 meets it, 8248 = 8·1031
+      does not.  No length up to 14528 needs more than the 16 stages a plan
+      holds."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
     if device is None or torch.device(device).type != "cuda":
         return None
-    if _fft_y_smem(Y) > _FFT_SMEM_MAX:
-        return (
-            f"Y={Y}: the FFT y stage needs {_fft_y_smem(Y)} B of shared memory, over "
-            f"{_FFT_SMEM_MAX}"
-        )
-    if _x_smem(X) > _FFT_SMEM_MAX:
-        return f"X={X}: the FFT x stage needs {_x_smem(X)} B of shared memory, over {_FFT_SMEM_MAX}"
-    if Z > _Z_MAX:
-        return f"Z={Z}: the z stage of passes B and BF has run up to Z={_Z_MAX}"
+    for axis, n, tile in (("X", X, _x_seq), ("Y", Y, _y_rows), ("Z", Z, _z_cols)):
+        if not tile(n):
+            return (f"{axis}={n}: no tile of its FFT stage fits {_FFT_SMEM_MAX} B of"
+                    " shared memory (a tile of two fits up to 14528)")
+        prime = _largest_prime_factor(n)
+        if prime > _MAX_RADIX:
+            return (f"{axis}={n}: its prime factor {prime} is over {_MAX_RADIX}, the largest"
+                    " radix of a generic FFT stage")
     return None
 
 
@@ -183,7 +210,7 @@ def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int,
     """(Z, X, Y) of a transposed volume the engine can serve on ``device``
     (:func:`fused_limit`).  Raises ValueError for a shape the engine cannot
     serve anywhere, NotImplementedError for one the CUDA passes cannot
-    serve yet."""
+    serve (an axis past 14528 or with a prime factor over 1024)."""
     if len(shape) != 3:
         raise ValueError("the fused engine operates on single volumes")
     Z, X, Y = (int(s) for s in shape)
@@ -192,7 +219,7 @@ def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int,
         raise ValueError(why)
     why = fused_limit((Z, X, Y), device)
     if why:
-        raise NotImplementedError(f"fused engine on the card, ZXY={(Z, X, Y)}: {why} ({_CARD_LATER})")
+        raise NotImplementedError(f"fused engine on the card, ZXY={(Z, X, Y)}: {why}; {_CARD_REFUSED}")
     return Z, X, Y
 
 
@@ -218,22 +245,17 @@ class _PlanArgs(ctypes.Structure):
 
 
 class PlanTensors:
-    """A plan's constants as float32 tensors on one device, and for a CUDA
-    device the kernel's argument struct pointing at them.  Every launch
-    reads a plan through this class, so this is where a shape outside the
-    CUDA passes' limits (:func:`fused_limit`) raises."""
+    """A plan's tables on one device.  For a CUDA device, the FFT stage
+    tables of its x, y and z lengths and the kernels' argument struct
+    pointing at them, made here; the plan's dense matrices, which only the
+    plain passes read, as float32 tensors uploaded on first use.  Every
+    launch reads a plan through this class, so this is where a shape
+    outside the CUDA passes' limits (:func:`fused_limit`) raises."""
 
     def __init__(self, plan: FusedPlan, device: torch.device):
         Z, Y, X = plan.shape
         check_transposed_shape((Z, X, Y), device)
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=device).contiguous()
-
-        self.plan = plan
-        self.fxp, self.bxp = t(plan.fxp), t(plan.bxp)
-        self.wfy, self.wiy = tuple(map(t, plan.sy.wf)), tuple(map(t, plan.sy.wi))
-        self.wfz, self.wiz = tuple(map(t, plan.sz.wf)), tuple(map(t, plan.sz.wi))
+        self.plan, self.device = plan, device
         self.args = None
         if device.type != "cuda":
             return
@@ -242,14 +264,39 @@ class PlanTensors:
         ffts = []
         for n in (X, Y, Z):
             st = make_fft_stages(n)
-            tw = t(np.stack([st.tw.real, st.tw.imag], axis=-1))
+            tw = self._upload(np.stack([st.tw.real, st.tw.imag], axis=-1))
             pos = torch.as_tensor(st.pos, device=device)
             self.fft.append((tw, pos))
             radix = (ctypes.c_int * FFT_MAX_STAGES)(*st.radices)
             ffts.append(_FftArgs(n, len(st.radices), radix, ptr(tw), ptr(pos)))
-        self.args = _PlanArgs(
-            Z, X, Y, plan.kxh, plan.kxp, plan.sy.R, plan.sy.M, plan.sz.R, plan.sz.M, *ffts,
-        )
+        self.args = _PlanArgs(Z, X, Y, plan.kxh, plan.kxp, *plan.split_y, *plan.split_z, *ffts)
+
+    def _upload(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device).contiguous()
+
+    @functools.cached_property
+    def fxp(self) -> torch.Tensor:
+        return self._upload(self.plan.fxp)
+
+    @functools.cached_property
+    def bxp(self) -> torch.Tensor:
+        return self._upload(self.plan.bxp)
+
+    @functools.cached_property
+    def wfy(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(map(self._upload, self.plan.sy.wf))
+
+    @functools.cached_property
+    def wiy(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(map(self._upload, self.plan.sy.wi))
+
+    @functools.cached_property
+    def wfz(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(map(self._upload, self.plan.sz.wf))
+
+    @functools.cached_property
+    def wiz(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(map(self._upload, self.plan.sz.wi))
 
 
 _tensors = {}
@@ -344,6 +391,13 @@ def _stored(pair: Pair, spec: torch.dtype) -> Pair:
     return tuple(t.to(spec) for t in pair)
 
 
+def _widened(*ts):
+    """The spectra a plain pass computes on: bf16 widened to float32, other
+    dtypes as they are (float32; float64 where a caller evaluates a plain
+    pass wider, with the plan's constants widened too)."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+
+
 def pass_a_plain(xt: torch.Tensor, c: PlanTensors, spec=torch.float32) -> Pair:
     """Plain K4: t = fxp @ plane for every plane, then the split y-DFT;
     stored as ``spec``."""
@@ -363,7 +417,7 @@ def pass_b_plain(u_re, u_im, k_re, k_im, c: PlanTensors, conj_k: bool = False,
     """Plain K6: split z-DFT, × K̂ (or conj K̂), split z-inverse, per slice,
     on the widened spectra; stored as ``spec``."""
     plan, R = c.plan, c.plan.sz.R
-    u_re, u_im, k_re, k_im = (t.float() for t in (u_re, u_im, k_re, k_im))
+    u_re, u_im, k_re, k_im = _widened(u_re, u_im, k_re, k_im)
     v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
     kr, ki = _blocks(k_re, R, 1), _blocks(-k_im if conj_k else k_im, R, 1)
     p_re = [v_re[q] * kr[q] - v_im[q] * ki[q] for q in range(R)]
@@ -376,7 +430,7 @@ def pass_bf_plain(u_re, u_im, c: PlanTensors, spec=torch.float32) -> Pair:
     """Plain K5: the split z-DFT of pass B alone, per x-frequency slice, on
     the widened spectrum; stored as ``spec``."""
     plan, R = c.plan, c.plan.sz.R
-    u_re, u_im = u_re.float(), u_im.float()
+    u_re, u_im = _widened(u_re, u_im)
     v_re, v_im = _fwd_split(_blocks(u_re, R, 1), _blocks(u_im, R, 1), c.wfz, plan.sz.omf, False)
     return _stored(_zero_pad_rows(torch.cat(v_re, dim=1), torch.cat(v_im, dim=1), plan.kxh), spec)
 
@@ -385,7 +439,7 @@ def pass_c_plain(v_re, v_im, c: PlanTensors) -> torch.Tensor:
     """Plain K7: split y-inverse and packed x-irfft, (Kxp, Z, Y) -> (Z, X, Y),
     on the widened spectrum.  Also the C half of K8, K9 and K10."""
     plan, R = c.plan, c.plan.sy.R
-    v_re, v_im = v_re.float(), v_im.float()
+    v_re, v_im = _widened(v_re, v_im)
     t_re, t_im = _inv_split(
         _blocks(v_re.transpose(0, 1), R, -1), _blocks(v_im.transpose(0, 1), R, -1),
         c.wiy, plan.sy.omi, True,
@@ -417,8 +471,10 @@ def pass_cua_plain(v_re, v_im, psi_t, weights, c: PlanTensors, lam, min_value,
 # ---------------------------------------------------------------- wrappers
 
 
-def _plan_for(xt_shape, plan: Optional[FusedPlan]) -> FusedPlan:
-    Z, X, Y = check_transposed_shape(xt_shape)
+def _plan_for(xt_shape, plan: Optional[FusedPlan], device=None) -> FusedPlan:
+    """``plan``, or a new plan for a (Z, X, Y) volume; a shape ``device``
+    cannot serve raises first."""
+    Z, X, Y = check_transposed_shape(xt_shape, device)
     if plan is None:
         return make_fused_plan((Z, Y, X))
     if tuple(plan.shape) != (Z, Y, X):
@@ -527,7 +583,7 @@ def _check_aligned(**tensors):
 def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pair] = None) -> Pair:
     """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum, stored
     as :func:`spec_dtype`."""
-    plan, spec = _plan_for(xt.shape, plan), spec_dtype()
+    plan, spec = _plan_for(xt.shape, plan, xt.device), spec_dtype()
     _check_f32("xt", xt, None)
     if out is not None:
         _check_pair("out", out, plan, spec)
@@ -718,7 +774,7 @@ def fused_convolve_transposed(xt: torch.Tensor, k_re, k_im, conj_k: bool = False
     kernel spectrum (:func:`kernel_spectrum_fused`), or with its conjugate
     (``conj_k``): passes A, B, C (``fused_dft2.py:2005``).  Returns the
     transposed convolved volume."""
-    plan = _plan_for(xt.shape, None)
+    plan = _plan_for(xt.shape, None, xt.device)
     u = pass_a(xt, plan)
     v = pass_b(*u, k_re, k_im, plan, conj_k=conj_k, out=u)
     return pass_c(*v, plan)
@@ -751,7 +807,7 @@ def fused_rl_step_transposed(
     :func:`..deconv.rl.rl_view_step` (the JAX function takes the weights
     before the spectra).  The passes after A reuse one spectrum pair in
     place.  ``out=psi_t`` updates psi in place."""
-    plan = _plan_for(psi_t.shape, None)
+    plan = _plan_for(psi_t.shape, None, psi_t.device)
     u = pass_a(psi_t, plan)
     v = pass_b(*u, *k1, plan, out=u)
     u = pass_cqa(*v, view_t, plan, out=v)
@@ -762,7 +818,7 @@ def fused_rl_step_transposed(
 def fused_forward_transposed(xt: torch.Tensor) -> Pair:
     """Pass A alone (``fused_dft2.py:2097``): the spectrum that seeds the
     carried chain, once per deconvolve call."""
-    return pass_a(xt, _plan_for(xt.shape, None))
+    return pass_a(xt, _plan_for(xt.shape, None, xt.device))
 
 
 def fused_rl_step_carried(
@@ -787,7 +843,7 @@ def fused_rl_step_carried(
     :func:`fused_rl_step_transposed` followed by pass A, with one read of
     psi' and one pass fewer.  The passes run in place in ``u``'s buffers,
     which hold the returned spectrum; ``out=psi_t`` updates psi in place."""
-    plan = _plan_for(psi_t.shape, None)
+    plan = _plan_for(psi_t.shape, None, psi_t.device)
     v = pass_b(*u, *k1, plan, out=u)
     u = pass_cqa(*v, view_t, plan, out=v)
     v = pass_b(*u, *k2, plan, conj_k=conj_k2, out=u)
@@ -856,7 +912,7 @@ def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
     small = wrap_kernel(kernel, (zs, Y, X))
     u = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
     u_re, u_im = (t.float() for t in u)
-    tr, ti = _sparse_table(Z, kz, plan.sz.R, plan.sz.M, str(kernel.device))
+    tr, ti = _sparse_table(Z, kz, *plan.split_z, str(kernel.device))
     e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
     # einsum may return a permuted layout (it does on CUDA); the passes
     # take contiguous (Kxp, Z, Y) spectra

@@ -25,6 +25,8 @@ complex form, the hermitian fold and split-x) are not: ``fold_x=True``,
 from __future__ import annotations
 
 import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -50,26 +52,72 @@ class SplitSpec(NamedTuple):
     omi: np.ndarray
 
 
-class FusedPlan(NamedTuple):
-    """The dense packed plan: x matrices, y stage (right-multiplied) and z
-    stage (left-multiplied)."""
+class FusedPlan:
+    """The dense packed plan of a (Z, Y, X) shape: x matrices, y stage
+    (right-multiplied) and z stage (left-multiplied).
 
-    fxp: np.ndarray  # (2*Kxp, X) packed forward x: [cos; pad; -sin; pad]
-    sy: SplitSpec
-    sz: SplitSpec
-    bxp: np.ndarray  # (X, 2*Kxp) packed inverse x: [w*cos/X | pad | -w*sin/X | pad]
-    shape: Tuple[int, int, int]  # (Z, Y, X)
-    kxh: int  # Kx = X//2 + 1
-    kxp: int  # Kx rounded up to a multiple of 8
+    Making a plan sets only its shape, Kx, Kxp and the stage splits, which
+    is all the CUDA passes read (their FFT stage tables come from
+    :func:`make_fft_stages`).  The dense matrices, which only the plain
+    passes read, are built on first use and kept: an unsplit stage of
+    length 14528 holds six 14528² float32 matrices, 5 GB."""
+
+    def __init__(self, shape: Tuple[int, int, int]):
+        Z, Y, X = shape
+        self.shape = (Z, Y, X)
+        self.kxh = X // 2 + 1  # Kx
+        self.kxp = -(-self.kxh // 8) * 8  # Kx rounded up to a multiple of 8
+        self.split_z, self.split_y = pick_split(Z), pick_split(Y)
 
     @property
     def kx(self) -> int:
         return self.kxh
 
+    @functools.cached_property
+    def _x(self) -> Tuple[np.ndarray, np.ndarray]:
+        return _make_x(self.shape[2], self.kxh, self.kxp)
+
+    @property
+    def fxp(self) -> np.ndarray:
+        """(2*Kxp, X) packed forward x: [cos; pad; -sin; pad]."""
+        return self._x[0]
+
+    @property
+    def bxp(self) -> np.ndarray:
+        """(X, 2*Kxp) packed inverse x: [w*cos/X | pad | -w*sin/X | pad]."""
+        return self._x[1]
+
+    @functools.cached_property
+    def sy(self) -> SplitSpec:
+        return _make_split(self.shape[1], self.split_y, orient="right")
+
+    @functools.cached_property
+    def sz(self) -> SplitSpec:
+        return _make_split(self.shape[0], self.split_z, orient="left")
+
 
 def _triple(a: np.ndarray, b: np.ndarray):
     f32 = lambda m: np.asarray(m, np.float32)
     return (f32(a), f32(b), f32(a + b))
+
+
+# rows of a dense stage matrix built at a time: the whole-array expressions
+# of the JAX package, applied to row blocks, give each value bitwise, and a
+# (N, N) table at N = 14528 then needs its float32 results only (5 GB for a
+# split stage's six) instead of 15 GB of complex128 temporaries
+_BLOCK_ROWS = 256
+
+
+def _by_rows(n_rows: int, fill) -> None:
+    """``fill(r0, r1)`` over blocks of rows, on a thread pool when there are
+    several (numpy's elementwise functions release the GIL)."""
+    blocks = [(r, min(r + _BLOCK_ROWS, n_rows)) for r in range(0, n_rows, _BLOCK_ROWS)]
+    if len(blocks) == 1:
+        fill(*blocks[0])
+        return
+    with ThreadPoolExecutor(min(len(blocks), os.cpu_count() or 1)) as pool:
+        for done in [pool.submit(fill, *b) for b in blocks]:
+            done.result()
 
 
 def pick_split(n: int) -> Tuple[int, int]:
@@ -93,30 +141,39 @@ def _make_split(
         raise NotImplementedError(f"cmul={cmul!r} {_LATER}")
     R, M = split
     assert R * M == n, (R, M, n)
-    jm = np.outer(np.arange(M), np.arange(M)) * (2.0 * np.pi / M)
     qj = np.outer(np.arange(R), np.arange(M)) * (2.0 * np.pi / n)
     f32 = lambda m: np.asarray(m, np.float32)
-    Wf = np.exp(-1j * jm)
-    Wi = np.exp(+1j * jm) / M
-    if R > 1:
-        twf_q = np.exp(-1j * qj)  # (R, M)
-        twi_q = np.exp(+1j * qj)
-        if orient == "right":
-            fq = [twf_q[q][:, None] * Wf for q in range(R)]
-            iq = [Wi * twi_q[q][None, :] for q in range(R)]
-        else:
-            fq = [Wf * twf_q[q][None, :] for q in range(R)]
-            iq = [twi_q[q][:, None] * Wi for q in range(R)]
-    else:
-        fq, iq = [Wf], [Wi]
-    Fs = np.concatenate(fq, axis=0)  # (R*M, M) folded, (M, M) plain
-    Is = np.concatenate(iq, axis=0)
+    twf_q = np.exp(-1j * qj)  # (R, M)
+    twi_q = np.exp(+1j * qj)
+    wf = tuple(np.empty((R * M, M), np.float32) for _ in range(3))
+    wi = tuple(np.empty((R * M, M), np.float32) for _ in range(3))
+
+    def fill(j0, j1):
+        # rows j0..j1 of the (M, M) DFT matrices, then of each per-q block of
+        # the (R*M, M) stacks (twiddle-folded when R > 1)
+        jm = np.outer(np.arange(j0, j1), np.arange(M)) * (2.0 * np.pi / M)
+        Wf = np.exp(-1j * jm)
+        Wi = np.exp(+1j * jm) / M
+        for q in range(R):
+            if R == 1:
+                fq, iq = Wf, Wi
+            elif orient == "right":
+                fq = twf_q[q][j0:j1, None] * Wf
+                iq = Wi * twi_q[q][None, :]
+            else:
+                fq = Wf * twf_q[q][None, :]
+                iq = twi_q[q][j0:j1, None] * Wi
+            for out, F in ((wf, fq), (wi, iq)):
+                for o, part in zip(out, _triple(F.real, F.imag)):
+                    o[q * M + j0 : q * M + j1] = part
+
+    _by_rows(M, fill)
     return SplitSpec(
         R=R,
         M=M,
-        wf=_triple(Fs.real, Fs.imag),
+        wf=wf,
         twf=(f32(np.cos(qj)), f32(-np.sin(qj))),
-        wi=_triple(Is.real, Is.imag),
+        wi=wi,
         twi=(f32(np.cos(qj)), f32(np.sin(qj))),
         omf=np.exp(-2j * np.pi / R * np.outer(np.arange(R), np.arange(R))),
         omi=np.exp(+2j * np.pi / R * np.outer(np.arange(R), np.arange(R))) / R,
@@ -142,36 +199,30 @@ def make_fused_plan(
 
 @functools.lru_cache(maxsize=64)
 def _make_fused_plan(shape: Tuple[int, int, int]) -> FusedPlan:
-    Z, Y, X = shape
-    kx = X // 2 + 1
-    splits = (pick_split(Z), pick_split(Y))
+    return FusedPlan(shape)
 
-    tx = 2.0 * np.pi * np.outer(np.arange(kx), np.arange(X)) / X
 
+def _make_x(X: int, kx: int, kxp: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(fxp, bxp), the packed forward and inverse x matrices."""
     # hermitian doubling weights for the real x-inverse
     w = np.full(kx, 2.0)
     w[0] = 1.0
     if X % 2 == 0:
         w[-1] = 1.0
 
-    kxp = -(-kx // 8) * 8  # 8-row aligned pack stride
     fxp = np.zeros((2 * kxp, X), np.float32)
-    fxp[:kx] = np.cos(tx)
-    fxp[kxp : kxp + kx] = -np.sin(tx)
     bxp = np.zeros((X, 2 * kxp), np.float32)
-    bxp[:, :kx] = (w[None, :] * np.cos(tx).T) / X
-    bxp[:, kxp : kxp + kx] = -(w[None, :] * np.sin(tx).T) / X
 
-    f32 = lambda a: np.asarray(a, np.float32)
-    return FusedPlan(
-        fxp=f32(fxp),
-        sy=_make_split(Y, splits[1], orient="right"),
-        sz=_make_split(Z, splits[0], orient="left"),
-        bxp=f32(bxp),
-        shape=(Z, Y, X),
-        kxh=kx,
-        kxp=kxp,
-    )
+    def fill(k0, k1):
+        # x-frequencies k0..k1: rows of fxp, columns of bxp
+        tx = 2.0 * np.pi * np.outer(np.arange(k0, k1), np.arange(X)) / X
+        fxp[k0:k1] = np.cos(tx)
+        fxp[kxp + k0 : kxp + k1] = -np.sin(tx)
+        bxp[:, k0:k1] = (w[None, k0:k1] * np.cos(tx).T) / X
+        bxp[:, kxp + k0 : kxp + k1] = -(w[None, k0:k1] * np.sin(tx).T) / X
+
+    _by_rows(kx, fill)
+    return fxp, bxp
 
 
 def split_perm(n: int, split: Tuple[int, int]) -> np.ndarray:

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.shapes import halo_widths
-from ..deconv.rl import _apply_update, _select_rl_update, rl_view_step_fused
+from ..deconv.rl import _apply_update, _fused_timed, _select_rl_update, rl_view_step_fused
 from ..deconv.workspace import MultiViewData, check_simultaneous_weights
 from ..ops.elementwise import quotient, rl_update
 from ..ops.fused import check_transposed_shape, fused_limit, kernel_spectrum_fused
@@ -269,20 +269,30 @@ def sharded_fused_eligible(spatial, mesh: Mesh, halo: int = 0) -> bool:
     dev = mesh.devices.flat[0]
     if dev.type != "cuda":
         return False
-    ze = Z if zsize == 1 else zblock_fused_extent(Z // zsize, halo, 0)
+    ze, Y, X = _fused_local_shape(spatial, mesh, halo)
     return fused_limit((ze, X, Y), dev) is None
+
+
+def _fused_local_shape(spatial, mesh: Mesh, halo: int) -> Tuple[int, int, int]:
+    """The (Z, Y, X) a cell's fused engine runs on: the whole volume with
+    one z block, else the 8-aligned halo-extended block."""
+    Z, Y, X = (int(s) for s in spatial[-3:])
+    zsize = mesh.shape["z"]
+    return (Z if zsize == 1 else zblock_fused_extent(Z // zsize, halo, 0), Y, X)
 
 
 def _mesh_algorithm(algorithm: str, spatial, mesh: Mesh, ext_max: int, halo: int) -> str:
     """The engine of a mesh request.  'auto': on a CUDA cell the port's
-    H100 rule at the local extent (fused where eligible and ``ext_max`` is
-    at least 256, else fft, never dft); on the CPU JAX's rule
-    (``sharded.py:309-319``)."""
+    H100 rule at the local extent (fused where eligible, ``ext_max`` is at
+    least 256 and the local shape is of a class timed against fft,
+    :func:`..deconv.rl._fused_timed`, else fft, never dft); on the CPU
+    JAX's rule (``sharded.py:309-319``)."""
     if algorithm != "auto":
         return algorithm
     fused = ext_max >= 256 and sharded_fused_eligible(spatial, mesh, halo)
     if mesh.devices.flat[0].type == "cuda":
-        return "fused" if fused else "fft"
+        timed = fused and _fused_timed(_fused_local_shape(spatial, mesh, halo))
+        return "fused" if timed else "fft"
     if fused:
         return "fused"
     return "dft" if ext_max <= 256 else "fft"

@@ -77,8 +77,9 @@ def test_resolve_algorithm_matches_jax_on_the_cpu(algorithm, shape):
 
 
 # the CUDA table (PERF.md §6; chip_smoke.py phase 22 on an H100): fused
-# where every axis is at least 256 and the CUDA passes serve the shape, else
-# fft, never dft; a streamed chunk is never fused
+# where every axis is at least 256, the CUDA passes serve the shape and it
+# is of a class timed against fft, else fft, never dft; a streamed chunk is
+# never fused
 CUDA_TABLE = [
     ((64, 64, 64), "fft", "fft"),
     ((128, 128, 128), "fft", "fft"),
@@ -86,7 +87,18 @@ CUDA_TABLE = [
     ((512, 512, 512), "fused", "fft"),
     ((32, 512, 512), "fft", "fft"),
     ((300, 512, 512), "fft", "fft"),
-    ((1024, 512, 512), "fft", "fft"),
+    ((256, 256, 1016), "fused", "fft"),  # a generic radix (127) within the widest tiles
+    # past Z = 736 or X = 1816: fused 1.36x and 1.18x fft (PERF.md §6)
+    ((1024, 512, 512), "fused", "fft"),
+    ((256, 1024, 2048), "fused", "fft"),
+    ((768, 256, 256), "fused", "fft"),  # 3·256, z tile 16
+    ((256, 256, 3600), "fused", "fft"),  # 2^4·3^2·5^2, x tile 8
+    # classes never timed against fft: a generic radix past X = 1816
+    # (2008 = 8·251), tiles under 8 (X or Y of 3640), z tile 8 (Z = 1824)
+    ((256, 256, 2008), "fft", "fft"),
+    ((256, 256, 3640), "fft", "fft"),
+    ((256, 3640, 256), "fft", "fft"),
+    ((1824, 256, 256), "fft", "fft"),
 ]
 
 

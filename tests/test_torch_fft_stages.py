@@ -14,15 +14,18 @@ the kernels must agree with, and the plan they follow:
 * a numpy emulation of the kernels' in-place decimation-in-time stages,
   reading the tables of ``fused_plan.make_fft_stages`` as the kernels do,
   reproduces ``np.fft.fft`` (and its unscaled inverse) to 1e-6 of max|·| at
-  every X the fused engine serves (8 to 1816) and at Y of 200, 1016 and the
-  split lengths; so does the emulation of the z stage's transposed forward
-  stages (natural order in, frequency f at ``pos[f]`` out);
+  every X from 8 to 1816, at Y of 200, 1016 and the split lengths, and at
+  3640, 8168 = 8·1021 and 14528, the narrow tiles' lengths; so does the
+  emulation of the z stage's transposed forward stages (natural order in,
+  frequency f at ``pos[f]`` out), there too;
 * the emulation of the whole z stage (load, forward, the kernel spectrum
   gathered at ``split_freq``, inverse, store) reproduces the plain K5 and K6
   to the tolerance of the plain passes;
 * the emulation of the x and y stages as the kernels run them (the loads at
   ``pos[]``, the hermitian edge rule and split, the split order of y)
-  reproduces the plain K4 and K7; K8's three launches (K7's y stage,
+  reproduces the plain K4 and K7, and with K8 at each tile width of the x
+  stage (16, 8, 4 and 2 sequences, the column pairs taken tile by tile,
+  columns past Y zero); K8's three launches (K7's y stage,
   the x stage that holds the inverse x FFT, K2's quotient and the
   transposed forward stages, K4's y stage) reproduce the plain K8, K9's two
   (K7's with K1's update in place of its store) the plain K9, and K10's
@@ -33,7 +36,9 @@ the kernels must agree with, and the plan they follow:
   PyTorch's CPU sqrt is an ulp off numpy's on some inputs near 1, which
   the Tikhonov step's cancellation amplifies;
 * every length ``fused_limit`` admits on the card has a stage plan and a
-  shared-memory size the kernels accept;
+  tile the kernels accept, by the tile rules read from ``fft_stage.cuh``:
+  each axis up to 14528 whose prime factors are at most 1024; the plans
+  build at the new edges;
 * the ctypes mirror of the kernels' plan struct keeps the C layout.
 """
 
@@ -59,6 +64,11 @@ FFT_RTOL = 1e-6
 SHAPES = [(8, 24, 40), (8, 256, 16), (8, 512, 24), (8, 200, 264)]
 X_LENGTHS = [8 * i for i in range(1, 228)]
 Y_LENGTHS = [200, 256, 512, 968, 1016, 1024]
+# lengths past the widest tiles: 4 sequences (3640), a generic radix of 1021
+# (8168 = 8·1021), and 2 sequences filling shared memory (14528 = 64·227)
+NARROW_LENGTHS = [3640, 8168, 14528]
+# the tile widths of the FFT stages (fft_stage.cuh with_tile)
+TILES = [16, 8, 4, 2]
 
 
 def _pair_rel(got, want):
@@ -153,7 +163,7 @@ def _emulate(stages: fp.FftStages, x: np.ndarray, inverse: bool) -> np.ndarray:
     return _run_stages(stages, buf, inverse)[:, 0]
 
 
-@pytest.mark.parametrize("n", X_LENGTHS + Y_LENGTHS)
+@pytest.mark.parametrize("n", X_LENGTHS + Y_LENGTHS + NARROW_LENGTHS)
 def test_stage_emulation_reproduces_numpy_fft(n):
     stages = fp.make_fft_stages(n)
     rng = np.random.default_rng(n)
@@ -164,8 +174,8 @@ def test_stage_emulation_reproduces_numpy_fft(n):
 
 
 # Z of the z stage: R = 1, 2 and 4 split lengths, radices 5, 3 and 11, 23,
-# 89, and the two ends of what the card serves
-Z_LENGTHS = [8, 32, 200, 256, 264, 512, 712, 736]
+# 89, the old edge of the card (736), and the narrow tiles' lengths
+Z_LENGTHS = [8, 32, 200, 256, 264, 512, 712, 736] + NARROW_LENGTHS
 
 
 @pytest.mark.parametrize("n", Z_LENGTHS)
@@ -192,7 +202,7 @@ def _z_inputs(Z, seed):
 
 
 @pytest.mark.parametrize("conj_k", [False, True])
-@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736])
+@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736, 744, 1824])
 def test_z_stage_plain_passes_are_the_z_fft(Z, conj_k):
     """Plain K6 is ifft(fft(u, z) · K̂, z) with K̂ taken from z's split order
     (or its conjugate); plain K5 is fft(u, z) stored in the split order."""
@@ -234,7 +244,7 @@ def _emulate_z_stage(plan, u, k, conj_k, fwd_only):
 
 
 @pytest.mark.parametrize("conj_k", [False, True])
-@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736])
+@pytest.mark.parametrize("Z", [32, 256, 512, 200, 736, 744, 1824])
 def test_z_stage_emulation_reproduces_the_plain_passes(Z, conj_k):
     plan, u, k = _z_inputs(Z, 2 * Z + conj_k)
     c = fu.plan_tensors(plan, torch.device("cpu"))
@@ -266,51 +276,65 @@ def _emulate_y_stage(stages, rows, split, inverse):
     return _run_stages(stages, buf, False)[freq].T
 
 
-def _pair_columns(vol):
-    """(X, Z, Y) real columns -> (X, Z·Y/2) sequences: column 2s the real
-    part of sequence s, column 2s + 1 its imaginary part."""
-    return _c64(vol[..., 0::2], vol[..., 1::2]).reshape(vol.shape[0], -1)
+def _tiled(a, seq):
+    """``a`` (..., Y) as the x stage's blocks see it: tiles of 2·seq columns,
+    (..., tiles, 2·seq), the columns past Y zero."""
+    pad = -a.shape[-1] % (2 * seq)
+    a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), a.dtype)], axis=-1)
+    return a.reshape(a.shape[:-1] + (-1, 2 * seq))
 
 
-def _unpair_columns(buf, Z, Y):
+def _pair_columns(vol, seq):
+    """(X, Z, Y) real columns -> (X, Z·tiles·seq) sequences, tile by tile:
+    column 2s of a tile the real part of the tile's sequence s, column
+    2s + 1 its imaginary part."""
+    tiles = _tiled(vol, seq)
+    return _c64(tiles[..., 0::2], tiles[..., 1::2]).reshape(vol.shape[0], -1)
+
+
+def _unpair_columns(buf, Z, Y, seq):
+    """The inverse of :func:`_pair_columns`; the columns past Y dropped."""
     X = buf.shape[0]
-    vol = np.empty((X, Z, Y), np.float32)
-    vol[..., 0::2] = buf.real.reshape(X, Z, Y // 2)
-    vol[..., 1::2] = buf.imag.reshape(X, Z, Y // 2)
-    return vol
+    seqs = buf.reshape(X, Z, -1, seq)
+    vol = np.empty(seqs.shape[:-1] + (2 * seq,), np.float32)
+    vol[..., 0::2], vol[..., 1::2] = seqs.real, seqs.imag
+    return vol.reshape(X, Z, -1)[..., :Y]
 
 
-def _load_half_spectra(stages, t):
-    """load_half_spectra: the (Kx, Z, Y) half spectra A (even columns) and B
-    (odd) of each column pair become Z_k = A_k + i B_k at pos[k] and
-    Z_{X-k} = conj A_k + i conj B_k at pos[X-k]; at k = 0 and X/2 the
-    imaginary parts are dropped and only pos[k] is written."""
+def _load_half_spectra(stages, t, seq):
+    """load_half_spectra, tile by tile: the (Kx, Z, Y) half spectra A (even
+    columns of a tile) and B (odd) of each column pair become
+    Z_k = A_k + i B_k at pos[k] and Z_{X-k} = conj A_k + i conj B_k at
+    pos[X-k]; at k = 0 and X/2 the imaginary parts are dropped and only
+    pos[k] is written."""
     X = stages.n
-    kx, Z, Y = t.shape
-    re, im = t.real, t.imag.copy()
+    kx = t.shape[0]
+    tiles = _tiled(t, seq)
+    re, im = tiles.real, tiles.imag.copy()
     k = np.arange(kx)
     edge = (k == 0) | (2 * k == X)
     im[edge] = 0.0
     a_re, a_im, b_re, b_im = re[..., 0::2], im[..., 0::2], re[..., 1::2], im[..., 1::2]
-    buf = np.empty((X, Z * Y // 2), np.complex64)
-    buf[stages.pos[k]] = _c64(a_re - b_im, a_im + b_re).reshape(kx, -1)
-    buf[stages.pos[X - k[~edge]]] = _c64(a_re + b_im, b_re - a_im)[~edge].reshape(-1, Z * Y // 2)
+    n = a_re[0].size
+    buf = np.empty((X, n), np.complex64)
+    buf[stages.pos[k]] = _c64(a_re - b_im, a_im + b_re).reshape(kx, n)
+    buf[stages.pos[X - k[~edge]]] = _c64(a_re + b_im, b_re - a_im)[~edge].reshape(-1, n)
     return buf
 
 
-def _store_half_spectra(F, at, Z, Y):
-    """store_half_spectra: A_k = (F_k + conj F_{X-k}) / 2 into the even
-    columns, B_k = (F_k - conj F_{X-k}) / 2i into the odd ones, F_k read at
-    at[k], for k < Kx."""
+def _store_half_spectra(F, at, Z, Y, seq):
+    """store_half_spectra, tile by tile: A_k = (F_k + conj F_{X-k}) / 2 into
+    the even columns of a tile, B_k = (F_k - conj F_{X-k}) / 2i into the odd
+    ones, F_k read at at[k], for k < Kx; the columns past Y not stored."""
     X = F.shape[0]
     kx = X // 2 + 1
     k = np.arange(kx)
     a, b = F[at[k]], F[at[(X - k) % X]]
-    out = np.empty((kx, Z, Y), np.complex64)
-    half = lambda v: (v * np.float32(0.5)).reshape(kx, Z, Y // 2)
+    out = np.empty((kx, Z, F.shape[1] // (Z * seq), 2 * seq), np.complex64)
+    half = lambda v: (v * np.float32(0.5)).reshape(out.shape[:-1] + (seq,))
     out[..., 0::2] = _c64(half(a.real + b.real), half(a.imag - b.imag))
     out[..., 1::2] = _c64(half(a.imag + b.imag), half(b.real - a.real))
-    return out
+    return out.reshape(kx, Z, -1)[..., :Y]
 
 
 def _fused_stages(plan):
@@ -327,11 +351,11 @@ def _y_inverse(plan, v):
     return _emulate_y_stage(fy, rows, split, True).reshape(kx, Z, Y)
 
 
-def _x_inverse(plan, t):
+def _x_inverse(plan, t, seq):
     """K7's x stage up to its store: natural x, times 1/X, (X, Z, Y)."""
     Z, Y, X, _, _, fx, _ = _fused_stages(plan)
-    buf = _run_stages(fx, _load_half_spectra(fx, t), True)
-    return _unpair_columns(buf, Z, Y) * np.float32(1.0 / X)
+    buf = _run_stages(fx, _load_half_spectra(fx, t, seq), True)
+    return _unpair_columns(buf, Z, Y, seq) * np.float32(1.0 / X)
 
 
 def _y_forward(plan, t):
@@ -343,34 +367,36 @@ def _y_forward(plan, t):
     return out
 
 
-def _emulate_pass_a(plan, xt):
-    """K4's two launches on a (Z, X, Y) volume."""
+def _emulate_pass_a(plan, xt, seq=16):
+    """K4's two launches on a (Z, X, Y) volume, the x stage in tiles of
+    ``seq`` sequences."""
     Z, Y, X, _, _, fx, _ = _fused_stages(plan)
-    buf = np.empty((X, Z * Y // 2), np.complex64)
-    buf[fx.pos] = _pair_columns(xt.transpose(1, 0, 2))
+    pairs = _pair_columns(xt.transpose(1, 0, 2), seq)
+    buf = np.empty_like(pairs)
+    buf[fx.pos] = pairs
     F = _run_stages(fx, buf, False)
-    return _y_forward(plan, _store_half_spectra(F, np.arange(X), Z, Y))
+    return _y_forward(plan, _store_half_spectra(F, np.arange(X), Z, Y, seq))
 
 
-def _emulate_pass_c(plan, v):
+def _emulate_pass_c(plan, v, seq=16):
     """K7's two launches: the (Z, X, Y) volume."""
-    return _x_inverse(plan, _y_inverse(plan, v)).transpose(1, 0, 2)
+    return _x_inverse(plan, _y_inverse(plan, v), seq).transpose(1, 0, 2)
 
 
-def _forward_half(plan, vol):
+def _forward_half(plan, vol, seq):
     """The forward half of K8's and K10's x stage, then their last launch:
     the transposed forward stages on the (X, Z, Y) values in natural order,
     whose frequency f sits at pos[f] for the split, and K4's y stage."""
     Z, Y, _, _, _, fx, _ = _fused_stages(plan)
-    F = _run_stages_dif(fx, _pair_columns(vol))
-    return _y_forward(plan, _store_half_spectra(F, fx.pos, Z, Y))
+    F = _run_stages_dif(fx, _pair_columns(vol, seq))
+    return _y_forward(plan, _store_half_spectra(F, fx.pos, Z, Y, seq))
 
 
-def _emulate_pass_cqa(plan, v, view):
+def _emulate_pass_cqa(plan, v, view, seq=16):
     """K8's three launches; the x stage keeps K7's blurred column and takes
     lmvn::quotient_one against the view before the forward half."""
-    blurred = _x_inverse(plan, _y_inverse(plan, v))
-    return _forward_half(plan, view.transpose(1, 0, 2) * (np.float32(1.0) / blurred))
+    blurred = _x_inverse(plan, _y_inverse(plan, v), seq)
+    return _forward_half(plan, view.transpose(1, 0, 2) * (np.float32(1.0) / blurred), seq)
 
 
 def _rl_one(psi, integral, w, lam, min_value):
@@ -398,7 +424,7 @@ def _emulate_pass_cu(plan, v, psi, w, lam, min_value):
 def _emulate_pass_cua(plan, v, psi, w, lam, min_value):
     """K10's three launches: K9's psi', kept for the forward half."""
     new = _emulate_pass_cu(plan, v, psi, w, lam, min_value)
-    return new, _forward_half(plan, new.transpose(1, 0, 2))
+    return new, _forward_half(plan, new.transpose(1, 0, 2), 16)
 
 
 def _cqa_inputs(shape, seed):
@@ -419,6 +445,23 @@ def test_x_and_y_stage_emulation_reproduces_plain_k4_and_k7(shape):
     assert _pair_rel(_emulate_pass_a(plan, psi), u) <= PAIR_RTOL
     v = [t.numpy() for t in u]
     assert _pair_rel([_emulate_pass_c(plan, v)], [fu.pass_c_plain(*u, c)]) <= PAIR_RTOL
+
+
+@pytest.mark.parametrize("seq", TILES[1:])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_narrow_x_tiles_reproduce_plain_k4_k7_and_k8(shape, seq):
+    """The x stage with 8, 4 and 2 sequences a block (X past 1816, 3632 and
+    7264 on the card): each block pairs the columns of its own tile of
+    2·seq, the columns past Y zero, as the 16-sequence tile of the tests
+    above does; K4, K7 and K8 reproduce their plain versions."""
+    plan, c = _plain(shape)
+    psi, view = _cqa_inputs(shape, 9)
+    u = fu.pass_a_plain(torch.from_numpy(psi), c)
+    assert _pair_rel(_emulate_pass_a(plan, psi, seq), u) <= PAIR_RTOL
+    v = [t.numpy() for t in u]
+    assert _pair_rel([_emulate_pass_c(plan, v, seq)], [fu.pass_c_plain(*u, c)]) <= PAIR_RTOL
+    want = fu.pass_cqa_plain(*u, torch.from_numpy(view), c)
+    assert _pair_rel(_emulate_pass_cqa(plan, v, view, seq), want) <= PAIR_RTOL
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -548,35 +591,145 @@ def test_stage_tables(n):
         m *= r
 
 
+def _header_tile_rules():
+    """The tile rules of ``ops/csrc/fft_stage.cuh``, from its constants and
+    the three functions that apply them: (x_seq, y_rows, z_cols, largest
+    radix of a generic stage), each rule a function of the length."""
+    header = (Path(fu.__file__).parent / "csrc" / "fft_stage.cuh").read_text()
+
+    def const(name):
+        expr = re.search(rf"constexpr (?:int|size_t) {name} = ([^;]+);", header).group(1)
+        factors = [f.strip() for f in expr.split("*")]
+        return int(np.prod([const(f) if f.startswith("k") else int(f) for f in factors]))
+
+    flat = " ".join(header.split())
+    assert "inline int x_seq(int X) { return widest_tile(kXSeqMax, X); }" in flat
+    assert ("inline int y_rows(int Y) { return kYRowsMax * sizeof(float2) * Y <= kYSmemTarget"
+            " ? kYRowsMax : widest_tile(kYRowsMax / 2, Y); }") in flat
+    assert "inline int z_cols(int Z) { return widest_tile(kZColsMax, Z); }" in flat
+    assert "if (sizeof(float2) * p * n <= kSmemMax) return p;" in flat
+    smem, least = const("kSmemMax"), const("kMinTile")
+
+    def widest_tile(widest, n):
+        p = widest
+        while p >= least:
+            if 8 * p * n <= smem:
+                return p
+            p //= 2
+        return 0
+
+    y_max, y_target = const("kYRowsMax"), const("kYSmemTarget")
+    return (
+        lambda n: widest_tile(const("kXSeqMax"), n),
+        lambda n: y_max if y_max * 8 * n <= y_target else widest_tile(y_max // 2, n),
+        lambda n: widest_tile(const("kZColsMax"), n),
+        const("kMaxGenericRadix"),
+    )
+
+
 @pytest.mark.parametrize("axis", ["X", "Y", "Z"])
 def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
-    """``lmvn_fft::plan_ok`` in Python: every length that ``fused_limit``
-    admits on the card has at most 16 stages of radix 2 to 1024, and its x
-    stage (16 columns), y stage (16 rows up to Y = 512, else 8) and z stage
-    (``kZCols`` columns, read from the header) fit one block's shared memory.
-    Past Y = 3632 an unsplit row is refused, among them Y = 8248 = 8·1031,
-    whose prime factor no generic stage takes; past Z = 736, every Z."""
-    header = (Path(fu.__file__).parent / "csrc" / "fft_stage.cuh").read_text()
-    z_cols = int(re.search(r"constexpr int kZCols = (\d+);", header).group(1))
-    smem_max, admitted = 232448, []
-    for n in range(8, 8 * 1100 + 1, 8):
+    """``plan_ok`` of ``ops/csrc/fused.cu`` in Python, with the tile rules
+    read from ``fft_stage.cuh``: ``fused_limit`` admits a length on the card
+    exactly where its stage has a tile (``_x_seq``, ``_y_rows``,
+    ``_z_cols`` agree with the header's rule at every length) and its
+    stages are at most 16, of radix 2 to the largest generic radix.  So
+    every axis is served up to 14528, each tile keeps its width up to the
+    old edges (x and z 16 to 1816, y 16 to 512 and 8 to 3632), every
+    multiple of 8 up to 8192 is admitted, and 8248 = 8·1031 and 14536 are
+    refused."""
+    x_seq, y_rows, z_cols, max_radix = _header_tile_rules()
+    rule, mirror = {"X": (x_seq, fu._x_seq), "Y": (y_rows, fu._y_rows),
+                    "Z": (z_cols, fu._z_cols)}[axis]
+    admitted = []
+    for n in range(8, 14536 + 8 * 8 + 1, 8):
+        assert mirror(n) == rule(n), n
         zxy = {"X": (8, n, 8), "Y": (8, 8, n), "Z": (n, 8, 8)}[axis]
-        if fu.fused_limit(zxy, "cuda") is not None:
-            continue
-        admitted.append(n)
+        radices = fp.fft_radices(n)
+        kernels_accept = (rule(n) > 0 and len(radices) <= fp.FFT_MAX_STAGES
+                          and all(2 <= r <= max_radix for r in radices))
+        assert (fu.fused_limit(zxy, "cuda") is None) == kernels_accept, n
+        if kernels_accept:
+            admitted.append(n)
+    assert max_radix == 1024 and admitted[-1] == 14528
+    assert set(range(8, 8193, 8)) <= set(admitted)
+    assert 8248 not in admitted and 8168 in admitted
+    widest = {"X": [(1816, 16), (1824, 8), (3632, 8), (3640, 4), (7264, 4), (7272, 2)],
+              "Y": [(512, 16), (520, 8), (3632, 8), (3640, 4), (7264, 4), (7272, 2)],
+              "Z": [(736, 16), (1816, 16), (1824, 8), (3640, 4), (7272, 2)]}[axis]
+    assert [(n, rule(n)) for n, _ in widest] == widest
+    assert rule(14528) == 2 and rule(14536) == 0
+
+
+def test_build_compiles_every_tile_width_the_stages_dispatch():
+    """``with_tile`` in ``fft_stage.cuh`` dispatches to the widths 16, 8, 4
+    and 2, each of which ``LMVN_FFT_TILE`` declares extern; ``ops/_build``
+    compiles ``fft_tiles.cu`` once per width (``-DLMVN_TILE``), so every
+    launch the dispatch can reach is instantiated exactly once."""
+    from libmultiviewnative_torch.ops import _build
+
+    header = (Path(fu.__file__).parent / "csrc" / "fft_stage.cuh").read_text()
+    body = header[header.index("int with_tile(int p, Fn fn)"):header.index("// ---", header.index("int with_tile"))]
+    cases = [int(n) for n in re.findall(r"case (\d+):", body)]
+    externs = [int(n) for n in re.findall(r"^LMVN_FFT_TILE\(extern, (\d+)\)", header, re.M)]
+    assert cases == externs == list(_build._TILES) == TILES
+    units = [flags for src, flags, _ in _build._UNITS if src == "fft_tiles.cu"]
+    assert units == [(f"-DLMVN_TILE={p}",) for p in TILES]
+    assert sorted({src for src, _, _ in _build._UNITS}) == sorted(_build._SOURCES)
+
+
+def test_build_hash_covers_each_units_flags(monkeypatch):
+    """The library's directory is keyed by a hash that changes with a
+    unit's flags alone (a tile width added or dropped), so no stale library
+    is reused."""
+    from libmultiviewnative_torch.ops import _build
+
+    before = _build._digest()
+    assert _build._digest() == before
+    monkeypatch.setattr(_build, "_UNITS", _build._UNITS[:-1])
+    assert _build._digest() != before
+    monkeypatch.setattr(_build, "_UNITS", _build._UNITS[:-1] + (
+        ("fft_tiles.cu", ("-DLMVN_TILE=1",), "fft_tiles1"),))
+    assert _build._digest() != before
+
+
+# (Z, Y, X) past the old edges: the two full-width shapes of chip_smoke.py's
+# phase 29, and X, Y and Z at the first lengths of the 8- and 4-wide tiles
+EDGE_PLANS = [(256, 1024, 2048), (1024, 512, 512), (8, 8, 1824), (8, 16, 3640),
+              (8, 1824, 8), (8, 3640, 16), (1824, 8, 8), (3640, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", EDGE_PLANS, ids=str)
+def test_plans_build_past_the_old_edges(shape):
+    """``make_fused_plan`` builds at the new edges, with the FFT stage plans
+    the CUDA passes read, and its plain constants load on the CPU.  (At
+    7272 and up an unsplit y or z stage's dense matrices take GBs in
+    float64: those plans are built on the card's host, in phase 29.)"""
+    Z, Y, X = shape
+    plan = fp.make_fused_plan(shape)
+    assert plan.shape == shape and plan.kxh == X // 2 + 1 and plan.kxp % 8 == 0
+    assert plan.fxp.shape == (2 * plan.kxp, X) and plan.sy.R * plan.sy.M == Y
+    assert plan.sz.R * plan.sz.M == Z
+    assert fu.fused_limit((Z, X, Y), "cuda") is None
+    for n in shape:
         st = fp.make_fft_stages(n)
-        assert len(st.radices) <= fp.FFT_MAX_STAGES and all(2 <= r <= 1024 for r in st.radices)
-        if axis == "Z":
-            assert fu._zstage_smem(n) == z_cols * 8 * n <= smem_max, n
-            continue
-        rows = 16 if axis == "X" or 16 * 8 * n <= 64 * 1024 else 8
-        assert rows * 8 * n <= smem_max, n
-    if axis == "X":
-        assert admitted[-1] == 1816
-    elif axis == "Y":
-        assert 1024 in admitted and admitted[-1] == 3632 and 8248 not in admitted
-    else:
-        assert admitted == list(range(8, 737, 8))
+        assert int(np.prod(st.radices)) == n and sorted(st.pos.tolist()) == list(range(n))
+    c = fu.plan_tensors(plan, torch.device("cpu"))
+    assert c.args is None and c.fxp.shape == (2 * plan.kxp, X)
+
+
+@pytest.mark.parametrize("n", [1824, 3640, 7264, 7272, 8168, 14528])
+def test_stage_tables_at_the_narrow_tiles(n):
+    """The FFT stage tables at each narrow tile's lengths: radices in the
+    kernels' range (8168 = 8·1021 runs a generic stage of 1021, 14528 =
+    64·227 one of 227), pos a permutation, and the twiddles of every
+    stage."""
+    st = fp.make_fft_stages(n)
+    assert int(np.prod(st.radices)) == n and len(st.radices) <= fp.FFT_MAX_STAGES
+    assert all(2 <= r <= 1024 for r in st.radices)
+    assert sorted(st.pos.tolist()) == list(range(n))
+    odd = sum(r for r in st.radices if r not in (2, 4, 8))
+    assert st.tw.size == n - 1 + odd
 
 
 def test_plan_struct_mirrors_the_c_layout():

@@ -73,6 +73,15 @@ def test_plan_constants_bitwise(shape):
     assert np.array_equal(fp.split_perm(n, split), fd.split_perm(n, split))
 
 
+@pytest.mark.parametrize("shape", [(8, 600, 520), (264, 8, 16), (520, 16, 8)], ids=str)
+def test_plan_constants_bitwise_by_row_blocks(shape):
+    """The port builds its dense stage matrices by blocks of 256 rows on a
+    thread pool; with unsplit stages longer than a block (y 600 and z 264,
+    520 in 3 and 2 blocks, x 261 frequencies in 2) every constant is still
+    bitwise the JAX package's."""
+    test_plan_constants_bitwise(shape)
+
+
 def test_plan_forms_not_ported_raise():
     for kw in (dict(fold_x=True), dict(twfold=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -292,21 +301,42 @@ def test_auto_still_means_fft_and_fused_guards():
         ((256, 256, 896), True),  # 7 ways
         ((256, 256, 1024), True),  # y splits 8 ways
         ((256, 1024, 256), True),
-        ((1024, 256, 256), False),  # Z past the z stage's edge
+        ((1024, 256, 256), True),  # Z past the old edge of 736: 8 columns of the z stage
         ((736, 832, 256), True),
-        ((744, 256, 256), False),
+        ((744, 256, 256), True),
         ((256, 840, 256), True),
         ((16, 1816, 256), True),  # 16 sequences of the FFT x stage fill shared memory
-        ((16, 1824, 256), False),
+        ((16, 1824, 256), True),  # 8 sequences
         ((8, 8, 3632), True),  # R = 1: 8 rows of the FFT y stage fill shared memory
-        ((8, 8, 3640), False),
+        ((8, 8, 3640), True),  # 4 rows
+        ((256, 2048, 1024), True),  # a 2048-wide frame cropped to 1024 rows, 256 planes
+        ((1024, 512, 512), True),  # 1024 planes
+        ((8, 3640, 8), True),  # 4 sequences
+        ((8, 7272, 8), True),  # 2 sequences
+        ((8, 14528, 8), True),  # 2 sequences fill shared memory
+        ((8, 8, 7272), True),  # 2 rows
+        ((8, 8, 14528), True),
+        ((1824, 8, 8), True),  # 8 columns of the z stage
+        ((3640, 8, 8), True),  # 4 columns
+        ((14528, 8, 8), True),  # 2 columns fill shared memory
+        ((8, 8168, 8), True),  # 8·1021: the largest generic radix under 1024
+        ((8168, 8, 16), True),
+        ((14536, 8, 8), False),  # no tile fits
+        ((8, 14536, 8), False),
+        ((8, 8, 14536), False),
+        ((8248, 8, 8), False),  # 8·1031: a prime factor over a generic stage's 1024
+        ((8, 8248, 8), False),
+        ((8, 8, 8248), False),
     ],
     ids=str,
 )
 def test_fused_limit_holds_the_cuda_kernels_limits(zxy, on_card):
     """fused_limit is the kernels' plan_ok in Python: the CPU path serves
     every shape of multiples of 8; on a CUDA device a shape past a limit
-    raises NotImplementedError before anything reaches the card."""
+    raises NotImplementedError before anything reaches the card, naming
+    what the CUDA passes serve.  The refusal comes from the plan's shape:
+    making a plan builds none of its dense matrices, so a plan at the
+    refused shape goes in as it is."""
     Z, X, Y = zxy
     assert fu.fused_limit(zxy) is None and fu.fused_limit(zxy, "cpu") is None
     assert rl.fused_eligible((Z, Y, X)) and fu.check_transposed_shape(zxy) == zxy
@@ -315,10 +345,31 @@ def test_fused_limit_holds_the_cuda_kernels_limits(zxy, on_card):
     if on_card:
         assert fu.check_transposed_shape(zxy, "cuda") == zxy
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    with pytest.raises(NotImplementedError, match="axes up to 14528 whose prime factors"):
         fu.check_transposed_shape(zxy, "cuda")
-    with pytest.raises(NotImplementedError, match="shape limits"):
+    with pytest.raises(NotImplementedError, match="at most 1024"):
         fu.plan_tensors(fp.make_fused_plan((Z, Y, X)), "cuda")
+
+
+def test_plan_builds_dense_matrices_only_for_the_plain_passes():
+    """A plan, and its tensors on a device, hold the shape, the splits and
+    (on a card) the FFT stage tables; the dense matrices, which only the
+    plain passes read, are built and uploaded at a plain pass's first read,
+    once."""
+    Z, Y, X = shape = (256, 24, 32)
+    plan = fp.FusedPlan(shape)
+    assert (plan.kxh, plan.kxp, plan.split_z, plan.split_y) == (17, 24, (2, 128), (1, 24))
+    c = fu.PlanTensors(plan, torch.device("cpu"))
+    lazy = ("_x", "sy", "sz")
+    assert not any(name in vars(plan) for name in lazy)
+    assert not any(name in vars(c) for name in ("fxp", "bxp", "wfy", "wiy", "wfz", "wiz"))
+    xt = torch.rand((Z, X, Y), generator=torch.Generator().manual_seed(0))
+    u = fu.pass_a_plain(xt, c)
+    assert "_x" in vars(plan) and "sy" in vars(plan) and "sz" not in vars(plan)
+    assert c.fxp is c.fxp and c.wfy[0] is c.wfy[0]
+    fu.pass_b_plain(*u, *u, c)
+    assert all(name in vars(plan) for name in lazy)
+    assert np.array_equal(c.wfz[0].numpy(), fd.make_fused_plan(shape).sz.wf[0])
 
 
 def test_fused_wrappers_never_reach_plain_on_non_cpu(monkeypatch):

@@ -223,15 +223,17 @@ def test_sharded_auto_never_fused_on_cpu():
     ((1, 4), (256, 256, 256), 24, True, "fused"),      # z blocks 64 -> extent 88
     ((4, 1), (256, 256, 256), 24, True, "fused"),      # whole volume per cell
     ((1, 2), (512, 512, 512), 24, True, "fused"),      # extent 280
-    ((1, 1), (1024, 512, 512), 24, False, "fft"),      # Z over the z stage's 736
+    ((1, 1), (1024, 512, 512), 24, True, "fused"),     # extent 1048, past the old 736
     ((1, 2), (1024, 512, 512), 24, True, "fused"),     # extent 536
+    ((1, 1), (256, 256, 3640), 24, True, "fft"),       # x tile 4: never timed against fft
+    ((1, 2), (2048, 256, 256), 24, True, "fft"),       # extent 1048 = 8·131 past Z = 736
     ((1, 4), (128, 128, 128), 24, True, "fft"),        # extent 56: under 256
     ((1, 4), (256, 256, 260), 24, False, "fft"),       # X not a multiple of 8
 ], ids=str)
 def test_sharded_auto_on_a_cuda_mesh(mesh_shape, spatial, halo, eligible, auto):
     """The CUDA rule, pinned here (building a mesh of CUDA cells needs no
-    card): fused where eligible at the local extent and ext_max >= 256, else
-    fft, never dft."""
+    card): fused where eligible at the local extent, ext_max >= 256 and the
+    local shape of a class timed against fft, else fft, never dft."""
     vp, zp = mesh_shape
     mesh = make_mesh(vp, zp, devices=["cuda:0"] * (vp * zp))
     assert sharded.sharded_fused_eligible(spatial, mesh, halo) == eligible
