@@ -174,8 +174,21 @@ Phases, each raising on failure (there is no CPU fallback):
     (the other axes 8 to 24), against their plain versions evaluated in
     float64 (1e-5; the float32 plain versions' own deviation logged
     beside), each with its time and byte bound; the bf16 twins at one such shape per axis, held as
-    in phase 28; and shapes past the new limits (14536 on each axis, 8248 =
-    8·1031) refused before any launch.
+    in phase 28;
+30. the fused passes at every axis length the JAX engine takes, a long axis
+    run through HBM (four-step past 14528, Bluestein for a prime factor over
+    1024): a. 4 views with the bench kernels, per-voxel weights and 10
+    iterations at (64, 512, 16384) (four-step x, 2 GiB a volume) and (64,
+    512, 8248) (Bluestein x) through ``deconvolve(algorithm="fused")`` (K4
+    48, K6 80, K8 40, K9 40) against fft (1e-3), fused and fft in turns,
+    the peak memory beside its prediction, ``auto``'s pick (fft by rule)
+    and ``fused_eligible``; b. every pass there and at 14536, 16384, 17280,
+    8248 and 116152 on each axis (the other axes 8 to 24) against its
+    float64 plain version, or the same function through ``torch.fft`` in
+    float64 where the plain version's matrices or splits are too large
+    (1e-5), each with its time and byte bound; c. the bf16 twins at one long
+    shape per axis, held as in phase 28; d. an axis past 2^25 refused before
+    any launch; the phase's seconds against its budget of 60.
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -259,10 +272,9 @@ BF16_ITERS = 2  # phase 28's interleaved and mesh runs
 # takes over
 EDGE_SHAPES = ((736, 8, 8), (640, 8, 8), (16, 1024, 8), (16, 8, 1816), (8, 3632, 8),
                (8, 384, 8), (8, 8, 840), (744, 8, 8), (8, 8, 1824), (8, 3640, 8))
-# past ops/fused.py's fused_limit on the card (phase 29): no tile fits 14536
-# on any axis; 8248 = 8·1031 has a prime factor over a generic stage's 1024
-OVER_SHAPES = ((14536, 8, 8), (8, 14536, 8), (8, 8, 14536), (8248, 8, 8), (8, 8248, 8),
-               (8, 8, 8248))
+# past ops/fused.py's fused_limit on the card (phase 30 d): an axis past 2^25
+OVER_LENGTH = 2**25 + 8
+OVER_SHAPES = ((OVER_LENGTH, 8, 8), (8, OVER_LENGTH, 8), (8, 8, OVER_LENGTH))
 # lengths for K5 and K6's FFT z stage: Z = 200 (8·5·5), 264 (8·3·11), 712
 # (8·89), 736 (32·23), with Y a whole, a partial and a single column tile
 Z_SHAPES = ((200, 64, 8), (264, 48, 16), (712, 40, 8), (736, 24, 16))
@@ -284,6 +296,31 @@ NARROW_BF16_SHAPES = ((8, 24, 3640), (8, 7272, 16), (1824, 24, 8))  # one per ax
 # volume), and a 1024-plane stack
 WIDE_SHAPES = ((256, 1024, 2048), (1024, 512, 512))
 WIDE_INTERLEAVED_ITERS = 2
+# phase 30's main path, 4 views, the bench kernels, per-voxel weights: a row
+# of eight 2048-wide sCMOS tiles stitched, 512 rows, 64 planes (X = 16384, a
+# four-step x stage of 128·128; 2 GiB a volume), and X = 8248 = 8·1031 (a
+# Bluestein x stage padded to 32768)
+LONG_SHAPES = ((64, 512, 16384), (64, 512, 8248))
+# phase 30's long lengths on each axis, the other two at 8-24: four-step
+# 14536 = 92·158 (one step past the shared-memory stages), 16384 = 128·128
+# and 17280 = 128·135 (factors not powers of two); Bluestein 8248 = 8·1031
+# (a prime factor over 1024, padded to 32768) and 116152 = 8·14519 (no split
+# into two shared-memory lengths, padded to 262144 = 512·512; Z = 116152
+# also launches the direct x stage's planes in two slices of grid y)
+LONG_LENGTHS = (14536, 16384, 17280, 8248, 116152)
+LONG_EDGE_SHAPES = (tuple((8, 24, n) for n in LONG_LENGTHS)
+                    + tuple((8, n, 16) for n in LONG_LENGTHS)
+                    + tuple((n, 24, 8) for n in LONG_LENGTHS))
+LONG_BF16_SHAPES = ((8, 24, 16384), (8, 8248, 16), (17280, 24, 8))  # one per axis
+# a pass is held against its float64 plain version where the plan's dense
+# matrices take at most this many bytes in float64 and its y and z splits at
+# most PLAIN_SPLIT_MAX blocks (a split stage runs R² block products in
+# Python: 10-20 s a shape at R = 128 or 135), else against the same function
+# through torch.fft in float64 (phase 30)
+PLAIN_DENSE_MAX = 8e9
+PLAIN_SPLIT_MAX = 16
+# the predicted peak device memory of phase 30's fused main path, GiB
+LONG_PEAK_GIB = {LONG_SHAPES[0]: 62.0, LONG_SHAPES[1]: 36.0}
 BATCH = 4  # phase 27: volumes in one call of the headline configuration
 BATCH_N = 64  # phase 27's other batched cases, BATCH_SMALL volumes each
 BATCH_SMALL = 2
@@ -365,12 +402,12 @@ def knobs(**values):
         put(saved)
 
 
-def event_times_ms(torch, fn):
-    """CUDA-event times (ms) of TIMED_LAUNCHES calls, after one warm-up."""
+def event_times_ms(torch, fn, n=TIMED_LAUNCHES):
+    """CUDA-event times (ms) of ``n`` calls, after one warm-up."""
     fn()
     events = [
         (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        for _ in range(TIMED_LAUNCHES)
+        for _ in range(n)
     ]
     for start, end in events:
         start.record()
@@ -2936,22 +2973,98 @@ def plain_f64(c):
     return d
 
 
-def hold_passes(torch, dev, gen, shape, plan):
-    """The seven passes at one of WIDE_SHAPES or NARROW_SHAPES against their
-    plain versions evaluated in float64 on the same inputs and the plan's
-    float32 constants (FUSED_TOLERANCE of max|plain|; psi' at λ 0.006 plus
-    tikhonov_atol), each timed (median CUDA-event ms of TIMED_LAUNCHES)
-    beside its byte bound.  In float32 the plain versions' dense DFTs of up
-    to 14528 terms carry up to 1e-5 of max|·| themselves (cuBLAS; pass B at
-    Z = 14528), so that deviation is logged beside, not gated.  K8-K10 take
-    pass A of psi, so the blurred estimate and the integral are psi, away
-    from 0.  A check widens its own inputs to float64, so at a main-path
-    shape (2 GiB a volume) only one pass's float64 operands are held."""
+def dense_bytes(plan):
+    """Bytes of a plan's dense plain-version matrices in float64, as the
+    float64 plain versions hold them: fxp and bxp, and the forward and
+    inverse Karatsuba triples of the y and z stages."""
+    Z, Y, X = plan.shape
+    return 8 * (4 * plan.kxp * X + 6 * Y * plan.split_y[1] + 6 * Z * plan.split_z[1])
+
+
+def plain_ok(plan):
+    """Whether phase 30 holds a plan's passes against their float64 plain
+    versions (PLAIN_DENSE_MAX, PLAIN_SPLIT_MAX)."""
+    return (dense_bytes(plan) <= PLAIN_DENSE_MAX
+            and max(plan.split_y[0], plan.split_z[0]) <= PLAIN_SPLIT_MAX)
+
+
+def fft64_passes(torch, dev, plan):
+    """The seven passes' functions in float64 through torch.fft, in the fused
+    layout ((Kxp, Z, Y) pairs, y and K5's z in the split order of
+    ``split_perm``, pad rows zero; volumes (Z, X, Y)): a reference inside the
+    check where the plain versions' dense matrices are too large, never on
+    the main path.  Returns a namespace of a, bf, b, c, cqa, cu, cua taking
+    the passes' arguments."""
+    import types
+
+    from libmultiviewnative_torch.core.kernels import compute_quotient, rl_update
+    from libmultiviewnative_torch.ops.fused_plan import split_perm
+
+    Z, Y, X = plan.shape
+    kx, kxp = plan.kxh, plan.kxp
+    perm_y = torch.as_tensor(split_perm(Y, plan.split_y), device=dev)
+    perm_z = torch.as_tensor(split_perm(Z, plan.split_z), device=dev)
+
+    def pair(s):  # (Kx, Z, Y) complex -> a float64 (Kxp, Z, Y) pair, pad rows zero
+        out = torch.zeros((2, kxp, Z, Y), dtype=torch.float64, device=dev)
+        out[0, :kx], out[1, :kx] = s.real, s.imag
+        return out[0], out[1]
+
+    def cplx(re, im):
+        return torch.complex(re[:kx].double(), im[:kx].double())
+
+    def natural(c, perm, dim):  # split order -> natural along dim
+        out = torch.empty_like(c)
+        out.index_copy_(dim, perm, c)
+        return out
+
+    def a(xt):
+        s = torch.fft.fft(torch.fft.rfft(xt.double(), dim=1), dim=2).transpose(0, 1)
+        return pair(s.index_select(2, perm_y))
+
+    def c(re, im):
+        s = torch.fft.ifft(natural(cplx(re, im), perm_y, 2), dim=2).transpose(0, 1)
+        return torch.fft.irfft(s, n=X, dim=1)
+
+    def bf(re, im):
+        return pair(torch.fft.fft(cplx(re, im), dim=1).index_select(1, perm_z))
+
+    def b(re, im, kre, kim, conj=False):
+        k = natural(cplx(kre, kim), perm_z, 1)
+        return pair(torch.fft.ifft(torch.fft.fft(cplx(re, im), dim=1) * (k.conj() if conj else k),
+                                   dim=1))
+
+    def cu(re, im, psi, w):
+        return rl_update(psi.double(), c(re, im), w.double(), LAM, MIN_VALUE)
+
+    return types.SimpleNamespace(
+        a=a, bf=bf, b=b, c=c, cu=cu,
+        cqa=lambda re, im, view: a(compute_quotient(view.double(), c(re, im))),
+        cua=lambda re, im, psi, w: (lambda new: (new, a(new)))(cu(re, im, psi, w)))
+
+
+def hold_passes(torch, dev, gen, shape, plan, timed=TIMED_LAUNCHES, plain32=True):
+    """The seven passes at one of WIDE_SHAPES, NARROW_SHAPES, LONG_SHAPES or
+    LONG_EDGE_SHAPES against their plain versions evaluated in float64 on
+    the same inputs and the plan's float32 constants (FUSED_TOLERANCE of
+    max|plain|; psi' at λ 0.006 plus tikhonov_atol), or, where the plan's
+    dense matrices or splits are too large for that (:func:`plain_ok`),
+    against the same functions through torch.fft in float64
+    (:func:`fft64_passes`), each timed (median
+    CUDA-event ms of ``timed`` launches) beside its byte bound.  In float32
+    the plain versions' dense DFTs of up to 14528 terms carry up to 1e-5 of
+    max|·| themselves (cuBLAS; pass B at Z = 14528), so that deviation is
+    logged beside, not gated.  K8-K10 take pass A of psi, so the blurred
+    estimate and the integral are psi, away from 0.  A check widens its own
+    inputs to float64, so at a main-path shape (2 GiB a volume) only one
+    pass's float64 operands are held.  ``plain32=False`` skips the float32
+    plain versions."""
     from libmultiviewnative_torch.ops import fused as fu
 
     Z, Y, X = shape
     c = fu.plan_tensors(plan, dev)
-    c64, f64 = plain_f64(c), torch.float64
+    f64 = torch.float64
+    by_fft = not plain_ok(plan)
 
     def rand(shp, lo, hi):
         return torch.rand(shp, generator=gen, device=dev) * (hi - lo) + lo
@@ -2960,12 +3073,32 @@ def hold_passes(torch, dev, gen, shape, plan):
     k = tuple(torch.randn((plan.kxp, Z, Y), generator=gen, device=dev) for _ in "ri")
     for t in k:
         t[plan.kxh:] = 0.0  # pad rows, as pass A leaves them
-    u = fu.pass_a_plain(psi, c)
-    v = fu.pass_b_plain(*u, *k, c)
-    d = lambda *ts: tuple(t.double() for t in ts)  # noqa: E731
     vol, spec, spec_in = fused_bytes(plan)
     flops = fused_flops(plan)
     atol = tikhonov_atol(LAM)
+    f32 = lambda pair: tuple(t.float() for t in pair)  # noqa: E731
+    if by_fft:
+        r = fft64_passes(torch, dev, plan)
+        u = f32(r.a(psi))
+        v = f32(r.b(*u, *k))
+        checks = (
+            ("pass_a", lambda: fu.pass_a(psi, plan), None, lambda: r.a(psi), vol + spec, 0.0),
+            ("pass_bf", lambda: fu.pass_bf(*u, plan), None, lambda: r.bf(*u), spec_in + spec, 0.0),
+            ("pass_b", lambda: fu.pass_b(*u, *k, plan), None, lambda: r.b(*u, *k),
+             2 * spec_in + spec, 0.0),
+            ("pass_c", lambda: fu.pass_c(*v, plan), None, lambda: r.c(*v), spec_in + vol, 0.0),
+            ("pass_cqa", lambda: fu.pass_cqa(*u, view, plan), None, lambda: r.cqa(*u, view),
+             spec_in + vol + spec, 0.0),
+            ("pass_cu", lambda: fu.pass_cu(*u, psi, w, plan, LAM, MIN_VALUE), None,
+             lambda: r.cu(*u, psi, w), spec_in + 3 * vol, atol),
+            ("pass_cua", lambda: fu.pass_cua(*u, psi, w, plan, LAM, MIN_VALUE), None,
+             lambda: r.cua(*u, psi, w), spec_in + spec + 3 * vol, atol),
+        )
+        return _hold_checks(torch, shape, plan, checks, flops, timed, "torch.fft float64")
+    c64 = plain_f64(c)
+    u = fu.pass_a_plain(psi, c)
+    v = fu.pass_b_plain(*u, *k, c)
+    d = lambda *ts: tuple(t.double() for t in ts)  # noqa: E731
     checks = (
         ("pass_a", lambda: fu.pass_a(psi, plan), lambda: fu.pass_a_plain(psi, c),
          lambda: fu.pass_a_plain(*d(psi), c64, f64), vol + spec, 0.0),
@@ -2985,33 +3118,55 @@ def hold_passes(torch, dev, gen, shape, plan):
          lambda: fu.pass_cua_plain(*d(*u, psi, w), c64, LAM, MIN_VALUE, f64),
          spec_in + spec + 3 * vol, atol),
     )
-    tiles = f"tiles x {fu._x_seq(X)}, y {fu._y_rows(Y)}, z {fu._z_cols(Z)}"
+    if not plain32:
+        checks = tuple((n, k, None, r, b, a) for n, k, _, r, b, a in checks)
+    return _hold_checks(torch, shape, plan, checks, flops, timed, "float64 plain")
+
+
+def _hold_checks(torch, shape, plan, checks, flops, timed, against):
+    """Run :func:`hold_passes`' checks: (name, kernel, float32 plain or None,
+    float64 reference, bytes, absolute slack) each."""
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fft_stages
+
+    Z, Y, X = shape
+    kinds = "/".join(make_fft_stages(n).kind for n in (X, Y, Z))
+    tiles = f"tiles x {fu._x_seq(X)}, y {fu._y_rows(Y)}, z {fu._z_cols(Z)}; x/y/z {kinds}"
     out = {}
     for name, kernel, plain32, plain, nbytes, slack in checks:
-        got, want, want32 = kernel(), plain(), plain32()
-        # (output, f64 plain, f32 plain, absolute slack): K10's psi' takes
-        # K1's Tikhonov slack, its spectrum none
-        parts = ([(got[0], want[0], want32[0], slack), (got[1], want[1], want32[1], 0.0)]
+        got, want = kernel(), plain()
+        want32 = plain32() if plain32 is not None else None
+        # (output, f64 reference, f32 plain, absolute slack): K10's psi'
+        # takes K1's Tikhonov slack, its spectrum none
+        parts = ([(got[0], want[0], None if want32 is None else want32[0], slack),
+                  (got[1], want[1], None if want32 is None else want32[1], 0.0)]
                  if name == "pass_cua" else [(got, want, want32, slack)])
         rel = rel32 = 0.0
         for g, r, r32, extra in parts:
             err, scale = compare(torch, f"{name} {shape}", g, r)
             if not err <= FUSED_TOLERANCE * scale + extra:
-                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance")
+                raise AssertionError(f"{name} at ZYX={shape}: error {err:.3e} beyond tolerance"
+                                     f" of max {scale:.3e} ({against})")
             rel = max(rel, err / scale)
-            rel32 = max(rel32, compare(torch, f"{name} {shape} f32", r32, r)[0] / scale)
+            if r32 is not None:
+                rel32 = max(rel32, compare(torch, f"{name} {shape} f32", r32, r)[0] / scale)
         del got, want, want32, parts
-        ms = statistics.median(event_times_ms(torch, kernel))
+        ms = statistics.median(event_times_ms(torch, kernel, timed))
         bound_ms, bound_by = bound(nbytes, flops[name])
-        log(f"{name:9s} ZYX={shape} ({tiles}): rel {rel:.3e} (tol {FUSED_TOLERANCE:g}; the"
-            f" float32 plain version {rel32:.3e} off); {ms:.4f} ms, bound {bound_ms:.4f} ms"
+        beside = (f"the float32 plain version {rel32:.3e} off" if plain32 is not None
+                  else "no float32 plain version")
+        log(f"{name:9s} ZYX={shape} ({tiles}): rel {rel:.3e} against {against} (tol"
+            f" {FUSED_TOLERANCE:g}; {beside}); {ms:.4f} ms, bound {bound_ms:.4f} ms"
             f" ({bound_by}), {bound_ms / ms:.3f} of it")
-        out[name] = {"rel": rel, "plain_f32_rel": rel32, "ms": ms, "bound_ms": bound_ms}
+        out[name] = {"rel": rel, "plain_f32_rel": rel32, "ms": ms, "bound_ms": bound_ms,
+                     "against": against}
     return out
 
 
-def narrow_bf16_twins(torch, dev, gen, shape, plan):
-    """The seven bf16 twins at one of NARROW_BF16_SHAPES, held as phase 28
+def narrow_bf16_twins(torch, dev, gen, shape, plan, phase=29):
+    """The seven bf16 twins at one of NARROW_BF16_SHAPES or LONG_BF16_SHAPES
+    (``phase`` 29 or 30; against torch.fft in float64 where
+    :func:`plain_ok` does not hold), held as phase 28
     holds them (:func:`hold_bf16_twin`), against their plain versions
     evaluated in float64 (:func:`plain_f64`; in float32 the plain pass B
     is 5e-6 of max|·| off at Z = 1824 itself, past BF16_FLOOR) and rounded
@@ -3020,8 +3175,6 @@ def narrow_bf16_twins(torch, dev, gen, shape, plan):
 
     Z, Y, X = shape
     bf16 = torch.bfloat16
-    c = fu.plan_tensors(plan, dev)
-    c64 = plain_f64(c)
 
     def rand(shp, lo, hi):
         return torch.rand(shp, generator=gen, device=dev) * (hi - lo) + lo
@@ -3030,15 +3183,42 @@ def narrow_bf16_twins(torch, dev, gen, shape, plan):
         return tuple(t.to(dtype) for t in pair)
 
     psi, view, w = rand((Z, X, Y), 1.0, 100.0), rand((Z, X, Y), 1.0, 200.0), rand((Z, X, Y), 0.0, 0.5)
+    spectrum = lambda o: ((), o)  # noqa: E731
+    volume = lambda o: ((o,), ())  # noqa: E731
+    both = lambda o: ((o[0],), o[1])  # noqa: E731
+    atol = tikhonov_atol(LAM)
+    if not plain_ok(plan):
+        r = fft64_passes(torch, dev, plan)
+        k16, u16 = wide(r.a(rand((Z, X, Y), 0.0, 1.0)), bf16), wide(r.a(psi), bf16)
+        k32, u32 = wide(k16), wide(u16)
+        rounded = lambda pair: wide(pair, bf16)  # noqa: E731
+        checks = (
+            ("pass_a", lambda: fu.pass_a(psi, plan), lambda: rounded(r.a(psi)),
+             lambda: fu.pass_a(psi, plan), spectrum, 0.0),
+            ("pass_bf", lambda: fu.pass_bf(*u16, plan), lambda: rounded(r.bf(*u16)),
+             lambda: fu.pass_bf(*u32, plan), spectrum, 0.0),
+            ("pass_b", lambda: fu.pass_b(*u16, *k16, plan), lambda: rounded(r.b(*u16, *k16)),
+             lambda: fu.pass_b(*u32, *k32, plan), spectrum, 0.0),
+            ("pass_c", lambda: fu.pass_c(*u16, plan), lambda: r.c(*u16),
+             lambda: fu.pass_c(*u32, plan), volume, 0.0),
+            ("pass_cqa", lambda: fu.pass_cqa(*u16, view, plan),
+             lambda: rounded(r.cqa(*u16, view)), lambda: fu.pass_cqa(*u32, view, plan),
+             spectrum, 0.0),
+            ("pass_cu", lambda: fu.pass_cu(*u16, psi, w, plan, LAM, MIN_VALUE),
+             lambda: r.cu(*u16, psi, w), lambda: fu.pass_cu(*u32, psi, w, plan, LAM, MIN_VALUE),
+             volume, atol),
+            ("pass_cua", lambda: fu.pass_cua(*u16, psi, w, plan, LAM, MIN_VALUE),
+             lambda: (lambda o: (o[0], rounded(o[1])))(r.cua(*u16, psi, w)),
+             lambda: fu.pass_cua(*u32, psi, w, plan, LAM, MIN_VALUE), both, atol),
+        )
+        return _hold_bf16_checks(torch, fu, shape, checks, phase)
+    c = fu.plan_tensors(plan, dev)
+    c64 = plain_f64(c)
     k16 = fu.pass_a_plain(rand((Z, X, Y), 0.0, 1.0), c, bf16)
     u16 = fu.pass_a_plain(psi, c, bf16)
     k32, u32 = wide(k16), wide(u16)
     k64, u64 = wide(k16, torch.float64), wide(u16, torch.float64)
     psi64, view64, w64 = psi.double(), view.double(), w.double()
-    spectrum = lambda o: ((), o)  # noqa: E731
-    volume = lambda o: ((o,), ())  # noqa: E731
-    both = lambda o: ((o[0],), o[1])  # noqa: E731
-    atol = tikhonov_atol(LAM)
     checks = (
         ("pass_a", lambda: fu.pass_a(psi, plan), lambda: fu.pass_a_plain(psi64, c64, bf16),
          lambda: fu.pass_a(psi, plan), spectrum, 0.0),
@@ -3059,6 +3239,11 @@ def narrow_bf16_twins(torch, dev, gen, shape, plan):
          lambda: fu.pass_cua_plain(*u64, psi64, w64, c64, LAM, MIN_VALUE, bf16),
          lambda: fu.pass_cua(*u32, psi, w, plan, LAM, MIN_VALUE), both, atol),
     )
+    return _hold_bf16_checks(torch, fu, shape, checks, phase)
+
+
+def _hold_bf16_checks(torch, fu, shape, checks, phase):
+    """Run :func:`narrow_bf16_twins`' checks and hold its launches."""
     fu.reset_launches()
     for name, kernel, plain, f32_kernel, split, slack in checks:
         err, worst = hold_bf16_twin(torch, f"{name}_bf16", str(shape), kernel, plain, f32_kernel,
@@ -3067,21 +3252,22 @@ def narrow_bf16_twins(torch, dev, gen, shape, plan):
             " bitwise its f32 entry rounded")
     ran = {k for k, n in fu.launches.items() if n}
     if ran != set(FUSED_PASSES + BF16_PASSES):
-        raise AssertionError(f"phase 29 bf16 twins at {shape}: launches {sorted(ran)}")
+        raise AssertionError(f"phase {phase} bf16 twins at {shape}: launches {sorted(ran)}")
 
 
 def refuse_over_shapes(torch, dev):
-    """Each shape past fused_limit is refused by every entry before a launch
-    (a plan of the refused shape holds no dense matrix until a plain pass
-    reads one)."""
+    """Each shape past fused_limit (an axis past 2^25) is refused by every
+    entry before a launch (a plan of the refused shape holds no dense matrix
+    until a plain pass reads one, and no FFT plan until the card's tables
+    are made).  The operands are left uninitialised: 8.6 GB a volume."""
     from libmultiviewnative_torch.ops import fused as fu
     from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
 
     for shape in OVER_SHAPES:
         Z, Y, X = shape
         plan = make_fused_plan(shape)
-        vol = torch.ones((Z, X, Y), device=dev)
-        spec = torch.ones((plan.kxp, Z, Y), device=dev)
+        vol = torch.empty((Z, X, Y), device=dev)
+        spec = torch.empty((plan.kxp, Z, Y), device=dev)
         for name, call in (
             ("pass_a", lambda: fu.pass_a(vol)),
             ("pass_bf", lambda: fu.pass_bf(spec, spec, plan)),
@@ -3097,6 +3283,8 @@ def refuse_over_shapes(torch, dev):
                 raise AssertionError(f"{name} at ZYX={shape} was not refused")
             if fu.launches != before:
                 raise AssertionError(f"{name} at ZYX={shape} counted a launch")
+        del vol, spec
+        torch.cuda.empty_cache()
 
 
 def phase_wide(torch, dev, rng, auto_table):
@@ -3105,8 +3293,8 @@ def phase_wide(torch, dev, rng, auto_table):
     fused against fft after 10 iterations, ``auto``'s pick beside phase 22's
     turns, the interleaved rung at the first shape), then every pass at
     WIDE_SHAPES and NARROW_SHAPES against its plain version with its time
-    and byte bound (:func:`hold_passes`), the bf16 twins at NARROW_BF16_SHAPES and the shapes past the new limits
-    refused.  The narrow shapes' plans (dense plain-version matrices of up
+    and byte bound (:func:`hold_passes`) and the bf16 twins at
+    NARROW_BF16_SHAPES.  The narrow shapes' plans (dense plain-version matrices of up
     to 14528² values, seconds of host time each) are built on a host thread
     while the card runs the main path."""
     import io
@@ -3182,9 +3370,126 @@ def phase_wide(torch, dev, rng, auto_table):
     builder.shutdown()
     del plans
     fp._make_fused_plan.cache_clear()
-    refuse_over_shapes(torch, dev)
     log("narrow tiles: " + json.dumps(narrow))
     log("phase 29: " + json.dumps(results) + f"; {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def long_plan(shape):
+    """The fused plan of ``shape``, its dense plain-version matrices built
+    where phase 30 reads them (:func:`plain_ok`)."""
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    plan = make_fused_plan(shape)
+    return plain_plan(shape) if plain_ok(plan) else plan
+
+
+def phase_long(torch, dev, rng):
+    """30: the fused passes at every axis length the JAX engine takes: a
+    four-step FFT through HBM past 14528, Bluestein for a prime factor over
+    1024.  a. The main path at LONG_SHAPES through
+    ``deconvolve(algorithm="fused")`` (K4 48, K6 80, K8 40, K9 40) against
+    fft (1e-3), fft and fused in turns, the peak memory beside
+    LONG_PEAK_GIB, and ``auto``'s pick (fft by rule: no such class was
+    timed); every pass there against its float64 reference, timed beside
+    its byte bound.  b. Every pass at LONG_EDGE_SHAPES.  c. The bf16 twins
+    at LONG_BF16_SHAPES.  d. An axis past 2^25 refused before any launch.
+    The edge shapes' plans (dense plain-version matrices up to 5 GB) are
+    built on a host thread while the card runs the main path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libmultiviewnative_torch.deconv.rl import deconvolve, fused_eligible, resolve_algorithm
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops import fused_plan as fp
+
+    log("# phase 30: the fused passes at every axis length: four-step past 14528, Bluestein"
+        " for a prime factor over 1024")
+    start = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    plans = {shape: pool.submit(long_plan, shape)
+             for shape in dict.fromkeys(LONG_SHAPES + LONG_EDGE_SHAPES + LONG_BF16_SHAPES)}
+    kw = dict(lam=LAM, min_value=MIN_VALUE)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    results = {}
+    for shape in LONG_SHAPES:
+        t0 = time.perf_counter()
+        label = f"4 views {shape}"
+        kinds = "/".join(fp.make_fft_stages(n).kind for n in shape[::-1])
+        data, psi0 = wide_data(torch, dev, rng, shape)
+        run = {e: (lambda e=e: deconvolve(psi0, data, ITERS, algorithm=e, **kw))
+               for e in ("fused", "fft")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        fused, fused_s = timed_call(torch, run["fused"])
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        expect_counts(counts, {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
+                               "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, f"fused {shape}")
+        check_output(torch, fused, shape, f"fused {shape}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        fft, fft_s = timed_call(torch, run["fft"])
+        fft_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        diff = float((fused - fft).abs().max()) / float(fft.abs().max())
+        del fused, fft
+        log(f"fused vs fft at {shape} (x/y/z {kinds}) after {ITERS} iterations:"
+            f" max|diff|/max|psi| = {diff:.3e} (tol 1e-3)")
+        if not diff <= 1e-3:
+            raise AssertionError(f"fused and fft engines disagree at {shape}: {diff:.3e}")
+        # turns: fused, fft (above), fft, fused
+        turns = {"fused": [fused_s], "fft": [fft_s]}
+        for engine in ("fft", "fused"):
+            out, sec = timed_call(torch, run[engine])
+            turns[engine].append(sec)
+            del out
+        it_s = {e: [ITERS / t for t in ts] for e, ts in turns.items()}
+        pick = resolve_algorithm("auto", shape, dev)
+        eligible = fused_eligible(shape, dev)
+        log(f"{label}: it/s in turns fused {it_s['fused'][0]:.4f}, fft {it_s['fft'][0]:.4f},"
+            f" fft {it_s['fft'][1]:.4f}, fused {it_s['fused'][1]:.4f}; peak device memory fused"
+            f" {peak:.2f} GiB (predicted under {LONG_PEAK_GIB[shape]:.1f}), fft {fft_peak:.2f};"
+            f" fused_eligible {eligible}, auto picks {pick} (fft by rule: untimed class)")
+        if pick != "fft" or not eligible:
+            raise AssertionError(f"auto at {shape}: pick {pick}, fused_eligible {eligible}")
+        results[label] = {"fused_vs_fft": diff, "it_s": it_s, "peak_gib": peak,
+                          "fft_peak_gib": fft_peak, "pick": pick}
+        del data, psi0, run
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        plan = plans[shape].result()
+        t2 = time.perf_counter()
+        results[label]["kernels"] = hold_passes(torch, dev, gen, shape, plan, timed=3,
+                                                plain32=False)
+        fu._tensors.clear()
+        torch.cuda.empty_cache()
+        log(f"phase 30 {shape}: main path {t1 - t0:.1f} s, waited {t2 - t1:.1f} s for its plan,"
+            f" passes {time.perf_counter() - t2:.1f} s")
+    log(f"phase 30 main path: {time.perf_counter() - start:.1f} s")
+
+    edges = {}
+    for shape in LONG_EDGE_SHAPES:
+        t1 = time.perf_counter()
+        plan = plans[shape].result()
+        t2 = time.perf_counter()
+        edges[str(shape)] = hold_passes(torch, dev, gen, shape, plan)
+        fu._tensors.clear()
+        torch.cuda.empty_cache()
+        log(f"phase 30 {shape}: waited {t2 - t1:.1f} s for its plan, passes"
+            f" {time.perf_counter() - t2:.1f} s")
+    t1 = time.perf_counter()
+    for shape in LONG_BF16_SHAPES:
+        narrow_bf16_twins(torch, dev, gen, shape, plans[shape].result(), phase=30)
+        fu._tensors.clear()
+    pool.shutdown()
+    del plans
+    fp._make_fused_plan.cache_clear()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    refuse_over_shapes(torch, dev)
+    log(f"phase 30 bf16 twins {t2 - t1:.1f} s, refusals {time.perf_counter() - t2:.1f} s")
+    seconds = time.perf_counter() - start
+    log("long edges: " + json.dumps(edges))
+    log("phase 30: " + json.dumps(results) + f"; {seconds:.1f} s (budget 60 s)")
     return results
 
 
@@ -3305,6 +3610,8 @@ def main():
     rates["bf16"] = phase_bf16_main(torch, dev, rng, launches)
     torch.cuda.empty_cache()
     phase_wide(torch, dev, rng, auto_table)
+    torch.cuda.empty_cache()
+    phase_long(torch, dev, rng)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

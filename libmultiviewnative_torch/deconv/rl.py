@@ -151,7 +151,9 @@ def _fused_timed(spatial) -> bool:
     X and Y up to 3632, Z up to 1816 (the tiles of 8 and 16 timed), and
     every length a product of 2, 3, 5 and 7 (no generic radix stage).
     Narrower tiles and generic radices there were never timed end to end
-    against fft, and take fft as they did before fused served them."""
+    against fft, and take fft as they did before fused served them; so do
+    the long axes past 14528 or with a prime factor over 1024, which the
+    fused passes serve through HBM (four-step, Bluestein) up to 2^25."""
     Z, Y, X = spatial
     if Z <= 736 and Y <= 3632 and X <= 1816:
         return True
@@ -163,7 +165,7 @@ def _fused_timed(spatial) -> bool:
 def fused_eligible(spatial_shape, device=None) -> bool:
     """Whether ``algorithm="fused"`` can serve this (Z, Y, X) shape on
     ``device`` (:func:`..ops.fused.fused_limit`): every axis a multiple of 8,
-    and on a CUDA device within the kernels' limits."""
+    and on a CUDA device each axis at most 2^25, the kernels' limit."""
     Z, Y, X = (int(s) for s in spatial_shape[-3:])
     return fused_limit((Z, X, Y), device) is None
 

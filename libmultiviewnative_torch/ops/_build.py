@@ -5,11 +5,12 @@ shared library with a plain C interface, in ``build/torch_kernels/<hash>/``
 beside the package (a directory ``.gitignore`` lists), keyed by a hash of
 the sources, the headers and the flags.  Each unit is compiled by its own
 ``nvcc`` process, all started together, and the objects are then linked:
-``elementwise.cu``, ``fused.cu`` (the passes' entries, no kernels) and
+``elementwise.cu``, ``fused.cu`` (the passes' entries, no kernels),
+``fft_long.cu`` (the long axes' gathers, scatters and chirp launches) and
 ``fft_tiles.cu`` once per tile width of the FFT stages (``-DLMVN_TILE``),
-each holding that width's 13 stage kernels: 15.6-17.5 s on an H100 host
-with 8 cores, where one ``nvcc`` over the 52 stage kernels would take about
-three times the longest unit.  The library is loaded with ``ctypes``: every pointer
+each holding that width's 13 stage kernels and 2 column FFTs: 15.6-17.5 s
+on an H100 host with 8 cores before the long axes, where one ``nvcc`` over
+the 52 stage kernels would take about three times the longest unit.  The library is loaded with ``ctypes``: every pointer
 and the stream go in as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 
@@ -32,11 +33,12 @@ from typing import Optional
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("fft_stage.cuh", "rl_update.cuh")
+_HEADERS = ("fft_long.cuh", "fft_stage.cuh", "rl_update.cuh")
 # the tile widths of the FFT stages (with_tile in fft_stage.cuh)
 _TILES = (16, 8, 4, 2)
 # (source, flags, object stem) of each unit
-_UNITS = (("elementwise.cu", (), "elementwise"), ("fused.cu", (), "fused")) + tuple(
+_UNITS = (("elementwise.cu", (), "elementwise"), ("fused.cu", (), "fused"),
+          ("fft_long.cu", (), "fft_long")) + tuple(
     ("fft_tiles.cu", (f"-DLMVN_TILE={p}",), f"fft_tiles{p}") for p in _TILES
 )
 _SOURCES = tuple(dict.fromkeys(source for source, _, _ in _UNITS))
@@ -64,27 +66,33 @@ _SIGNATURES = {
         ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, _P,
     ),
-    # device, plan, u_re, u_im, t_re, t_im, xt, stream
-    "lmvn_fused_pass_a": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
-    # device, plan, o_re, o_im, u_re, u_im, k_re, k_im, conj_k, stream
-    "lmvn_fused_pass_b": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P),
-    # device, plan, u_re, u_im, t_re, t_im, v_re, v_im, view, stream
-    "lmvn_fused_pass_cqa": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # device, plan, u_re, u_im, t_re, t_im, xt, work, work values, stream
+    "lmvn_fused_pass_a": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P),
+    # device, plan, o_re, o_im, u_re, u_im, k_re, k_im, conj_k, work, work
+    # values, stream
+    "lmvn_fused_pass_b": (
+        ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, _P,
+    ),
+    # device, plan, u_re, u_im, t_re, t_im, v_re, v_im, view, work, work
+    # values, stream
+    "lmvn_fused_pass_cqa": (
+        ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+    ),
     # device, plan, out, t_re, t_im, v_re, v_im, psi, w, w_scalar, lam,
-    # min_value, stream
+    # min_value, work, work values, stream
     "lmvn_fused_pass_cu": (
         ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, _P,
+        ctypes.c_float, ctypes.c_float, _P, ctypes.c_longlong, _P,
     ),
-    # device, plan, o_re, o_im, u_re, u_im, stream
-    "lmvn_fused_pass_bf": (ctypes.c_int, _P, _P, _P, _P, _P, _P),
-    # device, plan, out, t_re, t_im, v_re, v_im, stream
-    "lmvn_fused_pass_c": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
+    # device, plan, o_re, o_im, u_re, u_im, work, work values, stream
+    "lmvn_fused_pass_bf": (ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P),
+    # device, plan, out, t_re, t_im, v_re, v_im, work, work values, stream
+    "lmvn_fused_pass_c": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P),
     # device, plan, out, u_re, u_im, t_re, t_im, v_re, v_im, psi, w, w_scalar,
-    # lam, min_value, stream
+    # lam, min_value, work, work values, stream
     "lmvn_fused_pass_cua": (
         ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, _P,
+        ctypes.c_float, ctypes.c_float, _P, ctypes.c_longlong, _P,
     ),
 }
 # each fused pass's bf16-spectrum twin takes the arguments of its f32 entry

@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "rl_update.cuh"
@@ -63,11 +64,29 @@
 extern "C" {
 
 // Mirrors ops/fused.py's _FftArgs: the stage plan of one transform length.
+// The kernels take it by value and keep it on their stack (run_stages
+// indexes radix[] at run time), so it holds what they read and no more.
 struct LmvnFft {
   int n, nstages;
   int radix[16];    // in the order the stages run
   const float* tw;  // (re, im) pairs: n - 1 twiddles, then the roots
   const int* pos;   // position of input i after the digit-reversed load
+};
+
+// Mirrors ops/fused.py's _AxisArgs: the plan of one axis (ops/fused_plan.py
+// FftStages), of one of three kinds.  Direct: f, the shared-memory stages
+// below.  Four-step and Bluestein: the long axes, through HBM
+// (fft_long.cuh), f.n the length and no stages of their own.  Host memory:
+// read by the launches, never passed to a kernel.
+struct LmvnAxis {
+  struct LmvnFft f;
+  int kind;            // kDirect, kFourStep or kBluestein
+  int m;               // Bluestein: the padded length, a power of two >= 2n - 1
+  const float* chirp;  // Bluestein: n (re, im) pairs b_j = exp(i pi j^2 / n)
+  const float* bhat;   // Bluestein: m (re, im) pairs, the m-point FFT of b / m
+  // four-step: the direct plans of N1 and N2 (n = N1 N2); Bluestein: part[0]
+  // the plan of m (direct or four-step)
+  const struct LmvnAxis* part[2];
 };
 
 }  // extern "C"
@@ -79,6 +98,16 @@ constexpr int kMaxStages = 16;
 constexpr int kGenericOuts = 4;  // results a thread holds in a generic round
 constexpr int kMaxGenericRadix = kThreads * kGenericOuts;
 constexpr int kBatch = 4;  // global loads a thread issues before it waits
+
+// LmvnAxis.kind
+constexpr int kDirect = 0, kFourStep = 1, kBluestein = 2;
+// the longest axis served: a Bluestein transform of 2^25 points pads to
+// 2^26 = 8192^2, the longest power of two whose four-step factors both fit a
+// shared-memory stage
+constexpr int kMaxLength = 1 << 25;
+// blocks a grid's y dimension takes; a launch over more planes runs in
+// slices of this many
+constexpr int kMaxGridY = 65535;
 
 // For e in [0, n) over the block's threads: load(e), kBatch of them at a
 // time, all issued before the first store(e, value), so that each thread
@@ -411,7 +440,8 @@ __device__ void run_stages_dif(float2* buf, const LmvnFft& f) {
 // Each stage holds a tile of P complex sequences of its length n in shared
 // memory, 8 P n bytes, interleaved as above.  The tile is the widest that
 // fits one block's opt-in maximum, halving from the stage's widest down to
-// kMinTile; plan_ok refuses a length that no tile fits.  So each stage keeps
+// kMinTile; plan_ok refuses a direct plan that no tile fits (a longer axis
+// takes a four-step or Bluestein plan, fft_long.cuh).  So each stage keeps
 // its widest tile up to 232448 / (8 widest) and narrows only past it: x and z
 // 16 up to 1816, 8 to 3632, 4 to 7264, 2 to 14528.  ops/fused.py mirrors
 // these rules (_x_seq, _y_rows, _z_cols), and tests/test_torch_fft_stages.py
@@ -548,11 +578,11 @@ template <int S>
 __global__ void __launch_bounds__(kThreads)
     x_forward_kernel(float* __restrict__ t_re, float* __restrict__ t_im,
                      const float* __restrict__ xt, const LmvnFft f, int Z,
-                     int Y, int Kx) {
+                     int Y, int Kx, int z0) {
   constexpr int Q = S / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * 2 * S, z = blockIdx.y;
+  const int X = f.n, c0 = blockIdx.x * 2 * S, z = z0 + blockIdx.y;
   const float* plane = xt + static_cast<size_t>(z) * X * Y;
   batched<float4>(
       X * Q, [&](int e) { return tile_quad<S>(plane, e, c0, Y); },
@@ -643,12 +673,12 @@ struct RlUpdateOp {
 template <int S, bool FORWARD, class Op>
 __global__ void __launch_bounds__(kThreads)
     x_stage_kernel(float* t_re, float* t_im, const LmvnFft f, int Z, int Y,
-                   int Kx, float scale, const Op op) {
+                   int Kx, float scale, const Op op, int z0) {
   using In = typename Op::In;
   constexpr int Q = S / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
-  const int X = f.n, c0 = blockIdx.x * 2 * S, z = blockIdx.y;
+  const int X = f.n, c0 = blockIdx.x * 2 * S, z = z0 + blockIdx.y;
   load_half_spectra<S, !FORWARD>(buf, t_re, t_im, f, Z, Y, Kx, c0, z);
   __syncthreads();
   run_stages<S, true>(buf, f);
@@ -806,11 +836,11 @@ __global__ void __launch_bounds__(kThreads)
     z_kernel(S* o_re, S* o_im, const S* u_re, const S* u_im,
              const S* __restrict__ k_re, const S* __restrict__ k_im,
              float ksign, const LmvnFft f, int Y, int Kx, int R, int M,
-             float scale) {
+             float scale, int k0) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* buf = reinterpret_cast<float2*>(smem);
   constexpr int Q = P / 2;  // column pairs per row of the tile
-  const int Z = f.n, c0 = blockIdx.x * P, k = blockIdx.y;
+  const int Z = f.n, c0 = blockIdx.x * P, k = k0 + blockIdx.y;
   const size_t base = static_cast<size_t>(k) * Z * Y;
   if (k >= Kx) {
     for (int e = threadIdx.x; e < Z * Q; e += kThreads) {
@@ -864,6 +894,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------ column FFTs
+// The shared-memory step of the long axes' transforms (fft_long.cuh): a
+// direct plan f run in place over sequences in HBM.  Plane p < planes holds C
+// columns, column c's value e < f.n at w[p*PS + e*ES + c]; a block takes P
+// neighbouring columns of one plane (the value of column s at e*P + s, as
+// the z stage holds its columns), so a warp moves whole lines wherever
+// neighbouring columns are neighbours in memory.  The load stores value e at
+// pos[e] and run_stages leaves the transform in natural order; with tw_n > 0
+// output e is then multiplied by W_{tw_n}^{e j} (conjugated for the inverse),
+// j = p mod tw_div (tw_plane) or c div tw_div: the four-step twiddle, a
+// float64 value rounded to float32 as the stage tables are.
+__device__ __forceinline__ float2 twiddle(long long r, int n, bool inv) {
+  double sn, cs;
+  sincospi(2.0 * static_cast<double>(r) / static_cast<double>(n), &sn, &cs);
+  return make_float2(static_cast<float>(cs), static_cast<float>(inv ? sn : -sn));
+}
+
+template <int P, bool INV>
+__global__ void __launch_bounds__(kThreads)
+    col_fft_kernel(float2* __restrict__ w, const LmvnFft f, long long col_blocks,
+                   int C, long long PS, long long ES, int tw_n, int tw_div,
+                   bool tw_plane) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const long long p = blockIdx.x / col_blocks;
+  const int c0 = static_cast<int>(blockIdx.x % col_blocks) * P;
+  float2* base = w + p * PS + c0;
+  const int n = f.n;
+  batched<float2>(
+      n * P,
+      [&](int i) {
+        const int s = i % P;
+        return c0 + s < C ? base[(i / P) * ES + s] : make_float2(0.f, 0.f);
+      },
+      [&](int i, float2 v) { buf[__ldg(f.pos + i / P) * P + i % P] = v; });
+  __syncthreads();
+  run_stages<P, INV>(buf, f);
+  for (int i = threadIdx.x; i < n * P; i += kThreads) {
+    const int s = i % P, e = i / P;
+    if (c0 + s >= C) continue;
+    float2 v = buf[i];
+    if (tw_n > 0 && e > 0) {
+      const long long j = tw_plane ? p % tw_div : (c0 + s) / tw_div;
+      v = cmul(v, twiddle((e * j) % tw_n, tw_n, INV));
+    }
+    base[e * ES + s] = v;
+  }
+}
+
 // ------------------------------------------------------------ launches
 // Each returns cudaGetLastError() after its launch.
 
@@ -882,8 +961,9 @@ int x_forward(float* t_re, float* t_im, const float* xt, const LmvnFft& f,
       x_forward_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  x_forward_kernel<S><<<dim3(blocks(Y, 2 * S), Z), kThreads, smem, s>>>(
-      t_re, t_im, xt, f, Z, Y, Kx);
+  for (int z0 = 0; z0 < Z; z0 += kMaxGridY)
+    x_forward_kernel<S><<<dim3(blocks(Y, 2 * S), std::min(Z - z0, kMaxGridY)),
+                          kThreads, smem, s>>>(t_re, t_im, xt, f, Z, Y, Kx, z0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -897,9 +977,10 @@ int x_launch(float* t_re, float* t_im, const LmvnFft& f, int Z, int Y, int Kx,
       x_stage_kernel<S, FORWARD, Op>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  x_stage_kernel<S, FORWARD, Op>
-      <<<dim3(blocks(Y, 2 * S), Z), kThreads, smem, s>>>(
-          t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n), op);
+  for (int z0 = 0; z0 < Z; z0 += kMaxGridY)
+    x_stage_kernel<S, FORWARD, Op>
+        <<<dim3(blocks(Y, 2 * S), std::min(Z - z0, kMaxGridY)), kThreads, smem, s>>>(
+            t_re, t_im, f, Z, Y, Kx, 1.0f / static_cast<float>(f.n), op, z0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -927,17 +1008,38 @@ int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im, const S* k_re,
       z_kernel<P, FWD_ONLY, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  z_kernel<P, FWD_ONLY, S><<<dim3(blocks(Y, P), Kxp), kThreads, smem, s>>>(
-      o_re, o_im, u_re, u_im, k_re, k_im, ksign, f, Y, Kx, R, M,
-      FWD_ONLY ? 1.0f : 1.0f / static_cast<float>(f.n));
+  for (int k0 = 0; k0 < Kxp; k0 += kMaxGridY)
+    z_kernel<P, FWD_ONLY, S>
+        <<<dim3(blocks(Y, P), std::min(Kxp - k0, kMaxGridY)), kThreads, smem, s>>>(
+            o_re, o_im, u_re, u_im, k_re, k_im, ksign, f, Y, Kx, R, M,
+            FWD_ONLY ? 1.0f : 1.0f / static_cast<float>(f.n), k0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, bool INV>
+int col_fft(float2* w, const LmvnFft& f, long long planes, int C, long long PS,
+            long long ES, int tw_n, int tw_div, bool tw_plane, cudaStream_t s) {
+  const size_t smem = sizeof(float2) * P * f.n;
+  cudaError_t e = cudaFuncSetAttribute(
+      col_fft_kernel<P, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long col_blocks = blocks(C, P);
+  if (planes * col_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  col_fft_kernel<P, INV><<<static_cast<unsigned>(planes * col_blocks), kThreads, smem, s>>>(
+      w, f, col_blocks, C, PS, ES, tw_n, tw_div, tw_plane);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launches of tile width P: PREFIX extern declares them, as below for
 // every width, so that no file that includes this header compiles their
 // kernels; empty instantiates them, which fft_tiles.cu does for one width,
-// -DLMVN_TILE=P.  Each width's 13 kernels compile in an nvcc process of
-// their own.
+// -DLMVN_TILE=P.  Each width's 13 stage kernels and 2 column FFTs compile in an
+// nvcc process of their own.
+#define LMVN_COL_FFT(PREFIX, P, INV)                                          \
+  PREFIX template int col_fft<P, INV>(float2*, const LmvnFft&, long long, int, \
+                                      long long, long long, int, int, bool,   \
+                                      cudaStream_t);
 #define LMVN_X_LAUNCH(PREFIX, P, FWD, OP)                                   \
   PREFIX template int x_launch<P, FWD, OP>(float*, float*, const LmvnFft&, \
                                            int, int, int, const OP&,      \
@@ -965,7 +1067,9 @@ int z_launch(S* o_re, S* o_im, const S* u_re, const S* u_im, const S* k_re,
   LMVN_Z_LAUNCH(PREFIX, P, false, float)                                  \
   LMVN_Z_LAUNCH(PREFIX, P, true, float)                                   \
   LMVN_Z_LAUNCH(PREFIX, P, false, __nv_bfloat16)                          \
-  LMVN_Z_LAUNCH(PREFIX, P, true, __nv_bfloat16)
+  LMVN_Z_LAUNCH(PREFIX, P, true, __nv_bfloat16)                           \
+  LMVN_COL_FFT(PREFIX, P, false)                                          \
+  LMVN_COL_FFT(PREFIX, P, true)
 
 LMVN_FFT_TILE(extern, 16)
 LMVN_FFT_TILE(extern, 8)
@@ -1018,9 +1122,24 @@ int z_stage(S* o_re, S* o_im, const S* u_re, const S* u_im, const S* k_re,
   });
 }
 
-// What the kernels rely on: the tables match the length, every stage radix
-// fits a generic round, and the stage has a tile for the length (tile > 0).
-inline bool plan_ok(const LmvnFft& f, int n, int tile) {
+// The column FFT over w, tiled by the widest tile of its length from 16.
+template <bool INV>
+int col_fft_stage(float2* w, const LmvnFft& f, long long planes, int C,
+                  long long PS, long long ES, int tw_n, int tw_div,
+                  bool tw_plane, cudaStream_t s) {
+  return with_tile(widest_tile(16, f.n), [&](auto t) {
+    return col_fft<decltype(t)::value, INV>(w, f, planes, C, PS, ES, tw_n,
+                                            tw_div, tw_plane, s);
+  });
+}
+
+// What the kernels rely on.  A direct plan: the tables match the length,
+// every stage radix fits a generic round, and the stage has a tile for the
+// length (tile > 0).  A four-step plan: n = N1 N2 of two direct plans, each
+// with a column tile.  A Bluestein plan: its tables, and a padded length m, a
+// power of two >= 2n - 1, of a direct or four-step plan.  plan_ok holds the
+// length of an axis to kMaxLength.
+inline bool stages_ok(const LmvnFft& f, int n, int tile) {
   if (f.n != n || f.nstages < 0 || f.nstages > kMaxStages) return false;
   if (!f.tw || !f.pos || tile <= 0) return false;
   long long prod = 1;
@@ -1029,6 +1148,28 @@ inline bool plan_ok(const LmvnFft& f, int n, int tile) {
     prod *= f.radix[j];
   }
   return prod == n;
+}
+
+inline bool axis_ok(const LmvnAxis& a, int n, int tile) {
+  if (a.f.n != n || n < 1) return false;
+  if (a.kind == kFourStep) {
+    const LmvnAxis *p = a.part[0], *q = a.part[1];
+    return p && q && p->kind == kDirect && q->kind == kDirect &&
+           static_cast<long long>(p->f.n) * q->f.n == n &&
+           stages_ok(p->f, p->f.n, widest_tile(16, p->f.n)) &&
+           stages_ok(q->f, q->f.n, widest_tile(16, q->f.n));
+  }
+  if (a.kind == kBluestein) {
+    const LmvnAxis* inner = a.part[0];
+    return a.chirp && a.bhat && inner && a.m > 0 && (a.m & (a.m - 1)) == 0 &&
+           a.m >= 2LL * n - 1 && inner->kind != kBluestein &&
+           axis_ok(*inner, a.m, widest_tile(16, a.m));
+  }
+  return a.kind == kDirect && stages_ok(a.f, n, tile);
+}
+
+inline bool plan_ok(const LmvnAxis& a, int n, int tile) {
+  return n <= kMaxLength && axis_ok(a, n, tile);
 }
 
 }  // namespace lmvn_fft

@@ -42,6 +42,10 @@ Spectra are split (re, im) pairs shaped (Kxp, Z, Y), with z and y in the
 interleaved order of :func:`.fused_plan.split_perm` and the pad rows k in
 [Kx, Kxp) zero.  The kernels are the FFT stages of
 ``ops/csrc/fft_stage.cuh``, launched from the entries of ``ops/csrc/fused.cu``.
+An axis no shared-memory stage holds (past 14528, or with a prime factor
+over 1024; up to 2^25) runs its stage as a four-step or Bluestein transform
+through a work buffer in HBM (``ops/csrc/fft_long.cuh``), inside the same
+pass call: :func:`_work` allocates it, about one scratch pair.
 
 Storage (:func:`spec_dtype`, the JAX package's ``LMVN_FUSED_SPEC_BF16``,
 ``fused_dft2.py:530-550``): spectra are stored as float32, or as bfloat16
@@ -81,7 +85,8 @@ from ..utils.precision import fp32_matmuls as _fp32_matmuls
 from ..utils.trace import check_kernel_output
 from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
-    FFT_MAX_STAGES, FusedPlan, make_fft_stages, make_fused_plan, split_perm,
+    FFT_MAX_STAGES, KINDS, MAX_LENGTH, FftStages, FusedPlan, make_fft_stages, make_fused_plan,
+    split_perm,
 )
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -115,15 +120,16 @@ def spec_dtype() -> torch.dtype:
 # The opt-in maximum of one block's shared memory, in bytes, and the tile
 # rules of the FFT stages: kSmemMax, kMinTile, kXSeqMax, kYRowsMax,
 # kYSmemTarget and kZColsMax in ops/csrc/fft_stage.cuh, where plan_ok
-# (ops/csrc/fused.cu) holds every length to them.
+# (ops/csrc/fused.cu) holds every direct length to them.
 _FFT_SMEM_MAX = 232448
 _MIN_TILE = 2
 _Y_SMEM_TARGET = 64 * 1024
-# the largest prime factor a generic stage takes (kMaxGenericRadix)
-_MAX_RADIX = 1024
+# rows of the y stage a group of the long stages' work buffer interleaves
+# (kYLongRows in ops/csrc/fft_long.cuh)
+_Y_LONG_ROWS = 16
 _CARD_REFUSED = (
-    "the CUDA passes serve axes up to 14528 whose prime factors are at most 1024"
-    " (ROADMAP queue 3: the one shape difference from the JAX package)"
+    "the CUDA passes serve every axis that is a multiple of 8 up to 2^25 = 33554432"
+    " (the JAX package's dense x plan there, two X×X float32 matrices, would need over 9 PB)"
 )
 
 
@@ -174,35 +180,30 @@ def fused_limit(shape: Sequence[int], device=None) -> Optional[str]:
     ``device``, or None when it can.
 
     Every device: every axis a multiple of 8 (so X is even), as
-    ``fused_dft2._check_transposed``.  A CUDA device adds the limits of the
-    kernels (``plan_ok`` in ``ops/csrc/fused.cu``), which hold for every
-    pass, since one plan serves them all: each axis needs a tile of its FFT
-    stage in one block's shared memory and stage radices a generic stage
-    takes.
+    ``fused_dft2._check_transposed``.  A CUDA device adds the kernels' limit
+    (``plan_ok`` in ``ops/csrc/fused.cu``), which holds for every pass,
+    since one plan serves them all: each axis at most 2^25
+    (:data:`.fused_plan.MAX_LENGTH`).  Every length up to there has a plan
+    (:func:`.fused_plan.plan_kind`):
 
-    * X: the x stage of every pass but B and BF holds :func:`_x_seq`
-      sequences of X complex values, 16 up to 1816 and down to 2 at 14528;
-    * Y: the y stage of the same passes holds :func:`_y_rows` rows, 16 up to
-      512, 8 to 3632, down to 2 at 14528; any split of Y is served;
-    * Z: the z stage of passes B and BF holds :func:`_z_cols` columns, 16 up
-      to 1816, down to 2 at 14528;
-    * every prime factor of X, Y and Z at most 1024, the largest radix of a
-      generic stage; every multiple of 8 up to 8192 meets it, 8248 = 8·1031
-      does not.  No length up to 14528 needs more than the 16 stages a plan
-      holds."""
+    * direct, up to 14528 with every prime factor at most 1024: the
+      shared-memory stages, their tiles narrowing with the length (x
+      :func:`_x_seq` and z :func:`_z_cols` sequences 16 up to 1816, y
+      :func:`_y_rows` rows 16 up to 512, each down to 2 at 14528);
+    * four-step, past that where the length splits into two direct ones
+      (14536 = 92·158, 16384 = 128·128);
+    * Bluestein, the rest (8248 = 8·1031, 116152 = 8·14519), padded to a
+      power of two: 2^26 = 8192·8192 at 2^25, the longest whose four-step
+      factors are direct, hence the limit."""
     Z, X, Y = (int(s) for s in shape)
     if Z % 8 or X % 8 or Y % 8:
         return f"the fused engine requires Z/Y/X multiples of 8; got ZXY={(Z, X, Y)}"
     if device is None or torch.device(device).type != "cuda":
         return None
-    for axis, n, tile in (("X", X, _x_seq), ("Y", Y, _y_rows), ("Z", Z, _z_cols)):
-        if not tile(n):
-            return (f"{axis}={n}: no tile of its FFT stage fits {_FFT_SMEM_MAX} B of"
-                    " shared memory (a tile of two fits up to 14528)")
-        prime = _largest_prime_factor(n)
-        if prime > _MAX_RADIX:
-            return (f"{axis}={n}: its prime factor {prime} is over {_MAX_RADIX}, the largest"
-                    " radix of a generic FFT stage")
+    for axis, n in (("X", X), ("Y", Y), ("Z", Z)):
+        if n > MAX_LENGTH:
+            return (f"{axis}={n} is past 2^25 = {MAX_LENGTH}: a Bluestein transform there pads"
+                    " past 2^26 = 8192², the longest four-step of two shared-memory FFT lengths")
     return None
 
 
@@ -210,7 +211,7 @@ def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int,
     """(Z, X, Y) of a transposed volume the engine can serve on ``device``
     (:func:`fused_limit`).  Raises ValueError for a shape the engine cannot
     serve anywhere, NotImplementedError for one the CUDA passes cannot
-    serve (an axis past 14528 or with a prime factor over 1024)."""
+    serve (an axis past 2^25)."""
     if len(shape) != 3:
         raise ValueError("the fused engine operates on single volumes")
     Z, X, Y = (int(s) for s in shape)
@@ -228,7 +229,7 @@ def check_transposed_shape(shape: Sequence[int], device=None) -> Tuple[int, int,
 
 class _FftArgs(ctypes.Structure):
     """``LmvnFft`` of ``ops/csrc/fft_stage.cuh``: one length's FFT stages
-    (:func:`.fused_plan.make_fft_stages`)."""
+    (a direct :func:`.fused_plan.make_fft_stages` plan)."""
 
     _fields_ = [
         ("n", ctypes.c_int), ("nstages", ctypes.c_int), ("radix", ctypes.c_int * FFT_MAX_STAGES),
@@ -236,12 +237,24 @@ class _FftArgs(ctypes.Structure):
     ]
 
 
+class _AxisArgs(ctypes.Structure):
+    """``LmvnAxis`` of ``ops/csrc/fft_stage.cuh``: one axis's FFT plan, its
+    kind an index of :data:`.fused_plan.KINDS`; ``part`` points at the plans
+    a four-step or Bluestein plan runs."""
+
+
+_AxisArgs._fields_ = [
+    ("f", _FftArgs), ("kind", ctypes.c_int), ("m", ctypes.c_int), ("chirp", ctypes.c_void_p),
+    ("bhat", ctypes.c_void_p), ("part", ctypes.POINTER(_AxisArgs) * 2),
+]
+
+
 class _PlanArgs(ctypes.Structure):
     """``LmvnFusedPlan`` of ``ops/csrc/fused.cu``, field by field."""
 
     _fields_ = [
         (n, ctypes.c_int) for n in ("Z", "X", "Y", "Kx", "Kxp", "Ry", "My", "Rz", "Mz")
-    ] + [("fx", _FftArgs), ("fy", _FftArgs), ("fz", _FftArgs)]
+    ] + [("fx", _AxisArgs), ("fy", _AxisArgs), ("fz", _AxisArgs)]
 
 
 class PlanTensors:
@@ -259,17 +272,29 @@ class PlanTensors:
         self.args = None
         if device.type != "cuda":
             return
-        ptr = lambda x: x.data_ptr()
-        self.fft = []  # (tw, pos) tensors of the x, y and z FFT stages, kept alive
-        ffts = []
-        for n in (X, Y, Z):
-            st = make_fft_stages(n)
-            tw = self._upload(np.stack([st.tw.real, st.tw.imag], axis=-1))
-            pos = torch.as_tensor(st.pos, device=device)
-            self.fft.append((tw, pos))
-            radix = (ctypes.c_int * FFT_MAX_STAGES)(*st.radices)
-            ffts.append(_FftArgs(n, len(st.radices), radix, ptr(tw), ptr(pos)))
-        self.args = _PlanArgs(Z, X, Y, plan.kxh, plan.kxp, *plan.split_y, *plan.split_z, *ffts)
+        self.keep = []  # the tables and part structs the argument struct points at
+        axes = [self._axis_args(make_fft_stages(n)) for n in (X, Y, Z)]
+        self.args = _PlanArgs(Z, X, Y, plan.kxh, plan.kxp, *plan.split_y, *plan.split_z, *axes)
+
+    def _axis_args(self, st: FftStages) -> _AxisArgs:
+        """The ``LmvnAxis`` of one plan, its tables uploaded and kept."""
+        def table(values):
+            if values is None or not len(values):
+                return None
+            t = self._upload(np.stack([values.real, values.imag], axis=-1))
+            self.keep.append(t)
+            return t.data_ptr()
+
+        pos = None
+        if len(st.pos):
+            self.keep.append(torch.as_tensor(st.pos, device=self.device))
+            pos = self.keep[-1].data_ptr()
+        parts = [self._axis_args(p) for p in st.parts]
+        self.keep.extend(parts)
+        part = (ctypes.POINTER(_AxisArgs) * 2)(*map(ctypes.pointer, parts))
+        radix = (ctypes.c_int * FFT_MAX_STAGES)(*st.radices)
+        f = _FftArgs(st.n, len(st.radices), radix, table(st.tw), pos)
+        return _AxisArgs(f, KINDS.index(st.kind), st.m, table(st.chirp), table(st.bhat), part)
 
     def _upload(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device).contiguous()
@@ -519,6 +544,34 @@ def _scratch(plan, like) -> Pair:
     return _outputs(None, plan, like, torch.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _work_values(shape: Tuple[int, int, int], axes: str) -> int:
+    """The work buffer (complex values) the long stages among ``axes`` ("x",
+    "y", "z") of a pass at plan shape (Z, Y, X) need, the largest of them
+    (``x_work``, ``y_work``, ``z_work`` of ``ops/csrc/fft_long.cuh``); 0
+    where none is long."""
+    Z, Y, X = shape
+    kx = X // 2 + 1
+    need = {"x": (X, Z * (Y // 2)), "z": (Z, kx * Y),
+            "y": (Y, -(-kx * Z // _Y_LONG_ROWS) * _Y_LONG_ROWS)}
+    values = [0]
+    for axis in axes:
+        n, sequences = need[axis]
+        st = make_fft_stages(n)
+        if st.kind != "direct":
+            values.append(sequences * (st.m if st.kind == "bluestein" else n))
+    return max(values)
+
+
+def _work(plan: FusedPlan, dev: torch.device, axes: str):
+    """(buffer, values) of a new work buffer on ``dev`` for the long stages
+    among ``axes`` of a pass, or (None, 0) where every stage is direct."""
+    values = _work_values(tuple(plan.shape), axes)
+    if not values:
+        return None, 0
+    return torch.empty(2 * values, dtype=torch.float32, device=dev), values
+
+
 def _kind(spec: torch.dtype, inputs) -> torch.dtype:
     """The storage a CUDA pass that writes a spectrum launches with: bf16
     (its ``_bf16`` twin) where every spectrum it reads is bf16 and the
@@ -540,11 +593,19 @@ def _store(res: Pair, spec: torch.dtype, out: Optional[Pair]) -> Pair:
     return out
 
 
-def _launch(name: str, kind: torch.dtype, dev: torch.device, *args) -> None:
+# the axes whose stages each pass runs
+_AXES = {"pass_a": "xy", "pass_bf": "z", "pass_b": "z", "pass_c": "xy", "pass_cqa": "xy",
+         "pass_cu": "xy", "pass_cua": "xy"}
+
+
+def _launch(name: str, kind: torch.dtype, dev: torch.device, c: PlanTensors, *args) -> None:
     """Launch pass ``name``'s entry for ``kind`` spectra (``lmvn_fused_<name>``
-    or its ``_bf16`` twin) on the current stream and count it."""
+    or its ``_bf16`` twin) on the current stream, with a work buffer where a
+    stage of the pass is long, and count it."""
     entry = name if kind == torch.float32 else f"{name}_bf16"
-    err = getattr(_build.library(), f"lmvn_fused_{entry}")(dev.index, *args, _stream(dev))
+    work, values = _work(c.plan, dev, _AXES[name])
+    err = getattr(_build.library(), f"lmvn_fused_{entry}")(
+        dev.index, ctypes.addressof(c.args), *args, _ptr(work), values, _stream(dev))
     _build.check(entry, err)
     launches[entry] += 1
 
@@ -595,7 +656,7 @@ def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pai
     u = _outputs(out, plan, xt, spec)
     t = _scratch(plan, xt)
     _check_aligned(xt=xt, out_re=u[0], out_im=u[1])
-    _launch("pass_a", spec, dev, ctypes.addressof(c.args), *map(_ptr, u), *map(_ptr, t), _ptr(xt))
+    _launch("pass_a", spec, dev, c, *map(_ptr, u), *map(_ptr, t), _ptr(xt))
     check_kernel_output("pass_a", *u)
     return u
 
@@ -619,7 +680,7 @@ def pass_b(
     u_re, u_im, k_re, k_im = (x.to(kind) for x in (u_re, u_im, k_re, k_im))
     o = _outputs(out if kind == spec else None, plan, u_re, kind)
     _check_aligned(u_re=u_re, u_im=u_im, k_re=k_re, k_im=k_im, out_re=o[0], out_im=o[1])
-    _launch("pass_b", kind, dev, ctypes.addressof(c.args), *map(_ptr, o), _ptr(u_re), _ptr(u_im),
+    _launch("pass_b", kind, dev, c, *map(_ptr, o), _ptr(u_re), _ptr(u_im),
             _ptr(k_re), _ptr(k_im), int(bool(conj_k)))
     check_kernel_output("pass_b", *o)
     return _store(o, spec, out)
@@ -639,7 +700,7 @@ def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
     u_re, u_im = u_re.to(kind), u_im.to(kind)
     o = _outputs(None, plan, u_re, kind)
     _check_aligned(u_re=u_re, u_im=u_im)
-    _launch("pass_bf", kind, dev, ctypes.addressof(c.args), *map(_ptr, o), _ptr(u_re), _ptr(u_im))
+    _launch("pass_bf", kind, dev, c, *map(_ptr, o), _ptr(u_re), _ptr(u_im))
     check_kernel_output("pass_bf", *o)
     return _store(o, spec, None)
 
@@ -657,7 +718,7 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     _check_aligned(v_re=v_re, v_im=v_im)
     out = torch.empty((Z, X, Y), device=v_re.device)
     t = _scratch(plan, v_re)
-    _launch("pass_c", v_re.dtype, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, t),
+    _launch("pass_c", v_re.dtype, dev, c, _ptr(out), *map(_ptr, t),
             _ptr(v_re), _ptr(v_im))
     check_kernel_output("pass_c", out)
     return out
@@ -682,7 +743,7 @@ def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) ->
     u = _outputs(out if kind == spec else None, plan, v_re, kind)
     _check_aligned(v_re=v_re, v_im=v_im, view_t=view_t, out_re=u[0], out_im=u[1])
     t = _scratch(plan, v_re)
-    _launch("pass_cqa", kind, dev, ctypes.addressof(c.args), *map(_ptr, u), *map(_ptr, t),
+    _launch("pass_cqa", kind, dev, c, *map(_ptr, u), *map(_ptr, t),
             _ptr(v_re), _ptr(v_im), _ptr(view_t))
     check_kernel_output("pass_cqa", *u)
     return _store(u, spec, out)
@@ -716,7 +777,7 @@ def pass_cu(
     _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out,
                    **({"weights": weights} if per_voxel else {}))
     t = _scratch(plan, v_re)
-    _launch("pass_cu", v_re.dtype, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, t),
+    _launch("pass_cu", v_re.dtype, dev, c, _ptr(out), *map(_ptr, t),
             _ptr(v_re), _ptr(v_im), _ptr(psi_t), _ptr(weights) if per_voxel else None,
             0.0 if per_voxel else float(weights), float(lam), float(min_value))
     check_kernel_output("pass_cu", out)
@@ -758,7 +819,7 @@ def pass_cua(
     _check_aligned(v_re=v_re, v_im=v_im, psi_t=psi_t, out=out, u_re=u[0], u_im=u[1],
                    **({"weights": weights} if per_voxel else {}))
     t = _scratch(plan, v_re)
-    _launch("pass_cua", kind, dev, ctypes.addressof(c.args), _ptr(out), *map(_ptr, u),
+    _launch("pass_cua", kind, dev, c, _ptr(out), *map(_ptr, u),
             *map(_ptr, t), _ptr(v_re), _ptr(v_im), _ptr(psi_t),
             _ptr(weights) if per_voxel else None, 0.0 if per_voxel else float(weights),
             float(lam), float(min_value))

@@ -25,6 +25,7 @@ complex form, the hermitian fold and split-x) are not: ``fold_x=True``,
 from __future__ import annotations
 
 import functools
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Tuple
@@ -236,32 +237,69 @@ def split_perm(n: int, split: Tuple[int, int]) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- FFT stages
-# The port's own tables for the shared-memory FFT stages of passes A, BF, B,
-# C and CQA (ops/csrc/fft_stage.cuh); the JAX package has no counterpart.
+# The port's own tables for the FFT stages of passes A, BF, B, C and CQA
+# (ops/csrc/fft_stage.cuh, and ops/csrc/fft_long.cuh for the long axes); the
+# JAX package has no counterpart.
 
 FFT_MAX_STAGES = 16  # kMaxStages in fft_stage.cuh
+# the longest length a shared-memory stage holds: a tile of two sequences of
+# n complex float32 values in one block's 232448 bytes (kSmemMax, kMinTile)
+DIRECT_MAX = 14528
+# the largest radix of a generic stage (kMaxGenericRadix)
+MAX_RADIX = 1024
+# the longest axis the CUDA passes serve: a Bluestein transform of 2^25
+# points pads to 2^26 = 8192², the longest power of two whose four-step
+# factors both fit a shared-memory stage (kMaxLength)
+MAX_LENGTH = 2**25
+
+KINDS = ("direct", "four_step", "bluestein")  # LmvnFft.kind 0, 1, 2
 
 
 class FftStages(NamedTuple):
-    """An in-place mixed-radix decimation-in-time FFT of length n.
+    """The plan of a length-n FFT, of one of three kinds.
 
-    ``radices`` in the order the stages run.  Stage j combines sub-DFTs of
-    length m_j = radices[0] · ... · radices[j-1] into DFTs of length
-    L_j = radices[j] · m_j: for each block b and k' < m_j, the values at
-    b·L_j + t·m_j + k' (t < r) are multiplied by W_{L_j}^{t·k'} and replaced
-    by their r-point DFT, output k1 at b·L_j + k1·m_j + k'.  W_L = exp(-2πi/L)
-    forward; the inverse conjugates every table entry.
+    ``direct``: an in-place mixed-radix decimation-in-time FFT in one
+    block's shared memory.  ``radices`` in the order the stages run.  Stage
+    j combines sub-DFTs of length m_j = radices[0] · ... · radices[j-1] into
+    DFTs of length L_j = radices[j] · m_j: for each block b and k' < m_j,
+    the values at b·L_j + t·m_j + k' (t < r) are multiplied by
+    W_{L_j}^{t·k'} and replaced by their r-point DFT, output k1 at
+    b·L_j + k1·m_j + k'.  W_L = exp(-2πi/L) forward; the inverse conjugates
+    every table entry.  ``pos[i]`` is where input i is stored before the
+    first stage (the mixed-radix digit reversal), so the last stage leaves
+    frequency f at position f.  ``tw`` (complex64) holds the twiddles
+    W_{L_j}^{t·k'} of stage j at m_j - 1 + (t - 1)·m_j + k' (n - 1 values in
+    all), then for each stage whose radix is not 2, 4 or 8, in stage order,
+    its r roots W_r^s.
 
-    ``pos[i]`` is where input i is stored before the first stage (the
-    mixed-radix digit reversal), so the last stage leaves frequency f at
-    position f.  ``tw`` (complex64) holds the twiddles W_{L_j}^{t·k'} of stage
-    j at m_j - 1 + (t - 1)·m_j + k' (n - 1 values in all), then for each stage
-    whose radix is not 2, 4 or 8, in stage order, its r roots W_r^s."""
+    ``four_step`` (Bailey), n = N1·N2, ``parts`` the direct plans of N1 and
+    N2, run through HBM: input j = N2·j1 + j2 at position j; the N1-point
+    transforms over j1 (stride N2), times W_n^{j2·k1}; then the N2-point
+    transforms over j2, which leave frequency k1 + N1·k2 at position
+    N2·k1 + k2 (:func:`spectrum_at`).  The inverse runs the two steps in
+    reverse, the twiddle after the N2-point transforms, from that order back
+    to the natural one.
+
+    ``bluestein`` (chirp-z), any n: ``chirp`` b_j = exp(iπ j²/n) (complex64,
+    from float64), ``parts`` the plan of the padded length ``m``, the power
+    of two at least 2n - 1 (direct or four-step), ``bhat`` the m-point
+    spectrum of the chirp wrapped to m (b̃_j = b_j and b̃_{m-j} = b_j for
+    j < n, zeros between), times 1/m, from float64.  Forward: x_j · conj(b_j)
+    zero-padded to m, the m-point FFT, × bhat, the inverse m-point FFT, the
+    first n values × conj(b_k): frequency k at position k.  The inverse takes
+    the conjugate chirp: × b_j, × conj(bhat[(m - k) mod m]), × b_k.
+
+    Only a direct plan has ``radices``, ``tw`` and ``pos``."""
 
     n: int
     radices: Tuple[int, ...]
     tw: np.ndarray
     pos: np.ndarray
+    kind: str = "direct"
+    parts: Tuple["FftStages", ...] = ()
+    m: int = 0
+    chirp: np.ndarray = None
+    bhat: np.ndarray = None
 
 
 def fft_radices(n: int) -> Tuple[int, ...]:
@@ -297,9 +335,70 @@ def fft_radices(n: int) -> Tuple[int, ...]:
     return tuple(generic[::-1] + small[::-1] + pow2)
 
 
+def is_direct(n: int, direct_max: int = DIRECT_MAX, radix_max: int = MAX_RADIX) -> bool:
+    """Whether a length-n FFT runs in one block's shared memory: n at most
+    ``direct_max`` and every radix at most ``radix_max``."""
+    if not 2 <= n <= direct_max:
+        return False
+    radices = fft_radices(n)
+    return len(radices) <= FFT_MAX_STAGES and max(radices) <= radix_max
+
+
+def plan_kind(n: int, direct_max: int = DIRECT_MAX,
+              radix_max: int = MAX_RADIX) -> Tuple[str, Tuple[int, ...]]:
+    """(kind, sizes) of a length-n FFT: ("direct", ()) where
+    :func:`is_direct`; ("four_step", (N1, N2)) where n splits into two
+    direct lengths, N1 ≤ N2 the split nearest √n; else ("bluestein", (m,)),
+    m the power of two at least 2n - 1.  ``direct_max`` and ``radix_max``
+    are lowered only by tests, to take the four-step and Bluestein kinds at
+    small lengths."""
+    if n < 1:
+        raise ValueError(f"FFT length must be positive, got {n}")
+    direct = functools.partial(is_direct, direct_max=direct_max, radix_max=radix_max)
+    if n == 1 or direct(n):
+        return "direct", ()
+    for n1 in range(math.isqrt(n), 1, -1):
+        if n % n1 == 0 and direct(n1) and direct(n // n1):
+            return "four_step", (n1, n // n1)
+    return "bluestein", (1 << (2 * n - 2).bit_length(),)
+
+
+def spectrum_at(stages: FftStages, k: np.ndarray) -> np.ndarray:
+    """Where a forward transform of the plan leaves frequency k (and where
+    its inverse takes it): k, or N2·(k mod N1) + k div N1 for the four-step
+    kind (``spectrum_at`` of fft_long.cuh)."""
+    if stages.kind != "four_step":
+        return k
+    n1, n2 = (p.n for p in stages.parts)
+    return (k % n1) * n2 + k // n1
+
+
+def make_fft_stages(n: int, direct_max: int = DIRECT_MAX, radix_max: int = MAX_RADIX) -> FftStages:
+    """The plan and tables of a length-n FFT (float64, stored float32), of
+    the kind :func:`plan_kind` gives (``direct_max`` and ``radix_max`` as
+    there, for tests only)."""
+    return _make_fft_stages(int(n), int(direct_max), int(radix_max))
+
+
 @functools.lru_cache(maxsize=64)
-def make_fft_stages(n: int) -> FftStages:
-    """The stage plan and tables of a length-n FFT (float64, stored float32)."""
+def _make_fft_stages(n: int, direct_max: int, radix_max: int) -> FftStages:
+    kind, sizes = plan_kind(n, direct_max, radix_max)
+    if kind == "four_step":
+        parts = tuple(_make_fft_stages(s, direct_max, radix_max) for s in sizes)
+        return FftStages(n, (), np.zeros(0, np.complex64), np.zeros(0, np.int32), kind, parts)
+    if kind == "bluestein":
+        (m,) = sizes
+        if plan_kind(m, direct_max, radix_max)[0] == "bluestein":
+            raise ValueError(f"length {n}: its Bluestein padding {m} has no direct or four-step plan")
+        inner = _make_fft_stages(m, direct_max, radix_max)
+        j = np.arange(n, dtype=np.int64)
+        b = np.exp(1j * np.pi * ((j * j) % (2 * n)) / n)  # exp(iπ j²/n), j² taken mod 2n
+        wrapped = np.zeros(m, np.complex128)
+        wrapped[:n] = b
+        wrapped[m - n + 1 :] = b[1:][::-1]
+        bhat = np.fft.fft(wrapped) / m
+        return FftStages(n, (), np.zeros(0, np.complex64), np.zeros(0, np.int32), kind, (inner,), m,
+                         b.astype(np.complex64), bhat.astype(np.complex64))
     radices = fft_radices(n)
     if len(radices) > FFT_MAX_STAGES:
         raise ValueError(f"length {n} needs {len(radices)} FFT stages, over {FFT_MAX_STAGES}")

@@ -255,8 +255,9 @@ def sharded_fused_eligible(spatial, mesh: Mesh, halo: int = 0) -> bool:
     """Whether the fused engine serves a ('view', 'z')-sharded problem of
     global (Z, Y, X) ``spatial`` on ``mesh``: JAX's layout conditions (X
     even, Y and X multiples of 8; with one z block, Z a multiple of 8),
-    then on a CUDA cell the kernels' limits (:func:`..ops.fused.fused_limit`)
-    at the local extent: the whole volume with one z block, else the
+    then on a CUDA cell the kernels' limit (:func:`..ops.fused.fused_limit`:
+    each axis at most 2^25) at the local extent: the whole volume with one
+    z block, else the
     8-aligned halo-extended block, ``halo`` the largest lo + hi of the
     kernels.  False on the CPU, as JAX's is there ('auto' never takes the
     plain passes; an explicit request still runs them)."""

@@ -112,6 +112,23 @@ def test_resolve_algorithm_cuda_table(monkeypatch, shape, incore, chunk):
     assert rl.resolve_algorithm("auto", shape) == incore
 
 
+# long axes, which the CUDA passes serve through HBM (four-step X = 16384,
+# Bluestein X = 8248 = 8·1031): chip_smoke.py's phase 30 main path, and the
+# same x lengths with every axis at least 256
+LONG_AXES = [(64, 512, 16384), (64, 512, 8248), (256, 256, 16384), (256, 256, 8248)]
+
+
+@pytest.mark.parametrize("shape", LONG_AXES, ids=str)
+def test_auto_keeps_fft_at_the_long_axes(shape):
+    """The fused engine serves a long axis on the card (``fused_eligible``),
+    and ``auto`` still takes fft there: no such class was timed against fft
+    (``_fused_timed``)."""
+    assert rl.fused_eligible(shape, torch.device("cuda"))
+    assert not rl._fused_timed(shape)
+    assert rl.resolve_algorithm("auto", shape, "cuda") == "fft"
+    assert rl.resolve_algorithm("auto", shape, "cuda", chunk=True) == "fft"
+
+
 @pytest.mark.parametrize("algorithm", ["fft", "dft", "fused", "direct", "auto"])
 def test_estimates_match_jax(algorithm):
     jdata, data, _ = _both(_arrays())

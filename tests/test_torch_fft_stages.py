@@ -35,10 +35,13 @@ the kernels must agree with, and the plan they follow:
   held to rtol 2e-4, atol 5e-5, as tests/test_torch_kernels.py holds K1:
   PyTorch's CPU sqrt is an ulp off numpy's on some inputs near 1, which
   the Tikhonov step's cancellation amplifies;
-* every length ``fused_limit`` admits on the card has a stage plan and a
-  tile the kernels accept, by the tile rules read from ``fft_stage.cuh``:
-  each axis up to 14528 whose prime factors are at most 1024; the plans
-  build at the new edges;
+* ``fused_limit`` admits every multiple of 8 on the card up to 2^25 and
+  refuses past it; each length's plan is of the direct kind exactly where
+  its stage has a tile and radices the kernels accept, by the tile rules
+  read from ``fft_stage.cuh`` (each axis up to 14528 whose prime factors
+  are at most 1024), with the same tables as before, and of the four-step
+  or Bluestein kind past that (tests/test_torch_fused_long.py emulates
+  those); the plans build at the new edges;
 * the ctypes mirror of the kernels' plan struct keeps the C layout.
 """
 
@@ -627,33 +630,57 @@ def _header_tile_rules():
     )
 
 
+# long lengths sampled past the sweep: four-step (20000 = 125·160, 2^20,
+# 2^25 = 4096·8192) and Bluestein (8·14519, 8·65537, 8·4194301 the longest)
+LONG_SAMPLES = [16392, 17280, 20000, 65536, 116152, 524296, 2**20, 33554408, 2**25]
+
+
 @pytest.mark.parametrize("axis", ["X", "Y", "Z"])
 def test_fused_limit_admits_only_fft_plans_the_kernels_accept(axis):
     """``plan_ok`` of ``ops/csrc/fused.cu`` in Python, with the tile rules
-    read from ``fft_stage.cuh``: ``fused_limit`` admits a length on the card
-    exactly where its stage has a tile (``_x_seq``, ``_y_rows``,
-    ``_z_cols`` agree with the header's rule at every length) and its
-    stages are at most 16, of radix 2 to the largest generic radix.  So
-    every axis is served up to 14528, each tile keeps its width up to the
-    old edges (x and z 16 to 1816, y 16 to 512 and 8 to 3632), every
-    multiple of 8 up to 8192 is admitted, and 8248 = 8·1031 and 14536 are
-    refused."""
+    read from ``fft_stage.cuh``: a length's plan is direct exactly where its
+    stage has a tile (``_x_seq``, ``_y_rows``, ``_z_cols`` agree with the
+    header's rule at every length) and its stages are at most 16, of radix
+    2 to the largest generic radix, with the tables of ``fft_radices``;
+    past that it is four-step where the length splits into two direct ones,
+    else Bluestein.  ``fused_limit`` admits every multiple of 8 on the card
+    up to 2^25 (the sweep to 16384 and the samples past it) and refuses
+    past it.  Each tile keeps its width up to the old edges (x and z 16 to
+    1816, y 16 to 512 and 8 to 3632); 8248 = 8·1031 takes Bluestein and
+    14536 the four-step."""
     x_seq, y_rows, z_cols, max_radix = _header_tile_rules()
     rule, mirror = {"X": (x_seq, fu._x_seq), "Y": (y_rows, fu._y_rows),
                     "Z": (z_cols, fu._z_cols)}[axis]
-    admitted = []
-    for n in range(8, 14536 + 8 * 8 + 1, 8):
-        assert mirror(n) == rule(n), n
+    kinds = {}
+    for n in list(range(8, 16384 + 1, 8)) + LONG_SAMPLES:
+        if n <= 16384:
+            assert mirror(n) == rule(n), n
         zxy = {"X": (8, n, 8), "Y": (8, 8, n), "Z": (n, 8, 8)}[axis]
-        radices = fp.fft_radices(n)
-        kernels_accept = (rule(n) > 0 and len(radices) <= fp.FFT_MAX_STAGES
-                          and all(2 <= r <= max_radix for r in radices))
-        assert (fu.fused_limit(zxy, "cuda") is None) == kernels_accept, n
-        if kernels_accept:
-            admitted.append(n)
+        assert fu.fused_limit(zxy, "cuda") is None, n
+        kind, sizes = fp.plan_kind(n)
+        radices = fp.fft_radices(n) if n <= 16384 else ()
+        direct = (n <= 16384 and rule(n) > 0 and len(radices) <= fp.FFT_MAX_STAGES
+                  and all(2 <= r <= max_radix for r in radices))
+        assert (kind == "direct") == direct, n
+        if kind == "four_step":
+            assert sizes[0] * sizes[1] == n and all(fp.is_direct(s) for s in sizes), n
+        elif kind == "bluestein":
+            (m,) = sizes
+            assert m == 1 << (2 * n - 2).bit_length() and fp.plan_kind(m)[0] != "bluestein", n
+        kinds[n] = kind
+    for n in range(8, 14529, 200):  # the shared-memory plans and their tables, as before
+        if kinds[n] == "direct":
+            st = fp.make_fft_stages(n)
+            odd = sum(r for r in st.radices if r not in (2, 4, 8))
+            assert st.kind == "direct" and st.radices == fp.fft_radices(n) and not st.parts
+            assert st.tw.size == n - 1 + odd and sorted(st.pos.tolist()) == list(range(n))
+    admitted = [n for n, k in kinds.items() if k == "direct"]
     assert max_radix == 1024 and admitted[-1] == 14528
     assert set(range(8, 8193, 8)) <= set(admitted)
-    assert 8248 not in admitted and 8168 in admitted
+    assert kinds[8248] == kinds[116152] == kinds[33554408] == "bluestein"
+    assert kinds[14536] == kinds[16384] == kinds[2**25] == "four_step" and kinds[8168] == "direct"
+    over = {"X": (8, 2**25 + 8, 8), "Y": (8, 8, 2**25 + 8), "Z": (2**25 + 8, 8, 8)}[axis]
+    assert "past 2^25" in fu.fused_limit(over, "cuda")
     widest = {"X": [(1816, 16), (1824, 8), (3632, 8), (3640, 4), (7264, 4), (7272, 2)],
               "Y": [(512, 16), (520, 8), (3632, 8), (3640, 4), (7264, 4), (7272, 2)],
               "Z": [(736, 16), (1816, 16), (1824, 8), (3640, 4), (7272, 2)]}[axis]
@@ -720,11 +747,12 @@ def test_plans_build_past_the_old_edges(shape):
 
 @pytest.mark.parametrize("n", [1824, 3640, 7264, 7272, 8168, 14528])
 def test_stage_tables_at_the_narrow_tiles(n):
-    """The FFT stage tables at each narrow tile's lengths: radices in the
-    kernels' range (8168 = 8·1021 runs a generic stage of 1021, 14528 =
-    64·227 one of 227), pos a permutation, and the twiddles of every
-    stage."""
+    """The FFT stage tables at each narrow tile's lengths: a direct plan
+    (``LmvnFft.kind`` 0, no parts, no chirp), radices in the kernels' range
+    (8168 = 8·1021 runs a generic stage of 1021, 14528 = 64·227 one of
+    227), pos a permutation, and the twiddles of every stage."""
     st = fp.make_fft_stages(n)
+    assert st.kind == "direct" and st.parts == () and st.m == 0 and st.chirp is None
     assert int(np.prod(st.radices)) == n and len(st.radices) <= fp.FFT_MAX_STAGES
     assert all(2 <= r <= 1024 for r in st.radices)
     assert sorted(st.pos.tolist()) == list(range(n))
@@ -733,11 +761,35 @@ def test_stage_tables_at_the_narrow_tiles(n):
 
 
 def test_plan_struct_mirrors_the_c_layout():
-    """``LmvnFft`` (fft_stage.cuh): two ints, int radix[16], two pointers;
-    ``LmvnFusedPlan`` (fused.cu): nine ints, then fx, fy and fz, the first
-    on the next 8-byte boundary."""
+    """``LmvnFft`` (fft_stage.cuh): two ints, int radix[16], two pointers,
+    what the stage kernels read (they copy it to their stack, so it holds
+    no more); ``LmvnAxis``: an ``LmvnFft``, the kind and the Bluestein length
+    m (two ints), the chirp and bhat pointers and part[2], two pointers to
+    the plans a long one runs, in the header's order; ``LmvnFusedPlan``
+    (fused.cu): nine ints, then fx, fy and fz, the first on the next 8-byte
+    boundary.  The kinds and two constants are the headers'."""
+    header = (Path(fu.__file__).parent / "csrc" / "fft_stage.cuh").read_text()
+
+    def fields(struct):
+        body = header[header.index(f"struct {struct} {{"):header.index("};", header.index(f"struct {struct} {{"))]
+        decls = re.sub(r"//[^\n]*", "", body.split("{", 1)[1]).split(";")
+        return [re.findall(r"(\w+)(?:\[\d+\])?\s*$", part)[0]
+                for d in decls if d.strip() for part in d.split(",")]
+
+    assert fields("LmvnFft") == [f[0] for f in fu._FftArgs._fields_] == [
+        "n", "nstages", "radix", "tw", "pos"]
+    assert fields("LmvnAxis") == [f[0] for f in fu._AxisArgs._fields_] == [
+        "f", "kind", "m", "chirp", "bhat", "part"]
     assert ctypes.sizeof(fu._FftArgs) == 88
     assert (fu._FftArgs.radix.offset, fu._FftArgs.tw.offset, fu._FftArgs.pos.offset) == (8, 72, 80)
+    assert ctypes.sizeof(fu._AxisArgs) == 128
+    assert (fu._AxisArgs.kind.offset, fu._AxisArgs.m.offset, fu._AxisArgs.chirp.offset,
+            fu._AxisArgs.bhat.offset, fu._AxisArgs.part.offset) == (88, 92, 96, 104, 112)
     assert fu._PlanArgs.Mz.offset == 32
-    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset, fu._PlanArgs.fz.offset) == (40, 128, 216)
-    assert ctypes.sizeof(fu._PlanArgs) == 304
+    assert (fu._PlanArgs.fx.offset, fu._PlanArgs.fy.offset, fu._PlanArgs.fz.offset) == (40, 168, 296)
+    assert ctypes.sizeof(fu._PlanArgs) == 424
+    assert "constexpr int kDirect = 0, kFourStep = 1, kBluestein = 2;" in header
+    assert fp.KINDS == ("direct", "four_step", "bluestein")
+    assert f"constexpr int kMaxLength = 1 << {fp.MAX_LENGTH.bit_length() - 1};" in header
+    long_header = (Path(fu.__file__).parent / "csrc" / "fft_long.cuh").read_text()
+    assert f"constexpr int kYLongRows = {fu._Y_LONG_ROWS};" in long_header

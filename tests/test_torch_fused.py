@@ -321,22 +321,28 @@ def test_auto_still_means_fft_and_fused_guards():
         ((14528, 8, 8), True),  # 2 columns fill shared memory
         ((8, 8168, 8), True),  # 8·1021: the largest generic radix under 1024
         ((8168, 8, 16), True),
-        ((14536, 8, 8), False),  # no tile fits
-        ((8, 14536, 8), False),
-        ((8, 8, 14536), False),
-        ((8248, 8, 8), False),  # 8·1031: a prime factor over a generic stage's 1024
-        ((8, 8248, 8), False),
-        ((8, 8, 8248), False),
+        ((14536, 8, 8), True),  # no tile fits: four-step 92·158 through HBM
+        ((8, 14536, 8), True),
+        ((8, 8, 14536), True),
+        ((8248, 8, 8), True),  # 8·1031, a prime factor over 1024: Bluestein
+        ((8, 8248, 8), True),
+        ((8, 8, 8248), True),
+        ((2**25, 8, 8), True),  # the longest axis served: four-step 4096·8192
+        ((8, 33554408, 8), True),  # 8·4194301: Bluestein padded to 2^26
+        ((2**25 + 8, 8, 8), False),  # past 2^25
+        ((8, 2**25 + 8, 8), False),
+        ((8, 8, 2**25 + 8), False),
     ],
     ids=str,
 )
 def test_fused_limit_holds_the_cuda_kernels_limits(zxy, on_card):
     """fused_limit is the kernels' plan_ok in Python: the CPU path serves
-    every shape of multiples of 8; on a CUDA device a shape past a limit
-    raises NotImplementedError before anything reaches the card, naming
-    what the CUDA passes serve.  The refusal comes from the plan's shape:
-    making a plan builds none of its dense matrices, so a plan at the
-    refused shape goes in as it is."""
+    every shape of multiples of 8; on a CUDA device every axis up to 2^25
+    is served (a shared-memory, four-step or Bluestein plan), and a shape
+    past it raises NotImplementedError before anything reaches the card,
+    naming what the CUDA passes serve and why.  The refusal comes from the
+    plan's shape: making a plan builds none of its dense matrices, so a plan
+    at the refused shape goes in as it is."""
     Z, X, Y = zxy
     assert fu.fused_limit(zxy) is None and fu.fused_limit(zxy, "cpu") is None
     assert rl.fused_eligible((Z, Y, X)) and fu.check_transposed_shape(zxy) == zxy
@@ -345,9 +351,9 @@ def test_fused_limit_holds_the_cuda_kernels_limits(zxy, on_card):
     if on_card:
         assert fu.check_transposed_shape(zxy, "cuda") == zxy
         return
-    with pytest.raises(NotImplementedError, match="axes up to 14528 whose prime factors"):
+    with pytest.raises(NotImplementedError, match="every axis that is a multiple of 8 up to 2\\^25"):
         fu.check_transposed_shape(zxy, "cuda")
-    with pytest.raises(NotImplementedError, match="at most 1024"):
+    with pytest.raises(NotImplementedError, match="past 2\\^25 = 33554432: a Bluestein transform"):
         fu.plan_tensors(fp.make_fused_plan((Z, Y, X)), "cuda")
 
 
