@@ -21,11 +21,13 @@ import torch.nn.functional as F
 
 from ..ops.elementwise import layout_like, spectral_multiply
 from ..utils.precision import fp32_convs
+from ..utils.trace import spanned
 from .fft import irfft3, rfft3, stack_spectra
 from .shapes import as_shape, halo_widths, zero_pad_extents, zero_pad_offsets
 from .wrap import crop_at_offsets, embed_at_offsets, wrap_kernel  # noqa: F401 (re-exported, as in JAX)
 
 
+@spanned("lmvn.engine.convolve_spectrum")
 def convolve_spectrum(
     x: torch.Tensor, kernel_hat: torch.Tensor, conj_k: bool = False
 ) -> torch.Tensor:

@@ -34,7 +34,9 @@ the JAX package's name, and λ/min_value are runtime values on every call.
 accepted by every entry point; both run the port's kernels (:func:`_select_rl_update`).
 :func:`resolve_algorithm` says which engine ``"auto"`` runs, for every
 caller (in-core, interleaved, streamed and the dispatch ladder), and the
-module logger records it at DEBUG.
+module logger records it at DEBUG.  Under a profiler, a :func:`deconvolve`
+call is the span ``lmvn.deconvolve`` and its kernel forwarding
+``lmvn.forward`` (:func:`..utils.trace.span`).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from ..ops.fused import (
     fused_rl_step_transposed,
     kernel_spectrum_fused,
 )
+from ..utils.trace import spanned
 from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 
 log = logging.getLogger(__name__)
@@ -324,6 +327,9 @@ class PreparedSpectra:
         self.xmode = xmode
 
 
+# a module attribute that deconvolve calls through the module's globals, so
+# that a caller can wrap it from outside (the benchmark's forwarding range)
+@spanned("lmvn.forward")
 def _forward_spectra(engine: str, data: MultiViewData, spatial, adjoint_kernel2: bool):
     """(k1, k2, conj_k2) of an engine: complex spectra for fft, (re, im)
     pairs for fused and dft, the kernels themselves for direct.  With the
@@ -383,6 +389,7 @@ def _view_weights(weights: torch.Tensor) -> list:
     return list(weights)
 
 
+@spanned("lmvn.deconvolve")
 def deconvolve(
     psi: torch.Tensor,
     data: MultiViewData,

@@ -37,13 +37,15 @@ def check_simultaneous_weights(weights, atol: float = 1e-3) -> None:
     total = w.sum(axis=0) if w.ndim > 1 else w.sum()
     err = float(np.max(np.abs(np.asarray(total) - 1.0)))
     if err > atol:
+        # level 4: the caller of deconvolve or deconvolve_auto, past their
+        # span wrappers (utils/trace.py spanned)
         warnings.warn(
             "simultaneous view order expects weights summing to ~1 across "
             f"views (max |sum-1| = {err:.3g}); each sweep is effectively "
             "scaled by sum(w) and may diverge — normalize the weights or "
             "use view_order='sequential'",
             WeightNormalizationWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
 
 

@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 
 from ..core.kernels import compute_quotient, rl_update as _rl_update_plain
-from ..utils.trace import check_kernel_output
+from ..utils.trace import check_kernel_output, spanned
 from . import _build
 
 # launch counts of the three kernels; a plain-version call never counts
@@ -163,6 +163,7 @@ def _plain_vjp(plain, inputs, needs, grad):
     return tuple(next(got) if n else None for n in needs)
 
 
+@spanned("lmvn.engine.rl_update")
 def rl_update(
     psi: torch.Tensor,
     integral: torch.Tensor,
@@ -243,6 +244,7 @@ class _RlUpdate(torch.autograd.Function):
         return _plain_vjp(plain, inputs, ctx.needs_input_grad[:4], grad) + (None,)
 
 
+@spanned("lmvn.engine.quotient")
 def quotient(
     view: torch.Tensor, integral: torch.Tensor, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

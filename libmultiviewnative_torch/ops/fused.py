@@ -82,7 +82,7 @@ from ..core.kernels import compute_quotient, rl_update as rl_update_plain
 from ..core.wrap import wrap_kernel
 from . import _build
 from ..utils.precision import fp32_matmuls as _fp32_matmuls
-from ..utils.trace import check_kernel_output
+from ..utils.trace import check_kernel_output, spanned
 from .elementwise import _check, _device, _stream, _wants_grad
 from .fused_plan import (
     FFT_MAX_STAGES, KINDS, MAX_LENGTH, FftStages, FusedPlan, make_fft_stages, make_fused_plan,
@@ -641,6 +641,7 @@ def _check_aligned(**tensors):
             raise ValueError(f"{name} must start on a 16-byte boundary for the CUDA pass")
 
 
+@spanned("lmvn.engine.pass_a")
 def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pair] = None) -> Pair:
     """K4: (Z, X, Y) volume -> its (Kxp, Z, Y) re/im pass-A spectrum, stored
     as :func:`spec_dtype`."""
@@ -661,6 +662,7 @@ def pass_a(xt: torch.Tensor, plan: Optional[FusedPlan] = None, out: Optional[Pai
     return u
 
 
+@spanned("lmvn.engine.pass_b")
 def pass_b(
     u_re, u_im, k_re, k_im, plan: FusedPlan, conj_k: bool = False, out: Optional[Pair] = None,
 ) -> Pair:
@@ -686,6 +688,7 @@ def pass_b(
     return _store(o, spec, out)
 
 
+@spanned("lmvn.engine.pass_bf")
 def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
     """K5: the split z-DFT of a (Kxp, Z, Y) pair into a new pair, stored as
     :func:`spec_dtype`."""
@@ -705,6 +708,7 @@ def pass_bf(u_re, u_im, plan: FusedPlan) -> Pair:
     return _store(o, spec, None)
 
 
+@spanned("lmvn.engine.pass_c")
 def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     """K7: split y-inverse and packed x-irfft of a (Kxp, Z, Y) pair (float32
     or bf16), the real (Z, X, Y) volume."""
@@ -724,6 +728,7 @@ def pass_c(v_re, v_im, plan: FusedPlan) -> torch.Tensor:
     return out
 
 
+@spanned("lmvn.engine.pass_cqa")
 def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) -> Pair:
     """K8: pass A of view · (1/blurred), blurred = pass C of v, stored as
     :func:`spec_dtype`; ``out`` may be ``(v_re, v_im)``."""
@@ -749,6 +754,7 @@ def pass_cqa(v_re, v_im, view_t, plan: FusedPlan, out: Optional[Pair] = None) ->
     return _store(u, spec, out)
 
 
+@spanned("lmvn.engine.pass_cu")
 def pass_cu(
     v_re, v_im, psi_t, weights, plan: FusedPlan, lam, min_value: float,
     out: Optional[torch.Tensor] = None,
@@ -784,6 +790,7 @@ def pass_cu(
     return out
 
 
+@spanned("lmvn.engine.pass_cua")
 def pass_cua(
     v_re, v_im, psi_t, weights, plan: FusedPlan, lam, min_value: float,
     out: Optional[torch.Tensor] = None, u_out: Optional[Pair] = None,

@@ -5,20 +5,24 @@ compile-time ``LMVN_TRACE`` dump macro becomes a runtime environment flag
 that gates one-line notices, such as the dispatch ladder's choice of rung;
 its ``cudaProfilerStart/Stop`` brackets become :func:`profile_region`, a
 ``torch.profiler`` trace (CUDA activity on the card) exported for
-TensorBoard; and :func:`debug_context` is the NaN sanitizer the reference
-lacks, raising at the op that first produces a NaN as ``jax_debug_nans``
-does.
+TensorBoard; :func:`span` and :func:`spanned` mark the program's layers
+(``lmvn.*``) inside any such trace; and :func:`debug_context` is the NaN
+sanitizer the reference lacks, raising at the op that first produces a NaN
+as ``jax_debug_nans`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import os
 import time
 from typing import Iterator, Optional
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 from torch.overrides import TorchFunctionMode
 
 TRACE_ENV = "LMVN_TRACE"
@@ -70,16 +74,34 @@ def profile_region(name: str, logdir: Optional[str] = None) -> Iterator[None]:
         trace_print(f"{name}: {1e3 * (time.perf_counter() - t0):.3f} ms")
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range inside an existing trace: a ``torch.profiler`` record
-    and, on the card, an NVTX range."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program (``lmvn.*``), recorded exactly while a
+    ``torch.profiler`` session records on this thread: the benchmark's
+    traced run, :func:`profile_region` under ``LMVN_PROFILE_DIR``, or a
+    caller's own profiler.  It is a host event of that trace, on the clock
+    of the device activity, and adds no event to the device's timeline (a
+    function-scope record, where ``record_function``'s user scope gets a
+    ``gpu_user_annotation`` twin there).  With no profiler it is one check
+    and a shared null context."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorate a function so that each call runs inside :func:`span`
+    ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 def _raise_on_nan(what: str, out) -> None:

@@ -28,6 +28,14 @@ NOT_PORTED_MODULES = {
     "ops.pallas", "ops.pallas.elementwise", "ops.pallas.fused_dft2",
 }
 
+# Public names of a JAX module the port leaves out by decision, and why.
+NOT_PORTED_NAMES = {
+    # record_function and NVTX ranges that nothing read (nsys does not run
+    # on the card's machine), whose user scope also puts a twin range on the
+    # device's timeline: the port marks its layers with utils.trace.span
+    "utils.trace.annotate",
+}
+
 # Functions whose parameters differ from JAX's by decision.
 SIGNATURE_DECISIONS = {
     # one process drives several cells: the halo functions take this
@@ -79,7 +87,9 @@ def test_top_level_all_matches_jax():
 def test_module_names_match_jax(rel):
     jm, tm = _pair(rel)
     package = hasattr(jm, "__path__")
-    missing = _defined(jm, package) - set(dir(tm))
+    left_out = {n for n in _defined(jm, package) if f"{rel}.{n}" in NOT_PORTED_NAMES}
+    assert not left_out & set(dir(tm)), f"{sorted(left_out)} ported now: take them off the list"
+    missing = _defined(jm, package) - set(dir(tm)) - left_out
     assert not missing, sorted(missing)
 
 
@@ -87,6 +97,8 @@ def _functions(rel):
     jm, tm = _pair(rel)
     for n, o in sorted(vars(jm).items()):
         if n.startswith("_") or not inspect.isfunction(o) or o.__module__ != jm.__name__:
+            continue
+        if f"{rel}.{n}" in NOT_PORTED_NAMES:
             continue
         yield f"{rel}.{n}", o, getattr(tm, n)
 

@@ -1,9 +1,9 @@
 """The port's numpy reference and utilities against the JAX package's:
 ``reference/numpy_ref.py`` and ``utils/psf.py`` bitwise (the same float64
 numpy code), ``utils/validate.py`` on NaN and Inf, ``utils/trace.py`` (the
-trace flag, a wall-clock ``profile_region``, ``annotate``, a profiler trace
-and ``debug_context``), ``utils/logging.py``'s row against JAX's, and
-``utils/printing.py``.
+trace flag, a wall-clock ``profile_region``, ``span``, a profiler trace that
+carries the spans, and ``debug_context``), ``utils/logging.py``'s row
+against JAX's, and ``utils/printing.py``.
 """
 
 import os
@@ -20,9 +20,9 @@ from libmultiviewnative_torch.reference import numpy_ref
 from libmultiviewnative_torch.utils import logging as tlogging, printing, psf
 from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 from libmultiviewnative_torch.utils.trace import (
-    annotate,
     debug_context,
     profile_region,
+    span,
     trace_enabled,
 )
 from libmultiviewnative_torch.utils.validate import check_finite, validate_workspace
@@ -125,7 +125,7 @@ def test_profile_region_wallclock(capsys, monkeypatch):
     monkeypatch.setenv("LMVN_TRACE", "1")
     monkeypatch.delenv("LMVN_PROFILE_DIR", raising=False)
     with profile_region("unit"):
-        with annotate("inner"):
+        with span("lmvn.inner"):
             torch.ones(4).sum()
     out = capsys.readouterr().out
     assert "unit:" in out and "ms" in out
@@ -138,8 +138,10 @@ def test_profile_region_wallclock(capsys, monkeypatch):
 def test_profile_region_writes_a_trace(tmp_path, monkeypatch):
     monkeypatch.delenv("LMVN_PROFILE_DIR", raising=False)
     with profile_region("traced", logdir=str(tmp_path)):
-        torch.ones(8).cumsum(0)
-    assert any(name.endswith(".json") for name in os.listdir(tmp_path))
+        with span("lmvn.inner"):
+            torch.ones(8).cumsum(0)
+    (trace,) = [name for name in os.listdir(tmp_path) if name.endswith(".json")]
+    assert '"lmvn.inner"' in (tmp_path / trace).read_text()
 
 
 def test_debug_context_raises_at_the_producing_op():
