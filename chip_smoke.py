@@ -31,11 +31,12 @@ Phases, each raising on failure (there is no CPU fallback):
    K4 also against ``torch.fft.rfft2``; K9 bitwise against K1 of K7's
    output (``rl_update(psi, pass_c(v))``);
 10. fused headline: phase 5's data through ``deconvolve(algorithm="fused")``,
-    with the launch counts of one call (K4 48, K6 80, K8 40, K9 40, K1-K3 0),
+    with the launch counts of one call (K4 42, K6 80, K8 40, K9 40, K1-K3 0;
+    the forwarding's gather and contraction 2 each),
     it/s and the slope, and held against the fft engine after 10 iterations;
 11. fused prepared: prepare_workspace(algorithm="fused") + deconvolve_prepared
     (K4 40 per call);
-12. fused 512³: phase 7's configuration through the fused engine (K4 44);
+12. fused 512³: phase 7's configuration through the fused engine (K4 41);
 13. fused cross-check: CUDA against the fused CPU path at 4 views × 64³;
 14. fused limits: the seven passes against their plain versions at the edges
     of the FFT stages' widest tiles (small shapes: X = 1816, where 16
@@ -52,7 +53,7 @@ Phases, each raising on failure (there is no CPU fallback):
     spectrum forwarding (pass A + BF) against the z-sparse one for the bench
     kernels at 256³;
 16. carried chain: phases 10 and 12's configurations with
-    ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 9 per 256³
+    ``LMVN_FUSED_CARRY=1`` (K10 40, K9 0, K6 80, K8 40, K4 3 per 256³
     call), it/s, slope, and psi against the plain chain (within 1e-5: K10's
     forward x FFT runs the transposed stages, K4's the stages after a
     digit-reversed load, so the two round apart);
@@ -164,7 +165,7 @@ Phases, each raising on failure (there is no CPU fallback):
 29. the fused engine past the old limits (X > 1816, Y > 3632, Z > 736), where
     the FFT stages narrow their tiles: 4 views with the bench kernels,
     per-voxel weights and 10 iterations at (256, 1024, 2048) and (1024,
-    512, 512) through ``deconvolve(algorithm="fused")`` (K4 48, K6 80, K8
+    512, 512) through ``deconvolve(algorithm="fused")`` (K4 42, K6 80, K8
     40, K9 40) against fft (1e-3) and ``deconvolve_auto`` (in-core, its
     pick against phase 22's turns there), the interleaved rung on fused at
     (256, 1024, 2048), 2 iterations, against in-core (rtol 2e-5, atol
@@ -180,7 +181,7 @@ Phases, each raising on failure (there is no CPU fallback):
     1024): a. 4 views with the bench kernels, per-voxel weights and 10
     iterations at (64, 512, 16384) (four-step x, 2 GiB a volume) and (64,
     512, 8248) (Bluestein x) through ``deconvolve(algorithm="fused")`` (K4
-    48, K6 80, K8 40, K9 40) against fft (1e-3), fused and fft in turns,
+    42, K6 80, K8 40, K9 40) against fft (1e-3), fused and fft in turns,
     the peak memory beside its prediction, ``auto``'s pick (fft by rule)
     and ``fused_eligible``; b. every pass there and at 14536, 16384, 17280,
     8248 and 116152 on each axis (the other axes 8 to 24) against its
@@ -188,7 +189,20 @@ Phases, each raising on failure (there is no CPU fallback):
     float64 where the plain version's matrices or splits are too large
     (1e-5), each with its time and byte bound; c. the bf16 twins at one long
     shape per axis, held as in phase 28; d. an axis past 2^25 refused before
-    any launch; the phase's seconds against its budget of 60.
+    any launch; the phase's seconds against its budget of 60;
+31. the forwarding of a whole kernel stack (``kernel_stack_spectrum_fused``)
+    at the benchmark's shapes, 4 views: 256³ with the 21³ and the 25³
+    stacks, 512³ with the 21³ stack (the adjoint's one stack): the gather
+    bitwise its plain version (``wrap_kernel`` view by view), the one K4
+    over the V·Zs gathered planes bitwise each view's own K4,
+    ``spectrum_zsparse`` within 1e-6 of max of its plain version in float64
+    and timed against its bound, its plain version in float32 and the
+    einsum chain it replaced (``library_ms``), its bf16 twin bitwise the f32
+    entry on the widened spectrum rounded once and within one bf16 step of
+    the einsum chain under bf16 storage, the whole forwarding within 1e-6 of
+    max of the einsum chain of each view (the parent's path) and timed
+    against it, and the launches of one stack (a gather, one K4, one
+    contraction).
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -244,7 +258,15 @@ REPLACES = {
     "pass_cua": "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1950",
 }
 REPLACES.update({f"{name}_bf16": REPLACES[name] for name in FUSED_PASSES})
-KERNEL_NAMES = ("rl_update", "quotient", "spectral_multiply") + FUSED_PASSES + BF16_PASSES
+# the z-sparse forwarding of a kernel stack (phase 31): the gather and the
+# contraction (and its bf16 twin) of ops/csrc/spectrum.cu, which replace the
+# z-sparse branch of the JAX package's kernel_spectrum_fused (an XLA einsum)
+FORWARD_KERNELS = ("spectrum_gather", "spectrum_zsparse", "spectrum_zsparse_bf16")
+SOURCES.update({name: "libmultiviewnative_torch/ops/csrc/spectrum.cu" for name in FORWARD_KERNELS})
+REPLACES.update({name: "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1642"
+                 for name in FORWARD_KERNELS})
+KERNEL_NAMES = (("rl_update", "quotient", "spectral_multiply") + FUSED_PASSES + BF16_PASSES
+                + FORWARD_KERNELS)
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
 # so K1 is expected bitwise (K2 is held to 0); PyTorch's own complex
@@ -938,6 +960,13 @@ def expect_counts(counts, want, what):
         raise AssertionError(f"{what}: the main path did not run through the kernels: {counts}")
 
 
+def forwarded(stacks, sfx=""):
+    """The launches besides K4 of the z-sparse forwarding of ``stacks``
+    kernel stacks (a single kernel is a stack of one): a gather and a
+    contraction each; K4 once a stack, counted with the passes."""
+    return {"spectrum_gather": stacks, "spectrum_zsparse" + sfx: stacks}
+
+
 def phase_fused_headline(torch, dev, rng, launches_out):
     from libmultiviewnative_torch.deconv.rl import (
         deconvolve, deconvolve_prepared, prepare_workspace,
@@ -957,9 +986,11 @@ def phase_fused_headline(torch, dev, rng, launches_out):
     out = run_n(ITERS)
     torch.cuda.synchronize()
     counts = read_counts()
-    expect_counts(counts, {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
-                           "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, "fused headline")
-    launches_out.update({k: counts[k] for k in ("pass_a", "pass_b", "pass_cqa", "pass_cu")})
+    expect_counts(counts, {"pass_a": V * ITERS + 2, "pass_b": 2 * V * ITERS,
+                           "pass_cqa": V * ITERS, "pass_cu": V * ITERS, **forwarded(2)},
+                  "fused headline")
+    launches_out.update({k: counts[k] for k in ("pass_a", "pass_b", "pass_cqa", "pass_cu",
+                                                "spectrum_gather", "spectrum_zsparse")})
     check_output(torch, out, shape, "fused headline")
     value, slope = rate(torch, run_n, reps=4)
     log(f"fused headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
@@ -1009,8 +1040,9 @@ def phase_fused_512(torch, dev, rng):
     reset_counts()
     out = run_n(ITERS)
     torch.cuda.synchronize()
-    expect_counts(read_counts(), {"pass_a": V * ITERS + V, "pass_b": 2 * V * ITERS,
-                                  "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, "fused 512^3")
+    expect_counts(read_counts(), {"pass_a": V * ITERS + 1, "pass_b": 2 * V * ITERS,
+                                  "pass_cqa": V * ITERS, "pass_cu": V * ITERS, **forwarded(1)},
+                  "fused 512^3")
     check_output(torch, out, shape, f"fused {BIG_N}^3")
     value, slope = rate(torch, run_n, reps=2)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1224,11 +1256,11 @@ def phase_carried(torch, dev, rng, launches_out):
     rates = {}
     for label, make, kw, reps, want in (
         (f"{HEADLINE_N}^3", headline_data, {}, 4,
-         {"pass_a": 2 * V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
-          "pass_cua": V * ITERS}),
+         {"pass_a": 2 + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+          "pass_cua": V * ITERS, **forwarded(2)}),
         (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2,
-         {"pass_a": V + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
-          "pass_cua": V * ITERS}),
+         {"pass_a": 1 + 1, "pass_b": 2 * V * ITERS, "pass_cqa": V * ITERS,
+          "pass_cua": V * ITERS, **forwarded(1)}),
     ):
         data, psi0 = make(torch, dev, rng)
 
@@ -1347,7 +1379,8 @@ def phase_interleaved(torch, dev, launches_out):
         if engine == "fft":
             want["spectral_multiply"] = 2 * 3 * V
         else:
-            want.update(pass_a=2 * 3 * V + 2 * V, pass_b=2 * 3 * V, pass_c=2 * 3 * V)
+            want.update(pass_a=2 * 3 * V + 2, pass_b=2 * 3 * V, pass_c=2 * 3 * V,
+                        **forwarded(2))
             launches_out["pass_c"] = counts["pass_c"]
         expect_counts(counts, want, f"interleaved {engine} 3 iterations")
         step_s = (t3 - t1) / 2
@@ -1521,7 +1554,9 @@ def phase_grad(torch, dev):
         raise AssertionError(f"{what} did not raise")
     expect_counts(read_counts(), {}, what)
 
-    # F5: the caller enables TF32 matmuls; the sparse forwarding stays fp32
+    # F5: the caller enables TF32 matmuls; the sparse forwarding stays fp32:
+    # on the card it runs no matmul (spectrum_zsparse is CUDA-core fp32), so
+    # its result must not move at all
     k1, _ = bench_kernels()
     kernel = torch.from_numpy(k1[0]).to(dev)
     shape = (HEADLINE_N,) * 3
@@ -1535,23 +1570,23 @@ def phase_grad(torch, dev):
         got = fu.kernel_spectrum_fused(kernel, shape)
         kept = torch.backends.cuda.matmul.allow_tf32
         guard = fu._fp32_matmuls
-        fu._fp32_matmuls = contextlib.nullcontext  # what the pin prevents
+        fu._fp32_matmuls = contextlib.nullcontext  # what the plain chain's pin prevents
         try:
-            tf32 = fu.kernel_spectrum_fused(kernel, shape)
+            tf32 = fu._spectrum_sparse(kernel, shape)
         finally:
             fu._fp32_matmuls = guard
     finally:
         torch.set_float32_matmul_precision(saved)
     check_fp32_matmuls(torch)
-    err, scale = compare(torch, "sparse forwarding under allow_tf32", got, ref)
-    unpinned, _ = compare(torch, "sparse forwarding, TF32", tf32, ref)
-    log(f"kernel_spectrum_fused at {shape} with allow_tf32 = True: max|diff|/max = {err / scale:.3e}"
-        f" against fp32 (tol 1e-6); the caller's setting kept: {kept}; the same contraction"
-        f" left to TF32: {unpinned / scale:.3e}")
-    if not (err <= 1e-6 * scale and kept):
-        raise AssertionError(f"the sparse forwarding left fp32 under allow_tf32: {err / scale:.3e}")
-    # the control: without the pin the same contraction must show TF32, or
-    # this check could not tell a pinned contraction from an ignored setting
+    same = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+    unpinned, scale = compare(torch, "sparse forwarding, einsum chain in TF32", tf32, ref)
+    log(f"kernel_spectrum_fused at {shape} with allow_tf32 = True: bitwise its fp32 result:"
+        f" {same}; the caller's setting kept: {kept}; the einsum chain it replaced, left to"
+        f" TF32: {unpinned / scale:.3e}")
+    if not (same and kept):
+        raise AssertionError("the sparse forwarding moved under allow_tf32")
+    # the control: the setting was on, so a contraction through cuBLAS would
+    # have shown TF32, and this check could tell
     if not unpinned > 1e-6 * scale:
         raise AssertionError(
             f"allow_tf32 = True did not reach the unpinned contraction ({unpinned / scale:.3e}"
@@ -2214,15 +2249,16 @@ def mesh_counts(engine, full_volume, zp, views, iters):
     with one z block on the fused engine, the fused step (K4, K6, K8, K6,
     K9).  Every cell holds a z block of each of its views, so a call makes
     zp·V view steps an iteration.  The fused spectra: one z-sparse forwarding
-    (one K4) per kernel, shared by the cells of one device."""
+    (a gather, one K4, a contraction) per kernel, shared by the cells of one
+    device."""
     steps = zp * views * iters
     if engine == "fft":
         return {"rl_update": steps, "quotient": steps, "spectral_multiply": 2 * steps}
     if full_volume:
         return {"pass_a": steps + 2 * views, "pass_b": 2 * steps, "pass_cqa": steps,
-                "pass_cu": steps}
+                "pass_cu": steps, **forwarded(2 * views)}
     return {"pass_a": 2 * steps + 2 * views, "pass_b": 2 * steps, "pass_c": 2 * steps,
-            "quotient": steps, "rl_update": steps}
+            "quotient": steps, "rl_update": steps, **forwarded(2 * views)}
 
 
 def phase_mesh(torch, dev, rng):
@@ -2755,8 +2791,8 @@ def phase_bf16_main(torch, dev, rng, launches_out):
     out = {"card": card_line()}
     log(f"# phase 28 b: the main path with LMVN_FUSED_SPEC_BF16=1 beside f32 ({out['card']})")
     for label, make, kw, reps, n_fwd in (
-        (f"{HEADLINE_N}^3", headline_data, {}, 4, 2 * V),
-        (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2, V),
+        (f"{HEADLINE_N}^3", headline_data, {}, 4, 2),
+        (f"{BIG_N}^3 adjoint", big_data, {"adjoint_kernel2": True}, 2, 1),
     ):
         data, psi0 = make(torch, dev, rng)
         shape = tuple(psi0.shape)
@@ -2765,13 +2801,15 @@ def phase_bf16_main(torch, dev, rng, launches_out):
         paths = (
             ("auto", lambda n: deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
                                                device=dev, **kw),
-             {"pass_a": V * ITERS + n_fwd, "pass_cu": V * ITERS, **steps}, "0"),
+             {"pass_a": V * ITERS + n_fwd, "pass_cu": V * ITERS, "spectrum_zsparse": n_fwd,
+              **steps}, "0"),
             ("prepared", lambda n: deconvolve_prepared(psi0, data, prep["spectra"], n, lam=LAM,
                                                        min_value=MIN_VALUE),
              {"pass_a": V * ITERS, "pass_cu": V * ITERS, **steps}, "0"),
             ("carried", lambda n: deconvolve_auto(psi0, data, n, lam=LAM, min_value=MIN_VALUE,
                                                   device=dev, **kw),
-             {"pass_a": n_fwd + 1, "pass_cua": V * ITERS, **steps}, "1"),
+             {"pass_a": n_fwd + 1, "pass_cua": V * ITERS, "spectrum_zsparse": n_fwd, **steps},
+             "1"),
         )
         for path, run_n, want, carry in paths:
             res = {}
@@ -2789,7 +2827,9 @@ def phase_bf16_main(torch, dev, rng, launches_out):
                     counts = read_counts()
                     peak = torch.cuda.max_memory_allocated(dev) / 2**30
                     sfx = "_bf16" if knob == "1" else ""
-                    expect_counts(counts, {k + sfx: v for k, v in want.items()},
+                    gathers = want.get("spectrum_zsparse", 0)  # the gather has one form
+                    expect_counts(counts, {**{k + sfx: v for k, v in want.items()},
+                                           **({"spectrum_gather": gathers} if gathers else {})},
                                   f"{label} {path} bf16={knob}")
                     check_output(torch, got, shape, f"{label} {path} bf16={knob}")
                     if knob == "1":
@@ -2900,9 +2940,10 @@ def phase_bf16_main(torch, dev, rng, launches_out):
             counts = read_counts()
             if knob == "1":
                 sfx, it = "_bf16", BF16_ITERS
-                expect_counts(counts, {"pass_a" + sfx: 2 * V * it + 2 * V, "pass_b" + sfx: 2 * V * it,
+                expect_counts(counts, {"pass_a" + sfx: 2 * V * it + 2, "pass_b" + sfx: 2 * V * it,
                                        "pass_c" + sfx: 2 * V * it, "quotient": V * it * n_chunks,
-                                       "rl_update": V * it * n_chunks}, "interleaved bf16")
+                                       "rl_update": V * it * n_chunks, **forwarded(2, sfx)},
+                              "interleaved bf16")
                 launches_out["pass_c_bf16"] = counts["pass_c_bf16"]
                 if not (np.isfinite(res[knob]).all() and np.array_equal(run(), res[knob])):
                     raise AssertionError("interleaved bf16: not finite, or a second call differs")
@@ -3319,9 +3360,9 @@ def phase_wide(torch, dev, rng, auto_table):
         reset_counts()
         fused = deconvolve(psi0, data, ITERS, algorithm="fused", **kw)
         torch.cuda.synchronize()
-        expect_counts(read_counts(), {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
-                                      "pass_cqa": V * ITERS, "pass_cu": V * ITERS},
-                      f"fused {shape}")
+        expect_counts(read_counts(), {"pass_a": V * ITERS + 2, "pass_b": 2 * V * ITERS,
+                                      "pass_cqa": V * ITERS, "pass_cu": V * ITERS,
+                                      **forwarded(2)}, f"fused {shape}")
         check_output(torch, fused, shape, f"fused {shape}")
         fft = deconvolve(psi0, data, ITERS, algorithm="fft", **kw)
         diff = float((fused - fft).abs().max()) / float(fft.abs().max())
@@ -3388,7 +3429,7 @@ def phase_long(torch, dev, rng):
     """30: the fused passes at every axis length the JAX engine takes: a
     four-step FFT through HBM past 14528, Bluestein for a prime factor over
     1024.  a. The main path at LONG_SHAPES through
-    ``deconvolve(algorithm="fused")`` (K4 48, K6 80, K8 40, K9 40) against
+    ``deconvolve(algorithm="fused")`` (K4 42, K6 80, K8 40, K9 40) against
     fft (1e-3), fft and fused in turns, the peak memory beside
     LONG_PEAK_GIB, and ``auto``'s pick (fft by rule: no such class was
     timed); every pass there against its float64 reference, timed beside
@@ -3424,8 +3465,9 @@ def phase_long(torch, dev, rng):
         fused, fused_s = timed_call(torch, run["fused"])
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        expect_counts(counts, {"pass_a": V * ITERS + 2 * V, "pass_b": 2 * V * ITERS,
-                               "pass_cqa": V * ITERS, "pass_cu": V * ITERS}, f"fused {shape}")
+        expect_counts(counts, {"pass_a": V * ITERS + 2, "pass_b": 2 * V * ITERS,
+                               "pass_cqa": V * ITERS, "pass_cu": V * ITERS, **forwarded(2)},
+                      f"fused {shape}")
         check_output(torch, fused, shape, f"fused {shape}")
         torch.cuda.reset_peak_memory_stats(dev)
         fft, fft_s = timed_call(torch, run["fft"])
@@ -3557,6 +3599,150 @@ def phase_cli(torch, dev):
     same_or_close(f"CLI at {CROSS_N}^3 vs deconvolve_auto", got, want)
 
 
+def phase_forward_stack(torch, dev, records):
+    """31: the z-sparse forwarding of a whole kernel stack against the
+    per-view einsum chain it replaced, at the benchmark's shapes, then with
+    kernels that fold (:func:`forward_folding`)."""
+    from libmultiviewnative_torch.ops import fused as fu
+    from libmultiviewnative_torch.ops.fused_plan import make_fused_plan
+
+    log("# phase 31: the forwarding of a kernel stack, gather + one K4 + spectrum_zsparse")
+    check_fp32_matmuls(torch)
+    k1, k2 = (torch.from_numpy(k).to(dev) for k in bench_kernels())
+    for n, ks in ((HEADLINE_N, k1), (HEADLINE_N, k2), (BIG_N, k1)):
+        shape = (n,) * 3
+        kz = int(ks.shape[1])
+        zs = fu._ceil8(kz)
+        label = f"{n}^3 {kz}^3 x{V}"
+        plan, small = make_fused_plan(shape), make_fused_plan((zs, n, n))
+        g = fu._gathered(ks, zs, n, n, dev)
+        same = bool(torch.equal(g, fu._gathered_plain(ks, zs, n, n)))
+        log(f"spectrum_gather {label}: bitwise wrap_kernel view by view: {same}")
+        if not same:
+            raise AssertionError(f"spectrum_gather {label} differs from its plain version")
+        u = fu.pass_a(g, make_fused_plan((V * zs, n, n)))
+        for v in range(V):
+            one = fu.pass_a(g[v * zs:(v + 1) * zs].contiguous(), small)
+            if not all(torch.equal(a[:, v * zs:(v + 1) * zs], b) for a, b in zip(u, one)):
+                raise AssertionError(f"K4 over the stacked planes {label}: view {v} is not its own K4")
+        log(f"pass_a {label}: one K4 over {V * zs} planes is each view's K4 bit for bit")
+        table = fu._sparse_table(n, kz, *plan.split_z, str(dev))
+        ops = 8 * kz * V * plan.kxh * n * n  # 4 multiply-adds a complex output and plane
+        # the stacks written, the occupied planes of u's live rows and the table read
+        spec_bytes = V * plan.kxp * n * n * 8 + plan.kxh * V * kz * n * 8 + n * kz * 8
+        wide = tuple(t.double() for t in (*u, *table))
+        t = check_kernel(
+            torch, records, "spectrum_zsparse", label,
+            lambda: fu.spectrum_zsparse(*u, V, kz, plan),
+            lambda: fu.spectrum_zsparse_plain(*wide, V, torch.float64),
+            spec_bytes, tol=TOLERANCE,
+            library=lambda: fu.spectrum_zsparse_plain(*u, *table, V))
+        if kz == 21:
+            keep_timing(records, "spectrum_zsparse", n, t, spec_bytes, ops)
+        del wide
+        # the bf16 twin on bf16 u: the f32 entry on the widened u, rounded once
+        u16 = tuple(x.to(torch.bfloat16) for x in u)
+        twin = fu.spectrum_zsparse(*u16, V, kz, plan)
+        rounded = tuple(x.to(torch.bfloat16) for x in
+                        fu.spectrum_zsparse(*(x.float() for x in u16), V, kz, plan))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(twin, rounded))
+        log(f"spectrum_zsparse_bf16 {label}: bitwise the f32 entry rounded once: {same}")
+        if not same:
+            raise AssertionError(f"spectrum_zsparse_bf16 {label} differs from the f32 entry")
+        bytes16 = V * plan.kxp * n * n * 4 + plan.kxh * V * kz * n * 4 + n * kz * 8
+        t16 = check_kernel(
+            torch, records, "spectrum_zsparse_bf16", label,
+            lambda: fu.spectrum_zsparse(*u16, V, kz, plan),
+            lambda: fu.spectrum_zsparse_plain(*u16, *table, V, torch.bfloat16),
+            bytes16, tol=BF16_STEP, atol=0.0)
+        if kz == 21:
+            keep_timing(records, "spectrum_zsparse_bf16", n, t16, bytes16, ops)
+        del u16, twin, rounded
+        gather_bytes = 4 * V * zs * n * n + 4 * ks.numel()
+        tg = check_kernel(torch, records, "spectrum_gather", label,
+                          lambda: fu._gathered(ks, zs, n, n, dev),
+                          lambda: fu._gathered_plain(ks, zs, n, n), gather_bytes, tol=0.0)
+        if kz == 21:
+            keep_timing(records, "spectrum_gather", n, tg, gather_bytes, 0)
+        del g, u, one
+        # the whole forwarding of the stack against the parent's chain
+        chain = lambda: fu._stacked([fu._spectrum_sparse(k, shape) for k in ks])  # noqa: E731
+        stack = lambda: fu.kernel_stack_spectrum_fused(ks, shape)  # noqa: E731
+        for knob in ("0", "1"):
+            with knobs(LMVN_FUSED_SPEC_BF16=knob):
+                reset_counts()
+                got = stack()
+                torch.cuda.synchronize()
+                sfx = "_bf16" if knob == "1" else ""
+                expect_counts(read_counts(), {"pass_a" + sfx: 1, **forwarded(1, sfx)},
+                              f"forwarding {label} bf16={knob}")
+                ref = chain()
+                if knob == "0":
+                    err, scale = compare(torch, f"forwarding {label}", got, ref)
+                    log(f"forwarding {label}: stack against the einsum chain max|diff|/max"
+                        f" {err / scale:.3e} (tol 1e-6)")
+                    ok = err <= 1e-6 * scale
+                else:
+                    a, b = (torch.cat([x.float().flatten() for x in p]) for p in (got, ref))
+                    step = BF16_STEP * torch.maximum(a.abs(), b.abs()) + BF16_FLOOR * float(
+                        b.abs().max())
+                    ok = bool(((a - b).abs() <= step).all())
+                    log(f"forwarding {label} in bf16: within one bf16 step of the einsum chain"
+                        f" in bf16: {ok}")
+                    del a, b, step
+                if not ok:
+                    raise AssertionError(f"forwarding {label} bf16={knob} off the einsum chain")
+                del got, ref
+        samples = {"stack": [], "chain": []}
+        for which in ("chain", "stack", "stack", "chain"):
+            samples[which] += event_times_ms(torch, stack if which == "stack" else chain, n=5)
+        ms = {k: statistics.median(v) for k, v in samples.items()}
+        log(f"forwarding {label}: stack {ms['stack']:.4f} ms, the einsum chain view by view"
+            f" {ms['chain']:.4f} ms (device time on the stream, medians of 10)")
+        torch.cuda.empty_cache()
+    forward_folding(torch, dev)
+
+
+def forward_folding(torch, dev):
+    """Kernels wider than the volume: the gather folds them as wrap_kernel
+    does, bit for bit where at most two alias blocks meet (a sum of two is
+    the same in any order), else within 1e-6 of max of the float64 fold
+    (torch's reduction adds the blocks in an order of its own); the whole
+    forwarding within 1e-6 of max of the einsum chain."""
+    from libmultiviewnative_torch.ops import fused as fu
+
+    gen = torch.Generator().manual_seed(31)
+    shape = (32, 24, 32)
+    Z, Y, X = shape
+    for kshape in ((5, 29, 9), (3, 5, 37), (5, 29, 37), (3, 70, 90)):
+        ks = torch.rand((V,) + kshape, generator=gen).to(dev)
+        zs = fu._ceil8(kshape[0])
+        blocks = -(-kshape[1] // Y) * -(-kshape[2] // X)
+        label = f"{shape} kernel {kshape} x{V} ({blocks} alias blocks)"
+        g = fu._gathered(ks, zs, Y, X, dev)
+        if blocks <= 2:
+            ok = bool(torch.equal(g, fu._gathered_plain(ks, zs, Y, X)))
+            log(f"spectrum_gather {label}: bitwise wrap_kernel: {ok}")
+        else:
+            wide = fu._gathered_plain(ks.double(), zs, Y, X)
+            rel = float((g.double() - wide).abs().max() / wide.abs().max())
+            ok = rel <= 1e-6
+            log(f"spectrum_gather {label}: max|diff|/max against the float64 fold {rel:.3e}"
+                f" (tol 1e-6)")
+        if not ok:
+            raise AssertionError(f"spectrum_gather {label} off wrap_kernel")
+        reset_counts()
+        got = fu.kernel_stack_spectrum_fused(ks, shape)
+        torch.cuda.synchronize()
+        expect_counts(read_counts(), {"pass_a": 1, **forwarded(1)}, f"forwarding {label}")
+        err, scale = compare(torch, f"forwarding {label}", got,
+                             fu._stacked([fu._spectrum_sparse(k, shape) for k in ks]))
+        log(f"forwarding {label}: against the einsum chain max|diff|/max {err / scale:.3e}"
+            f" (tol 1e-6)")
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"forwarding {label} off the einsum chain")
+
+
 def main():
     import torch
 
@@ -3612,6 +3798,8 @@ def main():
     phase_wide(torch, dev, rng, auto_table)
     torch.cuda.empty_cache()
     phase_long(torch, dev, rng)
+    torch.cuda.empty_cache()
+    phase_forward_stack(torch, dev, records)
 
     log("rates (it/s, slope): " + json.dumps(rates))
     log("kernel timings at 256^3 and 512^3: " + json.dumps(records))

@@ -37,7 +37,7 @@ from ..core.fft import rfft3
 from ..core.shapes import as_shape
 from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
-from ..ops.fused import check_transposed_shape, fused_convolve_spectrum, kernel_spectrum_fused
+from ..ops.fused import check_transposed_shape, fused_convolve_spectrum, kernel_stack_spectrum_fused
 from .rl import _select_rl_update, resolve_algorithm
 
 Bounds = List[Tuple[int, int]]
@@ -63,9 +63,9 @@ def engine_spectra(engine: str, kernels1, kernels2, shape, device):
     ``device``: ``convolve(x, op)`` convolves a (Z, Y, X) device volume
     with one view's kernel.  fft: complex ``rfft3`` spectra through cuFFT
     and K3.  dft: (re, im) pairs from :func:`kernel_spectrum_split` through
-    the matrix-product DFT.  fused: (re, im) pairs from
-    :func:`kernel_spectrum_fused` through passes A, B and C (the volume is
-    transposed in and out)."""
+    the matrix-product DFT.  fused: (re, im) pairs through passes A, B and
+    C (the volume is transposed in and out), each kernel stack forwarded at
+    once (:func:`_fused_spectra`)."""
     Z, Y, X = shape
     dev = torch.device(device)
     kernels = [[_host(k).to(dev) for k in ks] for ks in (kernels1, kernels2)]
@@ -76,8 +76,22 @@ def engine_spectra(engine: str, kernels1, kernels2, shape, device):
         ops = [[kernel_spectrum_split(k, shape) for k in ks] for ks in kernels]
         return ops[0], ops[1], lambda x, op: dft_convolve_spectrum(x, *op)
     check_transposed_shape((Z, X, Y), dev)
-    ops = [[kernel_spectrum_fused(k, shape) for k in ks] for ks in kernels]
+    ops = [_fused_spectra(ks, shape) for ks in kernels]
     return ops[0], ops[1], lambda x, op: fused_convolve_spectrum(x, *op)
+
+
+def _fused_spectra(kernels, shape) -> list:
+    """Each view's (re, im) fused spectrum, the views whose kernels share a
+    shape forwarded as one stack (:func:`kernel_stack_spectrum_fused`)."""
+    by_shape = {}
+    for v, k in enumerate(kernels):
+        by_shape.setdefault(tuple(k.shape), []).append(v)
+    ops = [None] * len(kernels)
+    for views in by_shape.values():
+        re, im = kernel_stack_spectrum_fused(torch.stack([kernels[v] for v in views]), shape)
+        for i, v in enumerate(views):
+            ops[v] = (re[i], im[i])
+    return ops
 
 
 def view_step(

@@ -61,7 +61,7 @@ from ..ops.fused import (
     fused_limit,
     fused_rl_step_carried,
     fused_rl_step_transposed,
-    kernel_spectrum_fused,
+    kernel_stack_spectrum_fused,
 )
 from ..utils.trace import spanned
 from .workspace import MultiViewData, Workspace, check_simultaneous_weights
@@ -209,10 +209,9 @@ def prepare_spectra(kernels: torch.Tensor, spatial_shape: Sequence[int]) -> torc
 
 def prepare_spectra_fused(kernels: torch.Tensor, spatial_shape: Sequence[int]):
     """The (V, Kxp, Z, Y) re/im pair of a (V, kz, ky, kx) kernel stack's
-    fused spectra, forwarded one view at a time."""
-    spatial = as_shape(spatial_shape)
-    outs = [kernel_spectrum_fused(k, spatial) for k in kernels]
-    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    fused spectra, the whole stack forwarded at once
+    (:func:`..ops.fused.kernel_stack_spectrum_fused`)."""
+    return kernel_stack_spectrum_fused(kernels, as_shape(spatial_shape))
 
 
 def prepare_spectra_split(kernels: torch.Tensor, spatial_shape: Sequence[int]):

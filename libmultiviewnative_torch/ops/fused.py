@@ -17,8 +17,9 @@ the next (:func:`fused_rl_step_carried`):
   then y-DFT, (Z, X, Y) -> u (Kxp, Z, Y) re/im.  On the card, two
   shared-memory FFT stages (``ops/csrc/fft_stage.cuh``).
 * K5 :func:`pass_bf` replaces ``_run_pass_bf`` (:1764): the split z-DFT
-  alone, which forwards a kernel spectrum (:func:`kernel_spectrum_fused`).
-  On the card, one shared-memory FFT z stage (``ops/csrc/fft_stage.cuh``).
+  alone, which forwards a kernel spectrum (:func:`kernel_spectrum_fused`)
+  where the kernel is too deep for the z-sparse branch.  On the card, one
+  shared-memory FFT z stage (``ops/csrc/fft_stage.cuh``).
 * K6 :func:`pass_b` replaces ``_run_pass_b`` (:1735): split z-DFT, times the
   kernel spectrum (or its conjugate, ``conj_k``), split z-inverse.  On the
   card, the same z stage with the product and the inverse FFT in it.
@@ -59,6 +60,12 @@ a pass whose spectra are all bf16 launches its entry's ``_bf16`` twin
 its bf16 inputs and launches the f32 entry, and rounds what it writes where
 the storage is bf16.
 
+The kernel spectra a call forwards (:func:`kernel_stack_spectrum_fused`)
+take the z-sparse branch of ``kernel_spectrum_fused`` (``fused_dft2.py:
+1642-1665``) for a whole (V, kz, ky, kx) stack at once: on the card a
+gather, one K4 over every view's planes and the contraction of
+``ops/csrc/spectrum.cu`` (:func:`spectrum_zsparse`), four launches a stack.
+
 Dispatch, as in :mod:`.elementwise`: a CPU tensor runs the plain PyTorch
 version (``pass_*_plain``, ``torch.matmul`` over whole tensors), a CUDA
 tensor launches the kernel or raises.  Each pass call on the card adds one to
@@ -92,9 +99,12 @@ from .fused_plan import (
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 PASSES = ("pass_a", "pass_bf", "pass_b", "pass_c", "pass_cqa", "pass_cu", "pass_cua")
-# launch counts of the seven passes and of their bf16 twins ("pass_a_bf16",
-# ...); a plain-version call never counts
-launches = {name + sfx: 0 for sfx in ("", "_bf16") for name in PASSES}
+# launch counts of the seven passes, of the z-sparse forwarding's
+# contraction ("spectrum_zsparse", once a kernel stack) and of their bf16
+# twins ("pass_a_bf16", ...), and of the forwarding's gather
+# ("spectrum_gather", float32 only); a plain-version call never counts
+launches = {name + sfx: 0 for sfx in ("", "_bf16") for name in PASSES + ("spectrum_zsparse",)}
+launches["spectrum_gather"] = 0
 
 
 def reset_launches() -> None:
@@ -921,20 +931,53 @@ def fused_rl_step_carried(
 def sparse_prep_ok(kernel_z: int, Z: int) -> bool:
     """Whether the z-sparse spectrum forwarding serves a kernel of z-extent
     ``kernel_z`` at Z planes: twice its 8-aligned extent fits in Z."""
-    return 2 * (-(-int(kernel_z) // 8) * 8) <= int(Z)
+    return 2 * _ceil8(kernel_z) <= int(Z)
+
+
+def _ceil8(n) -> int:
+    return -(-int(n) // 8) * 8
 
 
 def kernel_spectrum_fused(kernel: torch.Tensor, shape: Sequence[int]) -> Pair:
     """The wrapped kernel's spectrum in the fused (Kxp, Z, Y) layout, z and y
     in the interleaved split order (``fused_dft2.py:1593``), forwarded by the
-    passes the convolve runs.  The branch follows the shape, as the JAX
-    default does: the z-sparse one when :func:`sparse_prep_ok`, else the
-    dense one (pass BF)."""
+    passes the convolve runs: :func:`kernel_stack_spectrum_fused` of a stack
+    of one."""
+    re, im = kernel_stack_spectrum_fused(kernel[None], shape)
+    return re[0], im[0]
+
+
+def kernel_stack_spectrum_fused(kernels: torch.Tensor, shape: Sequence[int]) -> Pair:
+    """The (V, Kxp, Z, Y) re/im stacks of a (V, kz, ky, kx) kernel stack's
+    fused spectra: :func:`kernel_spectrum_fused` of each view, stacked.  The
+    branch follows the shape, as the JAX default does: the z-sparse one when
+    :func:`sparse_prep_ok`, else the dense one (pass A, then pass BF, view by
+    view: :func:`_spectrum_dense`).
+
+    z-sparse on the card, four launches for the whole stack: the gather of
+    every view's wrapped, transposed planes into one (V·Zs, X, Y) buffer
+    (:func:`_gathered`), one K4 over its V·Zs planes (pass A is
+    plane-local, so each view's slice is that view's K4) and
+    :func:`spectrum_zsparse`, which writes the stacks.  On the CPU, the plain
+    chain of each view (:func:`_spectrum_sparse`), stacked."""
     Z, Y, X = (int(s) for s in shape)
-    kernel = kernel.to(torch.float32)
-    if sparse_prep_ok(kernel.shape[0], Z):
-        return _spectrum_sparse(kernel, (Z, Y, X))
-    return _spectrum_dense(kernel, (Z, Y, X))
+    if kernels.ndim != 4:
+        raise ValueError(f"expected a (V, kz, ky, kx) kernel stack, got {tuple(kernels.shape)}")
+    kernels = kernels.to(torch.float32)
+    if not sparse_prep_ok(kernels.shape[1], Z):
+        return _stacked([_spectrum_dense(k, (Z, Y, X)) for k in kernels])
+    dev = _device(kernels)
+    if dev.type == "cpu":
+        return _stacked([_spectrum_sparse(k, (Z, Y, X)) for k in kernels])
+    check_transposed_shape((Z, X, Y), dev)
+    V, kz = int(kernels.shape[0]), int(kernels.shape[1])
+    zs = _ceil8(kz)
+    u = pass_a(_gathered(kernels, zs, Y, X, dev), make_fused_plan((V * zs, Y, X)))
+    return spectrum_zsparse(*u, V, kz, make_fused_plan((Z, Y, X)))
+
+
+def _stacked(pairs) -> Pair:
+    return tuple(torch.stack(part) for part in zip(*pairs))
 
 
 def _spectrum_dense(kernel: torch.Tensor, shape) -> Pair:
@@ -947,11 +990,11 @@ def _spectrum_dense(kernel: torch.Tensor, shape) -> Pair:
 
 @functools.lru_cache(maxsize=64)
 def _sparse_table(Z: int, kz: int, R: int, M: int, device: str) -> Pair:
-    """The (Z, Zs) DFT table of :func:`_spectrum_sparse` on ``device``, built
+    """The (Z, Zs) DFT table of the z-sparse forwarding on ``device``, built
     in float64 once per (Z, kz, z split, device) and kept there: row p is
     the split-order frequency of position p, column s the original z index
     of gathered plane s (pad planes are zero in u, their columns unused)."""
-    zs = -(-kz // 8) * 8
+    zs = _ceil8(kz)
     cz = kz // 2  # kernel center, z axis
     head = kz - cz
     zorig = np.zeros(zs, np.int64)
@@ -963,27 +1006,121 @@ def _sparse_table(Z: int, kz: int, R: int, M: int, device: str) -> Pair:
             torch.as_tensor(np.asarray(T.imag, np.float32), device=device))
 
 
-def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
-    """The z-sparse branch (``fused_dft2.py:1642-1665``): the wrapped kernel
-    occupies only kz planes, so pass A runs on a gathered stack of
-    Zs = ceil8(kz) planes and the z-DFT is one (Z, Zs) contraction over them
-    (``torch.einsum``, in fp32 whatever the caller set for matmuls: the JAX
-    branch pins ``precision=HIGHEST``, :func:`_fp32_matmuls`), against the
-    table :func:`_sparse_table` keeps on the device.  Rounded where JAX
-    rounds: pass A's spectrum is stored as :func:`spec_dtype` and widened
-    for the contraction, and the two sums are formed in f32 and stored as
-    :func:`spec_dtype`."""
-    Z, Y, X = shape
-    plan, spec = make_fused_plan(shape), spec_dtype()
-    kz = int(kernel.shape[0])
-    zs = -(-kz // 8) * 8
-    small = wrap_kernel(kernel, (zs, Y, X))
-    u = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
-    u_re, u_im = (t.float() for t in u)
-    tr, ti = _sparse_table(Z, kz, *plan.split_z, str(kernel.device))
+def _occupied(kz: int):
+    """The gathered planes (of Zs = ceil8(kz)) a wrapped kernel of z-extent
+    kz occupies, in the order the contraction sums them: the head planes
+    [0, kz - kz//2), then the tail, after the Zs - kz zero planes."""
+    head, gap = kz - kz // 2, _ceil8(kz) - kz
+    return [j if j < head else j + gap for j in range(kz)]
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_table(Z: int, kz: int, R: int, M: int, device: str) -> torch.Tensor:
+    """The columns of :func:`_sparse_table` at the occupied planes
+    (:func:`_occupied`), as ``lmvn_fused_spectrum_zsparse`` reads them: a
+    (Z, kzp, 2) float32 tensor of (re, im) pairs, kzp = kz rounded up to
+    even, the last column zero for odd kz; the same float32 values, kept on
+    the device once per (Z, kz, z split, device)."""
+    tr, ti = _sparse_table(Z, kz, R, M, device)
+    cols = torch.as_tensor(_occupied(kz), device=tr.device)
+    packed = torch.zeros((Z, kz + kz % 2, 2), dtype=torch.float32, device=tr.device)
+    packed[:, :kz, 0] = tr[:, cols]
+    packed[:, :kz, 1] = ti[:, cols]
+    return packed
+
+
+def _gathered_plain(kernels: torch.Tensor, zs: int, Y: int, X: int) -> torch.Tensor:
+    """Plain ``lmvn_fused_spectrum_gather``: each view's kernel wrapped into
+    (zs, Y, X) and transposed to (zs, X, Y), the views one after another in
+    a (V·zs, X, Y) float32 tensor."""
+    return torch.cat([wrap_kernel(k, (zs, Y, X)).transpose(1, 2) for k in kernels]).contiguous()
+
+
+def _gathered(kernels: torch.Tensor, zs: int, Y: int, X: int, dev: torch.device) -> torch.Tensor:
+    """The gathered planes of a kernel stack on the card, one launch of
+    ``lmvn_fused_spectrum_gather``, which also folds a kernel wider than the
+    volume (ky > Y or kx > X) as ``wrap_kernel`` does."""
+    V, kz, ky, kx = (int(s) for s in kernels.shape)
+    _no_graph("spectrum_gather", kernels)
+    kernels = kernels.contiguous()
+    g = torch.empty((V * zs, X, Y), dtype=torch.float32, device=kernels.device)
+    err = _build.library().lmvn_fused_spectrum_gather(
+        dev.index, _ptr(g), _ptr(kernels), V, kz, ky, kx, zs, X, Y, _stream(dev))
+    _build.check("spectrum_gather", err)
+    launches["spectrum_gather"] += 1
+    return g
+
+
+def spectrum_zsparse_plain(u_re, u_im, t_re, t_im, views: int, spec=torch.float32) -> Pair:
+    """Plain ``lmvn_fused_spectrum_zsparse``: out[v, k, p, y] =
+    Σ_s T[p, s] · u[k, v·Zs + s, y] for a (Kxp, V·Zs, Y) pass-A spectrum u
+    and the (Z, Zs) table T, as four einsums a view (``torch.einsum``, in
+    fp32 whatever the caller set for matmuls: the JAX branch pins
+    ``precision=HIGHEST``, :func:`_fp32_matmuls`).  Rounded where JAX
+    rounds: u is widened for the contraction, and the two sums are formed in
+    the widened dtype and stored as ``spec``; a (V, Kxp, Z, Y) pair."""
+    u_re, u_im = _widened(u_re, u_im)
     e = lambda a, b: torch.einsum("ps,ksm->kpm", a, b)
     # einsum may return a permuted layout (it does on CUDA); the passes
     # take contiguous (Kxp, Z, Y) spectra
     store = lambda t: t.contiguous().to(spec)
     with _fp32_matmuls():
-        return store(e(tr, u_re) - e(ti, u_im)), store(e(tr, u_im) + e(ti, u_re))
+        return _stacked(
+            (store(e(t_re, ur) - e(t_im, ui)), store(e(t_re, ui) + e(t_im, ur)))
+            for ur, ui in zip(u_re.chunk(views, 1), u_im.chunk(views, 1))
+        )
+
+
+@spanned("lmvn.engine.spectrum_zsparse")
+def spectrum_zsparse(u_re, u_im, views: int, kz: int, plan: FusedPlan) -> Pair:
+    """The z-DFT of a gathered stack's pass-A spectrum u ((Kxp, V·Zs, Y),
+    float32 or bf16) for kernels of z-extent ``kz`` at ``plan``'s shape: the
+    (V, Kxp, Z, Y) re/im stacks, in u's dtype (the storage dtype pass A
+    wrote).  On the card, ``lmvn_fused_spectrum_zsparse`` (its ``_bf16``
+    twin for bf16 u) over the kz planes the kernels occupy
+    (:func:`_packed_table`), writing the stacks in place; on the CPU,
+    :func:`spectrum_zsparse_plain` against :func:`_sparse_table`."""
+    Z, Y, _ = plan.shape
+    zs = _ceil8(kz)
+    spec = u_re.dtype
+    if spec not in _SPEC_DTYPES:
+        raise TypeError(f"u must be a float32 or bfloat16 pair, got {spec}")
+    for name, t in (("u_re", u_re), ("u_im", u_im)):
+        _check_f32(name, t, (plan.kxp, views * zs, Y), spec)
+    dev = _device(u_re, u_im)
+    where = str(u_re.device)
+    if dev.type == "cpu":
+        return spectrum_zsparse_plain(u_re, u_im, *_sparse_table(Z, kz, *plan.split_z, where),
+                                      views, spec)
+    _no_graph("spectrum_zsparse", u_re, u_im)
+    table = _packed_table(Z, kz, *plan.split_z, where)
+    out = tuple(torch.empty((views,) + _spec_shape(plan), dtype=spec, device=u_re.device)
+                for _ in "ri")
+    _check_aligned(u_re=u_re, u_im=u_im, table=table, out_re=out[0], out_im=out[1])
+    entry = "spectrum_zsparse" + ("" if spec == torch.float32 else "_bf16")
+    err = getattr(_build.library(), f"lmvn_fused_{entry}")(
+        dev.index, *map(_ptr, out), _ptr(u_re), _ptr(u_im), _ptr(table),
+        views, plan.kxh, plan.kxp, Z, Y, zs, kz, _stream(dev))
+    _build.check(entry, err)
+    launches[entry] += 1
+    check_kernel_output("spectrum_zsparse", *out)
+    return out
+
+
+def _spectrum_sparse(kernel: torch.Tensor, shape) -> Pair:
+    """The z-sparse branch for one kernel as plain tensor code
+    (``fused_dft2.py:1642-1665``), the CPU path of
+    :func:`kernel_stack_spectrum_fused`: the wrapped kernel occupies only kz
+    planes, so pass A runs on a stack of Zs = ceil8(kz) planes and the z-DFT
+    is one (Z, Zs) contraction over them (:func:`spectrum_zsparse_plain`),
+    against the table :func:`_sparse_table` keeps on the device; pass A's
+    spectrum is stored as :func:`spec_dtype`."""
+    Z, Y, X = shape
+    plan = make_fused_plan(shape)
+    kz = int(kernel.shape[0])
+    zs = _ceil8(kz)
+    small = wrap_kernel(kernel, (zs, Y, X))
+    u = pass_a(small.transpose(1, 2).contiguous(), make_fused_plan((zs, Y, X)))
+    tr, ti = _sparse_table(Z, kz, *plan.split_z, str(kernel.device))
+    re, im = spectrum_zsparse_plain(*u, tr, ti, 1, spec_dtype())
+    return re[0], im[0]

@@ -3,38 +3,51 @@
 
 Run from the repository root on a host with one GPU:
 
-    python3 scripts/measure_spectrum.py [--root DIR] [--label NAME]
+    python3 scripts/measure_spectrum.py [--root DIR] [--label NAME] [--n 256] [--adjoint]
 
 ``--root`` imports ``libmultiviewnative_torch`` from another checkout (an
 unpacked ``git archive`` of a parent commit), so two trees can be measured in
-one process each, in turns, on the same card.  At chip_smoke.py's headline
-(4 views at 256³, the bench kernels 21³ and 25³) it times
-``prepare_workspace`` of the fused and the fft engine (the 8 spectra a
-``deconvolve`` call forwards), host clock around a synchronised call, best of
-10 in two turns, then traces one fused forwarding with ``torch.profiler``
-and prints the top operations by host and by device time.  The card's name
-and power limit come first, one JSON line last.
+one process each, in turns, on the same card.  At the benchmark's kernels (4
+views, Gaussian kernel1 21³ with sigma 2.0 + 0.5 v, kernel2 the flipped
+kernel1 padded to 25³) and n³ volumes, it forwards the kernel stacks of one
+``deconvolve`` call (``deconv.rl._forward_spectra``: kernel1 and kernel2, or
+kernel1 alone with ``--adjoint``) and reports:
+
+* the host ms of a forwarding that ends in a synchronise, and its device ms
+  (CUDA events round it), medians of 20 in two turns of 10;
+* one forwarding traced with ``torch.profiler``: its device events (kernels,
+  copies, fills) by name, their count and summed device time, which is what
+  the benchmark's ``launches_per_stack`` and ``forward_ms_per_stack`` count.
+
+The card's name and power limit come first, one JSON line last.
 """
 
 import argparse
+import collections
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+V = 4
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--adjoint", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from libmultiviewnative_torch.deconv import rl
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
@@ -44,46 +57,60 @@ def main():
         raise SystemExit("measure_spectrum: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     import libmultiviewnative_torch
 
     print(f"{args.label}: package from {os.path.dirname(libmultiviewnative_torch.__file__)}",
           flush=True)
     dev = torch.device("cuda", 0)
-    V, n = 4, 256
-    shape = (n,) * 3
+    shape = (args.n,) * 3
     k1 = np.stack([gaussian_kernel((21,) * 3, 2.0 + 0.5 * v) for v in range(V)])
-    k2 = np.stack([np.pad(np.flip(k), 2) for k in k1])  # the flipped kernel padded to 25³
-    views = torch.ones((V,) + shape, device=dev)
-    data = MultiViewData(views, torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev),
-                         torch.full((V,), 1.0 / V, device=dev))
+    k2 = k1 if args.adjoint else np.stack([np.pad(np.flip(k), 2) for k in k1])
+    # the forwarding reads the kernels and the views' device; a small view
+    # stack keeps the card's memory for the spectra
+    data = MultiViewData(torch.ones((V, 8, 8, 8), device=dev), torch.from_numpy(k1).to(dev),
+                         torch.from_numpy(k2).to(dev), torch.full((V,), 1.0 / V, device=dev))
 
-    times = {"fused": [], "fft": []}
-    for engine in ("fused", "fft"):
-        rl.prepare_workspace(data, shape, algorithm=engine)  # warm-up
-    for engine in ("fused", "fft", "fft", "fused"):
-        for _ in range(5):
+    def forward():
+        return rl._forward_spectra("fused", data, shape, args.adjoint)
+
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(2):
+        for _ in range(10):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rl.prepare_workspace(data, shape, algorithm=engine)
+            start.record()
+            forward()
+            end.record()
             torch.cuda.synchronize()
-            times[engine].append(1e3 * (time.perf_counter() - t0))
-    best = {engine: min(t) for engine, t in times.items()}
-    print(f"{args.label}: spectrum forwarding per call at 4 views {n}^3, ms (best of 10): {best}",
-          flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
+            host.append(1e3 * (time.perf_counter() - t0))
+            device.append(start.elapsed_time(end))
+        torch.cuda.empty_cache()
+    what = f"{V} views {args.n}^3{' adjoint' if args.adjoint else ''}"
+    print(f"{args.label}: forwarding of one call at {what}: host ms median"
+          f" {statistics.median(host):.4f} (best {min(host):.4f}), stream ms median"
+          f" {statistics.median(device):.4f}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rl.prepare_workspace(data, shape, algorithm="fused")
+        forward()
         torch.cuda.synchronize()
-    table = prof.key_averages()
-    for key in ("cpu_time_total", "device_time_total"):
-        print(f"{args.label}: one fused forwarding, top by {key}", flush=True)
-        print(table.table(sort_by=key, row_limit=12), flush=True)
-    device_ms = sum(e.self_device_time_total for e in table) / 1e3
-    print(json.dumps({"label": args.label, "forwarding_ms": best, "times_ms": times,
-                      "traced_device_ms": device_ms}), flush=True)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.Counter(e.name[:80] for e in events)
+    busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    print(f"{args.label}: one forwarding traced: {len(events)} device events, {busy_ms:.4f} ms",
+          flush=True)
+    for name, count in by_name.most_common():
+        print(f"  {count:4d} {name}", flush=True)
+    print(json.dumps({"label": args.label, "card": card, "n": args.n, "adjoint": args.adjoint,
+                      "host_ms": host, "stream_ms": device,
+                      "host_ms_median": statistics.median(host),
+                      "stream_ms_median": statistics.median(device),
+                      "device_events": len(events), "traced_device_ms": busy_ms}), flush=True)
 
 
 if __name__ == "__main__":
