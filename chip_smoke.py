@@ -2479,12 +2479,15 @@ def hold_batch(torch, what, batched, singles, shape, tol=BATCH_TOL):
 
 def phase_batched(torch, dev, rng):
     """Phase 27: batches of volumes (F9).  BATCH volumes of the headline
-    configuration in one ``deconvolve(algorithm="auto")`` call (fft: a batch
-    never takes fused), each entry against the single-volume fft call on it,
+    configuration in one ``deconvolve(algorithm="fft")`` call (the batched
+    fft path), each entry against the single-volume fft call on it,
     the launches of one call (K1 40, K2 40, K3 80: one launch covers the
     batch), volumes per second against BATCH single calls in turns (batched,
     single, single, batched; single calls on fft, and inside them on fused,
-    which ``"auto"`` gives one volume) and the peak memory; then BATCH_SMALL volumes at
+    which ``"auto"`` gives one volume) and the peak memory; then the same
+    batch through ``deconvolve_auto``, which gives it the fused engine of one
+    volume: one forwarding, BATCH times one volume's passes, each entry
+    bitwise the single fused call on it; then BATCH_SMALL volumes at
     BATCH_N³ with (V, B, Z, Y, X) views through the simultaneous order, the
     dft and direct engines, ``deconvolve_auto`` and ``RichardsonLucy.run``."""
     import io
@@ -2500,14 +2503,12 @@ def phase_batched(torch, dev, rng):
     data, psi_one = headline_data(torch, dev, rng)
     # one start per entry, so that the entries differ
     psi0 = torch.stack([psi_one * (1.0 + 0.05 * b) for b in range(BATCH)])
-    engine = rl.resolve_algorithm("auto", shape, dev, chunk=True)
-    log(f"algorithm='auto' on a batch resolves to {engine!r} (one volume: "
-        f"{rl.resolve_algorithm('auto', shape, dev)!r})")
-    if engine != "fft":
-        raise AssertionError(f"'auto' picked {engine!r} for a batch")
+    engine = "fft"
+    log(f"algorithm='auto' on a batch or one volume resolves to "
+        f"{rl.resolve_algorithm('auto', shape, dev)!r}; this phase runs the batched fft path")
 
     def batched():
-        return rl.deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm="auto")
+        return rl.deconvolve(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, algorithm=engine)
 
     def singles(algorithm=engine):
         # the engine the batch ran; "auto" gives one volume the fused engine
@@ -2543,7 +2544,28 @@ def phase_batched(torch, dev, rng):
         f" fused {vps['single_fused']!r}; peak device memory of the batched call {peak:.3f} GiB"
         f" above its inputs ({card_line()})")
     result["volumes_per_s"] = vps
-    del data, psi0, psi_one
+
+    # the main path: "auto" gives the batch the fused engine of one volume,
+    # the kernel stacks forwarded once, then each entry through the passes
+    lines = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with knobs(LMVN_TRACE="1"), contextlib.redirect_stdout(lines):
+        out = deconvolve_auto(psi0, data, ITERS, lam=LAM, min_value=MIN_VALUE, device=dev)
+    torch.cuda.synchronize()
+    steps = BATCH * V * ITERS
+    expect_counts(read_counts(), {"pass_a": steps + 2, "pass_b": 2 * steps, "pass_cqa": steps,
+                                  "pass_cu": steps, **forwarded(2)},
+                  f"deconvolve_auto of {BATCH} volumes at {HEADLINE_N}^3")
+    trace = [ln for ln in lines.getvalue().splitlines() if ln.startswith("[lmvn-trace]")]
+    log("deconvolve_auto on the batch: " + " | ".join(trace))
+    if not any(f"a batch of {BATCH} on fused" in ln for ln in trace):
+        raise AssertionError(f"deconvolve_auto did not run the batch of {BATCH} on fused")
+    # gate 0: each entry bitwise its single fused call
+    result["auto_fused_worst_entry"] = hold_batch(
+        torch, f"deconvolve_auto batch of {BATCH} at {HEADLINE_N}^3 on fused", out,
+        singles("fused"), (BATCH,) + shape, tol=0.0)
+    del data, psi0, psi_one, out
     torch.cuda.empty_cache()
 
     # BATCH_SMALL volumes at BATCH_N³ with per-entry views (V, B, Z, Y, X)

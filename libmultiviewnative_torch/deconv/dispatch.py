@@ -52,13 +52,15 @@ def estimate_workspace_bytes(data: MultiViewData, algorithm: str = "fft", device
     weights as they are stored (2V volumes when both are (V, Z, Y, X)), both
     kernel spectrum sets and ~8 volumes of psi and temporaries per batch
     entry (the reference's ``(4V+2)*stack + workarea``,
-    ``src/multiviewnative.cu:97-114``).
+    ``src/multiviewnative.cu:97-114``).  The fused engine runs a batch one
+    entry at a time (:func:`.rl._deconvolve_fused`): one entry's 8 volumes,
+    and the input and the output of each further entry, 2 volumes each.
 
     Spectra: a hermitian half-spectrum (fft, compact dft) is about one f32
     volume per kernel per view; the split pairs of fused and of the
     long-axis dft plan (any axis over 256) about two; direct keeps the
     kernels spatial.  ``algorithm`` resolves as on ``device``
-    (:func:`.rl.resolve_algorithm`; a batch never takes fused).
+    (:func:`.rl.resolve_algorithm`; a batch as one of its volumes).
 
     The JAX package counts 2V volumes for the views and weights and 8 for
     psi whatever their shapes (its fault R8, ROADMAP): a batched request
@@ -66,14 +68,15 @@ def estimate_workspace_bytes(data: MultiViewData, algorithm: str = "fft", device
     spatial = data.spatial_shape
     vol = 4 * math.prod(spatial)
     V = data.num_views
-    algo = resolve_algorithm(algorithm, spatial, device, chunk=batch > 1)
+    algo = resolve_algorithm(algorithm, spatial, device)
     spectrum_vols = 1
     if algo == "fused" or (algo == "dft" and max(spatial) > 256):
         spectrum_vols = 2
     elif algo == "direct":
         spectrum_vols = 0
     stacks = 4 * (data.views.numel() + data.weights.numel())
-    return stacks + 2 * V * spectrum_vols * vol + 8 * batch * vol
+    psi_vols = 8 + 2 * (batch - 1) if algo == "fused" else 8 * batch
+    return stacks + 2 * V * spectrum_vols * vol + psi_vols * vol
 
 
 def estimate_interleaved_bytes(data: MultiViewData, algorithm: str = "auto", device=None) -> int:
@@ -254,7 +257,7 @@ def deconvolve_auto(
     if adjoint_kernel2:
         # the split-spectrum engines share k1's re part with conj(k1) and
         # materialise only the negated im: one f32 volume less per view
-        algo = resolve_algorithm(algorithm, spatial, dev, chunk=batch > 1)
+        algo = resolve_algorithm(algorithm, spatial, dev)
         if algo == "fused" or (algo == "dft" and max(spatial) > 256):
             est -= data.num_views * 4 * math.prod(spatial)
         if any(int(d) % 2 == 0 for d in data.kernel1.shape[-3:]):

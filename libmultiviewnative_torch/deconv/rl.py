@@ -18,10 +18,12 @@ kernels of :mod:`..ops.elementwise`; on the CPU their plain versions.
 five passes per view step (K4, K6, K8, K6, K9) on (Z, X, Y)-transposed
 volumes, with the kernel spectra forwarded by the same passes (K4, and K5
 where the kernel is long in z).  The driver transposes views, weights and
-psi once per call, outside the iterations.  ``LMVN_FUSED_CARRY=1`` runs the
-sequential order as the carried chain instead: four passes per view step
-(K6, K8, K6, K10), pass A of psi carried from one step to the next and
-seeded once per call (:func:`_carry_enabled`).
+psi once per call, outside the iterations; a batch runs one entry at a
+time, its per-entry operands transposed as each entry comes.
+``LMVN_FUSED_CARRY=1`` runs the sequential order as the carried chain
+instead: four passes per view step (K6, K8, K6, K10), pass A of psi
+carried from one step to the next and seeded once per entry
+(:func:`_carry_enabled`).
 
 ``algorithm="dft"`` convolves by matrix-product DFTs (:mod:`..core.dft`)
 and ``"direct"`` in the spatial domain (:func:`..core.convolve.
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import math
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -63,7 +66,7 @@ from ..ops.fused import (
     fused_rl_step_transposed,
     kernel_stack_spectrum_fused,
 )
-from ..utils.trace import spanned
+from ..utils.trace import spanned, trace_print
 from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 
 log = logging.getLogger(__name__)
@@ -101,8 +104,9 @@ def _auto_device(device) -> torch.device:
 def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = False) -> str:
     """The engine a request runs on ``device`` (default: the card when there
     is one) for a (Z, Y, X) ``spatial_shape``; ``chunk`` marks a streamed
-    rung's halo-extended chunk or a batch of volumes, neither of which takes
-    the fused engine.
+    rung's halo-extended chunk, which never takes the fused engine.  A
+    batch of volumes resolves as one of its volumes: the engine depends on
+    the spatial shape alone.
 
     On the CPU, ``"auto"`` is the JAX package's rule on a CPU backend: dft
     up to 256 per axis, fft above, never fused.  On a CUDA device it is
@@ -133,7 +137,9 @@ def _cuda_auto(spatial, device: torch.device, chunk: bool) -> str:
     each beyond the turn-to-turn spread: below 256 per axis fft beat dft by
     3.6-3.9x (JAX picks dft), and at (32, 512, 512) by 1.18x over fused (JAX
     picks fused: its rule looks at the longest axis).  dft lost every row,
-    so ``"auto"`` never picks it here; a streamed chunk takes fft."""
+    so ``"auto"`` never picks it here; a streamed chunk takes fft.  A batch
+    takes what one of its volumes takes, where JAX never gives a batch the
+    fused engine (``rl.py:391``)."""
     if not chunk and min(spatial) >= 256 and fused_eligible(spatial, device):
         if _fused_timed(spatial):
             return "fused"
@@ -449,9 +455,12 @@ def deconvolve(
     (V, *B, Z, Y, X); weights (V,), (V, Z, Y, X) or (V, *B, Z, Y, X).  K1
     and K2 read a shared view or weight volume once for the whole batch,
     and K3 applies each spectrum to the batch, so a sweep launches each as
-    often as for one volume.  The fused engine takes one volume:
-    ``algorithm="fused"`` with a batched psi raises ``ValueError``, and
-    ``"auto"`` never picks it for one.
+    often as for one volume.  The fused engine, whose passes take one
+    volume, runs the entries one at a time (:func:`_deconvolve_fused`): the
+    kernel spectra are forwarded once for the call and shared views and
+    weights transposed once, and entry b equals, bitwise, the single-volume
+    fused call on it.  ``"auto"`` gives a batch the engine it gives one of
+    its volumes.  JAX's fused engine refuses a batch.
 
     Gradients: with grad mode on, the fft, dft and direct engines are
     differentiable in psi, a 0-dim tensor ``lam`` and ``data.weights``
@@ -479,38 +488,40 @@ def deconvolve(
     else:
         if adjoint_kernel2:
             _check_adjoint(data.kernel1)
-        # a batch, like a streamed chunk, never takes the fused engine
-        engine = resolve_algorithm(algorithm, spatial, psi.device, chunk=psi.ndim != 3)
-    if engine == "fused" and psi.ndim != 3:
-        raise ValueError("algorithm='fused' operates on single volumes")
-    if prepared is None:
+        # a batch resolves as one of its volumes
+        engine = resolve_algorithm(algorithm, spatial, psi.device)
         k1, k2, conj_k2 = _forward_spectra(engine, data, spatial, adjoint_kernel2)
     log.debug("deconvolve: algorithm=%r runs engine %r", algorithm, engine)
-
-    views = data.views
-    weights = _view_weights(data.weights)
-    num_views = int(views.shape[0])
-    fused = engine == "fused"
-    if fused:
-        # the whole loop lives in the fused passes' (Z, X, Y) domain; the
-        # RL steps are layout-agnostic, so these are the only transposes
-        views = views.transpose(-1, -2).contiguous()
-        if data.weights.ndim > 1:
-            weights = list(data.weights.transpose(-1, -2).contiguous())
-        psi = psi.transpose(-1, -2).contiguous()
-        step = functools.partial(rl_view_step_fused, conj_k2=conj_k2)
-    else:
-        psi = psi.clone(memory_format=torch.contiguous_format)
-        step = {
-            "fft": functools.partial(rl_view_step, conj_k2=conj_k2),
-            "dft": rl_view_step_dft,
-            "direct": rl_view_step_direct,
-        }[engine]
+    if view_order == "simultaneous":
+        check_simultaneous_weights(data.weights)
+    elif view_order != "sequential":
+        raise ValueError(f"unknown view_order {view_order!r}")
     if engine in ("fused", "dft"):
         k1, k2 = list(zip(*k1)), list(zip(*k2))  # one (re, im) pair per view
+    if engine == "fused":
+        return _deconvolve_fused(psi, data, k1, k2, conj_k2, num_iterations, lam, min_value,
+                                 view_order, track_convergence)
 
-    carried = fused and view_order == "sequential" and _carry_enabled()
-    log.debug("deconvolve: carried fused chain %s", carried)
+    step = {
+        "fft": functools.partial(rl_view_step, conj_k2=conj_k2),
+        "dft": rl_view_step_dft,
+        "direct": rl_view_step_direct,
+    }[engine]
+    psi = psi.clone(memory_format=torch.contiguous_format)
+    sweep = _sweep(step, data.views, _view_weights(data.weights), k1, k2, lam, min_value,
+                   view_order, stacked=engine == "fft" and psi.ndim == 3, conj_k2=conj_k2)
+    psi, msq = _iterate(psi, sweep, num_iterations, track_convergence)
+    return (psi, _deltas([msq], psi)) if track_convergence else psi
+
+
+def _sweep(step, views, weights, k1, k2, lam, min_value, view_order, carried=False,
+           stacked=False, conj_k2=False):
+    """One RL sweep over the views of one problem: sequential, carried on
+    the fused engine (its state the pair (psi, pass A of psi)), or
+    simultaneous.  ``stacked`` marks the fft engine's single volume, whose
+    simultaneous sweep convolves every view at once with the stacked
+    spectra ``k1`` and ``k2``."""
+    num_views = int(views.shape[0])
     if carried:
 
         def sweep(c):
@@ -528,17 +539,20 @@ def deconvolve(
                 p = step(p, views[v], k1[v], k2[v], weights[v], lam, min_value, out=p)
             return p
 
-    elif view_order == "simultaneous":
-        check_simultaneous_weights(data.weights)
+    elif not stacked:
+
+        def sweep(p):
+            # a batched psi meets the views one at a time: K3 applies each
+            # view's spectrum to the whole batch, 2V launches
+            blend = torch.zeros_like(p)
+            for v in range(num_views):
+                blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value) - p
+            return _blend(p, blend)
+
+    else:
 
         def sweep(p):
             blend = torch.zeros_like(p)
-            if engine != "fft" or p.ndim != 3:
-                # a batched psi meets the views one at a time: K3 applies
-                # each view's spectrum to the whole batch, 2V launches
-                for v in range(num_views):
-                    blend += step(p, views[v], k1[v], k2[v], weights[v], lam, min_value) - p
-                return _blend(p, blend)
             integral = convolve_spectrum(p, k1)
             integral = quotient(views, integral, out=integral)
             integral = convolve_spectrum(integral, k2, conj_k=conj_k2)
@@ -546,24 +560,89 @@ def deconvolve(
                 blend += rl_update(p, integral[v], weights[v], lam, min_value) - p
             return _blend(p, blend)
 
-    else:
-        raise ValueError(f"unknown view_order {view_order!r}")
+    return sweep
 
-    untranspose = (lambda p: p.transpose(-1, -2).contiguous()) if fused else (lambda p: p)
-    # the carried chain's state is (psi, pass A of psi); deltas are on psi
-    state = (psi, fused_forward_transposed(psi)) if carried else psi
+
+def _iterate(state, sweep, num_iterations: int, track: bool, carried: bool = False):
+    """psi after ``num_iterations`` sweeps from ``state``, and with
+    ``track`` the mean square of each sweep's change of psi (else [])."""
     get_psi = (lambda c: c[0]) if carried else (lambda c: c)
-    if not track_convergence:
-        for _ in range(num_iterations):
-            state = sweep(state)
-        return untranspose(get_psi(state))
-    deltas = []
+    msq = []
     for _ in range(num_iterations):
-        prev = get_psi(state).clone()
+        prev = get_psi(state).clone() if track else None
         state = sweep(state)
-        deltas.append(torch.sqrt(torch.mean((get_psi(state) - prev) ** 2)))
-    psi = get_psi(state)
-    return untranspose(psi), torch.stack(deltas) if deltas else psi.new_zeros((0,))
+        if track:
+            msq.append(torch.mean((get_psi(state) - prev) ** 2))
+    return get_psi(state), msq
+
+
+def _deltas(msqs: list, like: torch.Tensor) -> torch.Tensor:
+    """The per-sweep sqrt(mean((psi_i - psi_{i-1})^2)) over a batch from
+    each entry's (or the whole batch's) mean squares: the entries are of
+    one size, so the batch's mean is the mean of theirs."""
+    if not msqs or not msqs[0]:
+        return like.new_zeros((0,))
+    return torch.sqrt(torch.stack([torch.stack(m) for m in msqs]).mean(0))
+
+
+def _deconvolve_fused(psi, data, k1, k2, conj_k2, num_iterations, lam, min_value, view_order,
+                      track):
+    """:func:`deconvolve` on the fused engine, one entry of psi (*B, Z, Y,
+    X) at a time: each entry runs the sweeps of a single-volume call in the
+    passes' (Z, X, Y) domain, with the kernel spectra forwarded once for
+    the call.  A single volume is a batch of one.  Views and weights shared
+    by the batch are transposed once per call, a (V, *B, Z, Y, X) operand
+    one entry at a time, so that one entry's transposed operands are held
+    at a time."""
+    spatial = tuple(psi.shape[-3:])
+    batch = tuple(psi.shape[:-3])
+    nb = math.prod(batch)
+
+    def transposed(x):
+        return x.transpose(-1, -2).contiguous()
+
+    def per_entry(x):
+        """(V, nb, Z, Y, X) of a batched operand; None for a shared one."""
+        if x.ndim <= 4:
+            return None
+        if tuple(x.shape[1:-3]) != batch:
+            raise ValueError(f"views and weights (V, *B, Z, Y, X) need B = {batch}, got "
+                             f"{tuple(x.shape)}")
+        return x.reshape((x.shape[0], nb) + spatial)
+
+    views_b, weights_b = per_entry(data.views), per_entry(data.weights)
+    views = transposed(data.views) if views_b is None else None
+    if data.weights.ndim == 1:
+        weights = _view_weights(data.weights)
+    else:
+        weights = list(transposed(data.weights)) if weights_b is None else None
+    carried = view_order == "sequential" and _carry_enabled()
+    log.debug("deconvolve: carried fused chain %s", carried)
+    step = functools.partial(rl_view_step_fused, conj_k2=conj_k2)
+    if psi.ndim > 3:
+        trace_print(f"deconvolve: a batch of {nb} on fused, entry by entry")
+
+    entries = psi.reshape((nb,) + spatial)
+    out = torch.empty(psi.shape, dtype=psi.dtype, device=psi.device) if nb == 0 else None
+    msqs = []
+    for b in range(nb):
+        views_e = views if views_b is None else transposed(views_b[:, b])
+        weights_e = weights if weights_b is None else list(transposed(weights_b[:, b]))
+        p = transposed(entries[b])
+        sweep = _sweep(step, views_e, weights_e, k1, k2, lam, min_value, view_order, carried,
+                       conj_k2=conj_k2)
+        # the carried chain's state is (psi, pass A of psi); deltas are on psi
+        state = (p, fused_forward_transposed(p)) if carried else p
+        p, msq = _iterate(state, sweep, num_iterations, track, carried)
+        if out is None:
+            # made once the first entry's pass temporaries are freed, so a
+            # single volume peaks where it did when it was untransposed last
+            out = torch.empty(psi.shape, dtype=psi.dtype, device=psi.device)
+        out.view((nb,) + spatial)[b].copy_(p.transpose(-1, -2))
+        msqs.append(msq)
+        # free this entry's operands before the next entry's are made
+        del views_e, weights_e, p, state, sweep
+    return (out, _deltas(msqs, out)) if track else out
 
 
 def deconvolve_with_history(

@@ -5,7 +5,8 @@ against the JAX package's batched runs, on the same numpy inputs: 2 views at
 The JAX package takes leading batch axes on psi in every engine but fused
 (``deconv/rl.py:364``, ``:391``); the port does so through K1 and K2 with
 a shared (broadcast) weight volume or view, and K3 with a spectrum applied
-to the batch (ops/elementwise.py).  Views are (V, Z, Y, X), shared by the
+to the batch (ops/elementwise.py), and on the fused engine too, one entry
+at a time (``deconv/rl.py`` ``_deconvolve_fused``).  Views are (V, Z, Y, X), shared by the
 batch, or (V, B, Z, Y, X); weights (V,), (V, Z, Y, X) or (V, B, Z, Y, X).
 
 Tolerance: 1e-4 of max|psi| against JAX, as tests/test_torch_rl.py (two FFT
@@ -14,7 +15,7 @@ convergence deltas at rtol 1e-3, as there.  Against the port's own
 single-volume runs: 1e-6 of max|psi| (the same kernels on the same values;
 a batched transform may sum in another order than a single one), and
 bitwise on the fft engine's sequential order, which transforms a batch one
-entry at a time.
+entry at a time, and on the fused engine, which runs one.
 """
 
 import math
@@ -134,6 +135,19 @@ def test_track_convergence_over_the_batch_matches_jax(view_order):
     np.testing.assert_allclose(deltas_h.numpy(), np.asarray(jdeltas_h), rtol=1e-3)
 
 
+@pytest.mark.parametrize("view_order", ["sequential", "simultaneous"])
+def test_fused_batch_deltas_match_the_fft_batch(view_order):
+    """The fused engine runs a batch entry by entry, and still reports one
+    delta a sweep over the whole batch: the fft batch's, at rtol 1e-3."""
+    arrays = _inputs(views="batched")
+    kw = dict(KW, num_iterations=3, view_order=view_order, track_convergence=True)
+    psi, deltas = _port(arrays, algorithm="fused", **kw)
+    fpsi, fdeltas = _port(arrays, algorithm="fft", **kw)
+    assert deltas.shape == (3,)
+    assert _rel(psi.numpy(), fpsi.numpy()) <= RTOL
+    np.testing.assert_allclose(deltas.numpy(), fdeltas.numpy(), rtol=1e-3)
+
+
 @pytest.mark.parametrize("algorithm", ["fft", "dft"])
 def test_prepared_matches_jax(algorithm):
     arrays = _inputs()
@@ -165,12 +179,13 @@ def test_deconvolve_auto_and_the_model_match_jax(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("view_order", ["sequential", "simultaneous"])
-@pytest.mark.parametrize("algorithm", ["fft", "dft", "direct"])
+@pytest.mark.parametrize("algorithm", ["fft", "dft", "direct", "fused"])
 def test_each_entry_is_the_single_volume_run(algorithm, view_order):
     """Entry b of a batched run is the run on entry b, with the views and
     weights of entry b (here batched views, per-entry weights).  The fft
-    engine's sequential order transforms a batch one entry at a time, so
-    there it is bitwise."""
+    engine's sequential order transforms a batch one entry at a time, and
+    the fused engine runs one entry at a time in either order, so there it
+    is bitwise."""
     arrays = _inputs(views="batched", weights="batched")
     kw = dict(KW, algorithm=algorithm, view_order=view_order)
     got = _port(arrays, **kw).numpy()
@@ -178,7 +193,7 @@ def test_each_entry_is_the_single_volume_run(algorithm, view_order):
         one = (arrays[0][b], arrays[1][:, b], arrays[2], arrays[3], arrays[4][:, b])
         want = _port(one, **kw).numpy()
         assert _rel(got[b], want) <= SELF_RTOL, b
-        if algorithm == "fft" and view_order == "sequential":
+        if algorithm == "fused" or (algorithm == "fft" and view_order == "sequential"):
             np.testing.assert_array_equal(got[b], want)
 
 
@@ -193,23 +208,68 @@ def test_two_batch_axes_and_shared_views():
     np.testing.assert_array_equal(got.reshape(flat.shape).numpy(), flat.numpy())
 
 
-def test_fused_refuses_a_batch_in_both_packages():
-    arrays = _inputs(batch=2)
+# (views, weights, order, prepared, batch shape) of a fused batch
+FUSED_CASES = [
+    (v, w, "sequential", False, (B,)) for v in ("shared", "batched")
+    for w in ("voxel", "scalar", "batched")
+] + [
+    ("shared", "voxel", "simultaneous", False, (B,)),
+    ("batched", "batched", "simultaneous", False, (B,)),
+    ("shared", "voxel", "carried", False, (B,)),
+    ("batched", "scalar", "carried", False, (B,)),
+    ("shared", "voxel", "sequential", True, (B,)),
+    ("batched", "batched", "carried", True, (B,)),
+    ("shared", "scalar", "sequential", False, (2, 2)),
+    ("batched", "batched", "simultaneous", False, (2, 2)),
+]
+
+
+@pytest.mark.parametrize("views, weights, order, prepared, bshape", FUSED_CASES, ids=str)
+def test_fused_batch_is_each_entry_run_alone_where_jax_refuses(monkeypatch, views, weights,
+                                                               order, prepared, bshape):
+    """JAX's fused engine takes one volume and refuses a batch; the port's
+    runs the entries one at a time, so entry b of a batched
+    ``algorithm="fused"`` call is, bitwise, the single-volume fused call on
+    entry b with its views and weights.  "carried" is the sequential order
+    under ``LMVN_FUSED_CARRY=1``; ``prepared`` takes spectra from
+    ``prepare_workspace``; (2, 2) is a batch of two axes, its views and
+    weights (V, 2, 2, Z, Y, X) where batched."""
+    nb = math.prod(bshape)
+    arrays = _inputs(views, weights, batch=nb)
+    shape_b = lambda a: a.reshape(a.shape[:1] + bshape + SHAPE)
+    arrays = (arrays[0].reshape(bshape + SHAPE),
+              shape_b(arrays[1]) if views == "batched" else arrays[1], arrays[2], arrays[3],
+              shape_b(arrays[4]) if weights == "batched" else arrays[4])
     with pytest.raises(ValueError, match="single volumes"):
         jrl.deconvolve(jnp.asarray(arrays[0]), _jdata(arrays), 1, algorithm="fused")
-    with pytest.raises(ValueError, match="single volumes"):
-        _port(arrays, num_iterations=1, algorithm="fused")
+    if order == "carried":
+        monkeypatch.setenv("LMVN_FUSED_CARRY", "1")
+    kw = dict(KW, view_order="simultaneous" if order == "simultaneous" else "sequential")
     data = _tdata(arrays)
-    prep = rl.prepare_workspace(data, SHAPE, algorithm="fused")
-    with pytest.raises(ValueError, match="single volumes"):
-        rl.deconvolve_prepared(torch.from_numpy(arrays[0]), data, prep, 1)
+    if prepared:
+        prep = rl.prepare_workspace(data, SHAPE, algorithm="fused")
+        got = rl.deconvolve_prepared(torch.from_numpy(arrays[0]), data, prep, **kw)
+    else:
+        got = _port(arrays, algorithm="fused", **kw)
+    assert got.shape == bshape + SHAPE
+    flat = got.reshape((nb,) + SHAPE).numpy()
+    for b in range(nb):
+        entry = lambda a: a.reshape((V, nb) + SHAPE)[:, b]
+        one = (arrays[0].reshape((nb,) + SHAPE)[b],
+               entry(arrays[1]) if views == "batched" else arrays[1], arrays[2], arrays[3],
+               entry(arrays[4]) if weights == "batched" else arrays[4])
+        np.testing.assert_array_equal(flat[b], _port(one, algorithm="fused", **kw).numpy())
 
 
-def test_auto_never_picks_fused_for_a_batch(monkeypatch):
-    """The CPU rule never gives fused; the CUDA rule, forced here for CPU
-    tensors, gives fused for one volume and fft for a batch (JAX
-    ``rl.py:364``), which ``deconvolve`` then runs."""
+def test_cuda_rule_gives_a_batch_what_it_gives_one_volume(monkeypatch):
+    """The CPU rule never gives fused.  The CUDA rule gives fused at 256³
+    and fft to a streamed rung's chunk (``chunk=True``); a batch is resolved
+    as one of its volumes, without ``chunk``.  Forced here for CPU tensors,
+    it sends a batch to fused in ``deconvolve``, bitwise the explicit fused
+    batch, and the ladder's estimate counts the same engine's spectra for a
+    batch as for one volume, and for the further entry its input and output."""
     arrays = _inputs(batch=2)
+    assert rl.resolve_algorithm("auto", SHAPE, "cpu") == "dft"
     assert rl.resolve_algorithm("auto", SHAPE, "cpu", chunk=True) == "dft"
     assert rl.resolve_algorithm("auto", (256,) * 3, "cuda", chunk=True) == "fft"
     assert rl.resolve_algorithm("auto", (256,) * 3, "cuda") == "fused"
@@ -221,13 +281,18 @@ def test_auto_never_picks_fused_for_a_batch(monkeypatch):
         return real(algorithm, spatial, device, chunk) if algorithm != "auto" else picks[-1]
 
     monkeypatch.setattr(rl, "resolve_algorithm", cuda_rule)
+    monkeypatch.setattr(dispatch, "resolve_algorithm", cuda_rule)
     got = _port(arrays, algorithm="auto", **KW)
-    one = rl.deconvolve(torch.from_numpy(arrays[0][0]), _tdata(arrays), algorithm="auto", **KW)
-    assert picks == ["fft", "fused"]
+    assert picks == ["fused"]
+    data = _tdata(arrays)
+    est = [dispatch.estimate_workspace_bytes(data, "auto", "cpu", batch=n) for n in (1, 2)]
+    assert picks == ["fused"] * 3
+    # one entry at a time: the second entry adds its input and its output alone
+    assert est[1] - est[0] == 2 * 4 * math.prod(SHAPE)
     monkeypatch.setattr(rl, "resolve_algorithm", real)
-    np.testing.assert_array_equal(got.numpy(), _port(arrays, algorithm="fft", **KW).numpy())
-    fused = rl.deconvolve(torch.from_numpy(arrays[0][0]), _tdata(arrays), algorithm="fused", **KW)
-    np.testing.assert_array_equal(one.numpy(), fused.numpy())
+    np.testing.assert_array_equal(got.numpy(), _port(arrays, algorithm="fused", **KW).numpy())
+    fft = _port(arrays, algorithm="fft", **KW)
+    assert _rel(got.numpy(), fft.numpy()) <= RTOL
 
 
 def test_r8_the_estimate_counts_the_batch(monkeypatch):
