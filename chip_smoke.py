@@ -1333,8 +1333,9 @@ def phase_thin(torch, dev, rng, launches_out):
 def phase_interleaved(torch, dev, launches_out):
     """benchmarks/bench_streamed.py's interleaved configuration on both
     engines; the data is drawn on the card from a seed and kept on the host."""
+    from libmultiviewnative_torch.deconv.engines import TABLE, forward
     from libmultiviewnative_torch.deconv.interleaved import (
-        chunk_bounds, deconvolve_interleaved, engine_spectra, view_step,
+        chunk_bounds, deconvolve_interleaved, view_step,
     )
     from libmultiviewnative_torch.deconv.rl import deconvolve
     from libmultiviewnative_torch.deconv.workspace import MultiViewData
@@ -1415,7 +1416,9 @@ def phase_interleaved(torch, dev, launches_out):
                 for d, h in zip(dst, pinned):
                     d[z0:z1].copy_(h[z0:z1], non_blocking=True)
 
-        ops1, ops2, convolve = engine_spectra(engine, k1[:1], k2[:1], shape, dev)
+        ops1, ops2, _ = forward(engine, [torch.from_numpy(k1[0]).to(dev)],
+                                [torch.from_numpy(k2[0]).to(dev)], shape, dev, per_view=True)
+        convolve = TABLE[engine].convolve
         psi = torch.from_numpy(psi0).to(dev)
 
         def compute():

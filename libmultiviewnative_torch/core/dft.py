@@ -132,6 +132,11 @@ def _axis_plan(n: int, device: torch.device) -> AxisPlan:
     return AxisPlan(n, "split", f32(cm), f32(sm), f32(twc), f32(tws), f32(oc), f32(osn), r, m)
 
 
+def full_spectrum(shape) -> bool:
+    """Whether a (z, y, x) shape takes the :class:`FullDFTPlan`."""
+    return max(int(s) for s in shape[-3:]) > _DENSE_LIMIT
+
+
 def make_plan(shape, device="cuda"):
     """The transform plan of a (z, y, x) shape on ``device`` (the card by
     default), cached: the compact plan when every axis is at most 256, else
@@ -143,7 +148,7 @@ def make_plan(shape, device="cuda"):
 def _make_plan(shape: Tuple[int, int, int], device: str):
     dev = torch.device(device)
     z, y, x = shape
-    if max(shape) > _DENSE_LIMIT:
+    if full_spectrum(shape):
         return FullDFTPlan(
             axes=(_axis_plan(z, dev), _axis_plan(y, dev), _axis_plan(x, dev)), shape=shape
         )

@@ -34,8 +34,9 @@ import torch
 
 from ..core.shapes import halo_widths
 from ..utils.trace import span, spanned, trace_print
+from .engines import auto_device, check_adjoint, resolve_algorithm, select_update, spectrum_volumes
 from .interleaved import deconvolve_interleaved
-from .rl import _auto_device, _select_rl_update, deconvolve, resolve_algorithm
+from .rl import deconvolve, working_volumes
 from .streamed import deconvolve_streamed
 from .workspace import MultiViewData, check_simultaneous_weights
 
@@ -48,49 +49,39 @@ class DispatchDivergenceWarning(UserWarning):
 
 def estimate_workspace_bytes(data: MultiViewData, algorithm: str = "fft", device=None,
                              batch: int = 1) -> int:
-    """The in-core working set of a psi of ``batch`` volumes: the views and
-    weights as they are stored (2V volumes when both are (V, Z, Y, X)), both
-    kernel spectrum sets and ~8 volumes of psi and temporaries per batch
-    entry (the reference's ``(4V+2)*stack + workarea``,
-    ``src/multiviewnative.cu:97-114``).  The fused engine runs a batch one
-    entry at a time (:func:`.rl._deconvolve_fused`): one entry's 8 volumes,
-    and the input and the output of each further entry, 2 volumes each.
-
-    Spectra: a hermitian half-spectrum (fft, compact dft) is about one f32
-    volume per kernel per view; the split pairs of fused and of the
-    long-axis dft plan (any axis over 256) about two; direct keeps the
-    kernels spatial.  ``algorithm`` resolves as on ``device``
-    (:func:`.rl.resolve_algorithm`; a batch as one of its volumes).
+    """The in-core working set of a psi of ``batch`` volumes (the reference's
+    ``(4V+2)*stack + workarea``, ``src/multiviewnative.cu:97-114``): the
+    views and weights as they are stored, both kernel operand sets
+    (:func:`.engines.spectrum_volumes`) and psi and its temporaries
+    (:func:`.rl.working_volumes`), ``algorithm`` resolved on ``device``.
 
     The JAX package counts 2V volumes for the views and weights and 8 for
     psi whatever their shapes (its fault R8, ROADMAP): a batched request
     there is taken in-core at the size of one volume."""
+    engine = resolve_algorithm(algorithm, data.spatial_shape, device)
+    return _in_core_bytes(data, engine, batch)
+
+
+def _in_core_bytes(data: MultiViewData, engine: str, batch: int = 1,
+                   adjoint: bool = False) -> int:
+    """:func:`estimate_workspace_bytes` of a resolved engine, ``adjoint``
+    counting kernel2's operand as under ``adjoint_kernel2``."""
     spatial = data.spatial_shape
     vol = 4 * math.prod(spatial)
-    V = data.num_views
-    algo = resolve_algorithm(algorithm, spatial, device)
-    spectrum_vols = 1
-    if algo == "fused" or (algo == "dft" and max(spatial) > 256):
-        spectrum_vols = 2
-    elif algo == "direct":
-        spectrum_vols = 0
     stacks = 4 * (data.views.numel() + data.weights.numel())
-    psi_vols = 8 + 2 * (batch - 1) if algo == "fused" else 8 * batch
-    return stacks + 2 * V * spectrum_vols * vol + psi_vols * vol
+    spectra = data.num_views * spectrum_volumes(engine, spatial, adjoint)
+    return stacks + (spectra + working_volumes(engine, batch)) * vol
 
 
 def estimate_interleaved_bytes(data: MultiViewData, algorithm: str = "auto", device=None) -> int:
     """The interleaved rung's device working set: psi, 3 temporaries, the
-    current and the prefetched view's slots, and both kernel spectrum sets;
-    views and weights stay on the host."""
+    current and the prefetched view's slots, and both kernel operand sets;
+    views and weights stay on the host.  An engine the rung does not run
+    counts as ``"auto"``."""
     spatial = data.spatial_shape
-    vol = 4 * math.prod(spatial)
-    V = data.num_views
-    algo = resolve_algorithm(
-        algorithm if algorithm in ("fft", "dft", "fused", "auto") else "auto", spatial, device
-    )
-    spectrum_vols = 2 if algo == "fused" or (algo == "dft" and max(spatial) > 256) else 1
-    return (6 + 2 * V * spectrum_vols) * vol
+    engine = resolve_algorithm(algorithm if algorithm in ("fft", "dft", "fused") else "auto",
+                               spatial, device)
+    return (6 + data.num_views * spectrum_volumes(engine, spatial)) * 4 * math.prod(spatial)
 
 
 def device_capacity_bytes(device=None) -> int:
@@ -99,7 +90,7 @@ def device_capacity_bytes(device=None) -> int:
     ``torch.cuda.mem_get_info``; elsewhere 16 GiB, the JAX package's fixed
     figure for a device that reports none, so the rung decisions there match
     JAX's."""
-    dev = _auto_device(device)
+    dev = auto_device(device)
     if dev.type == "cuda":
         return int(torch.cuda.mem_get_info(dev)[1])
     return 16 * 1024**3
@@ -140,18 +131,13 @@ def _zonly_cell_bytes(data: MultiViewData, algorithm: str, zp: int, device) -> i
     JAX package divides the whole estimate by ``zp`` (its fault R2,
     ROADMAP), which undercounts the spectra each cell holds."""
     spatial = data.spatial_shape
-    vol = 4 * math.prod(spatial)
-    V = data.num_views
-    algo = resolve_algorithm(algorithm, spatial, device)
-    spectrum_vols = 2 if algo == "fused" or (algo == "dft" and max(spatial) > 256) else 1
-    if algo == "direct":
-        spectrum_vols = 0
-    spectra = 2 * V * spectrum_vols * vol
-    sharded = estimate_workspace_bytes(data, algorithm, device) - spectra
+    engine = resolve_algorithm(algorithm, spatial, device)
+    spectra = data.num_views * spectrum_volumes(engine, spatial) * 4 * math.prod(spatial)
+    sharded = _in_core_bytes(data, engine) - spectra
     (lo1, _, _), (hi1, _, _) = halo_widths(tuple(data.kernel1.shape[-3:]))
     (lo2, _, _), (hi2, _, _) = halo_widths(tuple(data.kernel2.shape[-3:]))
     ext = spatial[0] // zp + max(lo1 + hi1, lo2 + hi2)
-    if algo == "fused":
+    if engine == "fused":
         ext = -(-ext // 8) * 8
     replicated = spectra * ext // spatial[0]
     replicated += 4 * (data.kernel1.numel() + data.kernel2.numel())
@@ -249,21 +235,15 @@ def deconvolve_auto(
       ``chunk_z``: the z-chunk of the off-core rungs (``"auto"``: 64
       interleaved, :func:`.streamed.pick_chunk_z` streamed).
     """
-    _select_rl_update(elementwise)
+    select_update(elementwise)
     dev = torch.device(device)
     spatial = data.spatial_shape
     batch = math.prod(psi.shape[:-3])
-    est = estimate_workspace_bytes(data, algorithm, dev, batch=batch)
+    # the in-core and interleaved rungs run this engine, resolved once here
+    engine = resolve_algorithm(algorithm, spatial, dev)
+    est = _in_core_bytes(data, engine, batch, adjoint_kernel2)
     if adjoint_kernel2:
-        # the split-spectrum engines share k1's re part with conj(k1) and
-        # materialise only the negated im: one f32 volume less per view
-        algo = resolve_algorithm(algorithm, spatial, dev)
-        if algo == "fused" or (algo == "dft" and max(spatial) > 256):
-            est -= data.num_views * 4 * math.prod(spatial)
-        if any(int(d) % 2 == 0 for d in data.kernel1.shape[-3:]):
-            raise ValueError(
-                f"adjoint_kernel2 requires odd kernel1 dims; got {tuple(data.kernel1.shape[-3:])}"
-            )
+        check_adjoint(data.kernel1)
     cap = int(headroom * device_capacity_bytes(dev))
     n_dev = mesh_device_count()
 
@@ -281,7 +261,7 @@ def deconvolve_auto(
         with span("lmvn.rung.in_core"):
             out = deconvolve(
                 psi.to(dev), data.to(dev), num_iterations, lam=lam, min_value=min_value,
-                view_order=view_order, algorithm=algorithm, adjoint_kernel2=adjoint_kernel2,
+                view_order=view_order, algorithm=engine, adjoint_kernel2=adjoint_kernel2,
                 elementwise=elementwise,
             )
             return out.to(psi.device)
@@ -324,7 +304,7 @@ def deconvolve_auto(
             )
 
     if mesh_rung and view_order == "sequential":
-        mesh = _pick_zonly_mesh(data, algorithm, n_dev, max(lo1, hi1, lo2, hi2), cap, dev)
+        mesh = _pick_zonly_mesh(data, engine, n_dev, max(lo1, hi1, lo2, hi2), cap, dev)
         if mesh is not None:
             supported = mesh_engines(mesh)
             if algorithm in supported:
@@ -368,8 +348,8 @@ def deconvolve_auto(
         trace_print("dispatch: no valid mesh factorization; streaming")
 
     # the off-core rungs copy the stacks to the host inside their own span
-    est_il = estimate_interleaved_bytes(data, algorithm, dev)
-    interleaved = algorithm != "direct" and est_il < cap
+    est_il = estimate_interleaved_bytes(data, engine, dev) if algorithm != "direct" else None
+    interleaved = est_il is not None and est_il < cap
     with span("lmvn.rung.interleaved" if interleaved else "lmvn.rung.streamed"):
         views, k1, k2, ws = _host_views(data)
         psi_host = psi.detach().to("cpu", torch.float32)
@@ -385,7 +365,7 @@ def deconvolve_auto(
             )
             out = deconvolve_interleaved(
                 psi_host, views, k1, k2, ws, num_iterations, lam=lam, min_value=min_value,
-                chunk_z=64 if chunk_z == "auto" else chunk_z, algorithm=algorithm,
+                chunk_z=64 if chunk_z == "auto" else chunk_z, algorithm=engine,
                 elementwise=elementwise, device=dev,
             )
             return torch.from_numpy(np.asarray(out)).to(psi.device)

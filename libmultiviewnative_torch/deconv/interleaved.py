@@ -31,67 +31,16 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.convolve import convolve_spectrum
-from ..core.dft import dft_convolve_spectrum, kernel_spectrum_split
-from ..core.fft import rfft3
 from ..core.shapes import as_shape
-from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
-from ..ops.fused import check_transposed_shape, fused_convolve_spectrum, kernel_stack_spectrum_fused
-from .rl import _select_rl_update, resolve_algorithm
+from .engines import TABLE, forward, resolve_algorithm, select_update
 
 Bounds = List[Tuple[int, int]]
-
-
-def _resolve_engine(algorithm: str, shape, device) -> str:
-    """fft, dft or fused; ``"auto"`` as :func:`.rl.resolve_algorithm` has it
-    for the whole volume on ``device``."""
-    if algorithm not in ("fft", "dft", "fused", "auto"):
-        raise ValueError(
-            f"interleaved rung supports algorithm 'fft'|'dft'|'fused'|'auto', got {algorithm!r}"
-        )
-    return resolve_algorithm(algorithm, shape, device)
 
 
 def chunk_bounds(Z: int, chunk_z: int) -> Bounds:
     """The [z0, z1) z-chunks of Z planes; the last may be shorter."""
     return [(z0, min(z0 + chunk_z, Z)) for z0 in range(0, Z, chunk_z)]
-
-
-def engine_spectra(engine: str, kernels1, kernels2, shape, device):
-    """(ops1, ops2, convolve) of an engine, the spectra forwarded once on
-    ``device``: ``convolve(x, op)`` convolves a (Z, Y, X) device volume
-    with one view's kernel.  fft: complex ``rfft3`` spectra through cuFFT
-    and K3.  dft: (re, im) pairs from :func:`kernel_spectrum_split` through
-    the matrix-product DFT.  fused: (re, im) pairs through passes A, B and
-    C (the volume is transposed in and out), each kernel stack forwarded at
-    once (:func:`_fused_spectra`)."""
-    Z, Y, X = shape
-    dev = torch.device(device)
-    kernels = [[_host(k).to(dev) for k in ks] for ks in (kernels1, kernels2)]
-    if engine == "fft":
-        ops = [[rfft3(wrap_kernel(k, shape)) for k in ks] for ks in kernels]
-        return ops[0], ops[1], convolve_spectrum
-    if engine == "dft":
-        ops = [[kernel_spectrum_split(k, shape) for k in ks] for ks in kernels]
-        return ops[0], ops[1], lambda x, op: dft_convolve_spectrum(x, *op)
-    check_transposed_shape((Z, X, Y), dev)
-    ops = [_fused_spectra(ks, shape) for ks in kernels]
-    return ops[0], ops[1], lambda x, op: fused_convolve_spectrum(x, *op)
-
-
-def _fused_spectra(kernels, shape) -> list:
-    """Each view's (re, im) fused spectrum, the views whose kernels share a
-    shape forwarded as one stack (:func:`kernel_stack_spectrum_fused`)."""
-    by_shape = {}
-    for v, k in enumerate(kernels):
-        by_shape.setdefault(tuple(k.shape), []).append(v)
-    ops = [None] * len(kernels)
-    for views in by_shape.values():
-        re, im = kernel_stack_spectrum_fused(torch.stack([kernels[v] for v in views]), shape)
-        for i, v in enumerate(views):
-            ops[v] = (re[i], im[i])
-    return ops
 
 
 def view_step(
@@ -217,14 +166,14 @@ def deconvolve_interleaved(
     ``psi``, ``views[v]`` and per-voxel ``weights[v]`` are (Z, Y, X) host
     numpy arrays or CPU tensors; ``weights[v]`` may be a scalar.  Kernels are
     host arrays too.  ``algorithm``: ``"fft"``, ``"dft"``, ``"fused"`` or
-    ``"auto"`` (:func:`.rl.resolve_algorithm` of the volume on ``device``).
+    ``"auto"`` (:func:`.engines.resolve_algorithm` of the volume on ``device``).
     ``elementwise``: ``"jnp"`` or ``"pallas"``, both K1 (JAX's choice of
     update chain; another value raises ``ValueError``).
     ``device`` is the PyTorch device the work runs on; on
     ``"cpu"`` the kernels' plain versions run and nothing streams.  Returns
     the final psi as a numpy array.
     """
-    _select_rl_update(elementwise)
+    select_update(elementwise)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deconvolve_interleaved: device='cuda' but CUDA is not available")
@@ -232,11 +181,16 @@ def deconvolve_interleaved(
     shape = as_shape(psi_host.shape)
     if psi_host.ndim != 3:
         raise ValueError(f"psi must be one (Z, Y, X) volume, got shape {tuple(psi_host.shape)}")
-    engine = _resolve_engine(algorithm, shape, dev)
+    if algorithm not in ("fft", "dft", "fused", "auto"):
+        raise ValueError(
+            f"interleaved rung supports algorithm 'fft'|'dft'|'fused'|'auto', got {algorithm!r}"
+        )
+    engine = resolve_algorithm(algorithm, shape, dev)
     V = len(views)
     if not (len(kernels1) == len(kernels2) == len(weights) == V):
         raise ValueError("views, kernels1, kernels2 and weights must have one entry per view")
-    ops1, ops2, convolve = engine_spectra(engine, kernels1, kernels2, shape, dev)
+    kernels = [[_host(k).to(dev) for k in ks] for ks in (kernels1, kernels2)]
+    ops1, ops2, _ = forward(engine, *kernels, shape, dev, per_view=True)
 
     # scalar weights become Python floats; per-voxel stacks stay host tensors
     host_weights = []
@@ -259,7 +213,7 @@ def deconvolve_interleaved(
         v, slot = step % V, step % 2
         if step + 1 < total:
             slots.upload((v + 1) % V, 1 - slot)  # the kick
-        view_step(psi_dev, ops1[v], ops2[v], convolve, bounds,
+        view_step(psi_dev, ops1[v], ops2[v], TABLE[engine].convolve, bounds,
                   lambda i: slots.chunk(slot, i), host_weights[v], lam, min_value)
         slots.release(slot)
     if dev.type == "cpu":

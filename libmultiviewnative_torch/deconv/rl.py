@@ -33,12 +33,11 @@ through K1, as the fft engine does.
 PyTorch runs eagerly: :func:`deconvolve_jit` is :func:`deconvolve` under
 the JAX package's name, and λ/min_value are runtime values on every call.
 ``elementwise`` ("jnp" or "pallas", JAX's choice of update chain) is
-accepted by every entry point; both run the port's kernels (:func:`_select_rl_update`).
-:func:`resolve_algorithm` says which engine ``"auto"`` runs, for every
-caller (in-core, interleaved, streamed and the dispatch ladder), and the
-module logger records it at DEBUG.  Under a profiler, a :func:`deconvolve`
-call is the span ``lmvn.deconvolve`` and its kernel forwarding
-``lmvn.forward`` (:func:`..utils.trace.span`).
+accepted by every entry point; both run the port's kernels.  The engine
+table (:mod:`.engines`) forwards the kernels and resolves ``"auto"`` for
+every caller; the module logger records the engine at DEBUG.  Under a
+profiler, a :func:`deconvolve` call is the span ``lmvn.deconvolve`` and its
+kernel forwarding ``lmvn.forward`` (:func:`..utils.trace.span`).
 """
 
 from __future__ import annotations
@@ -47,136 +46,33 @@ import functools
 import logging
 import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.convolve import convolve_spectrum, direct_convolve3d
-from ..core.dft import dft3, dft_convolve_spectrum, make_plan
-from ..core.fft import rfft3, stack_spectra
+from ..core.dft import dft_convolve_spectrum
 from ..core.shapes import as_shape
-from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient, rl_update
-from ..ops.fused import (
-    _largest_prime_factor,
-    check_transposed_shape,
-    fused_forward_transposed,
-    fused_limit,
-    fused_rl_step_carried,
-    fused_rl_step_transposed,
-    kernel_stack_spectrum_fused,
-)
+from ..ops.fused import fused_forward_transposed, fused_rl_step_carried, fused_rl_step_transposed
 from ..utils.trace import spanned, trace_print
+from .engines import (  # noqa: F401 (the engine table's names, re-exported where JAX has them)
+    apply_update,
+    check_adjoint,
+    forward,
+    fused_eligible,
+    prepare_spectra,
+    prepare_spectra_fused,
+    prepare_spectra_split,
+    resolve_algorithm,
+    select_update,
+)
 from .workspace import MultiViewData, Workspace, check_simultaneous_weights
 
 log = logging.getLogger(__name__)
 
-ENGINES = ("fft", "dft", "fused", "direct")
-
-
-def _select_rl_update(elementwise: str):
-    """The update of an ``elementwise`` request: JAX's ``"jnp"`` (XLA's
-    fused chain) and ``"pallas"`` (its explicit kernel) both run the port's
-    K1 (:func:`..ops.elementwise.rl_update`); any other value raises
-    ``ValueError``, as in JAX (``rl.py:50-67``)."""
-    if elementwise in ("jnp", "pallas"):
-        return rl_update
-    raise ValueError(f"unknown elementwise {elementwise!r}")
-
-
-def _apply_update(update_fn, psi, integral, weights, lam, min_value, out):
-    """``update_fn``'s result, written to ``out`` when one is given; K1
-    writes it there itself."""
-    if update_fn is rl_update:
-        return rl_update(psi, integral, weights, lam, min_value, out=out)
-    res = update_fn(psi, integral, weights, lam, min_value)
-    return res if out is None else out.copy_(res)
-
-
-def _auto_device(device) -> torch.device:
-    """The device an ``"auto"`` request is resolved for: ``device``, or the
-    card when there is one."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
-
-
-def resolve_algorithm(algorithm: str, spatial_shape, device=None, chunk: bool = False) -> str:
-    """The engine a request runs on ``device`` (default: the card when there
-    is one) for a (Z, Y, X) ``spatial_shape``; ``chunk`` marks a streamed
-    rung's halo-extended chunk, which never takes the fused engine.  A
-    batch of volumes resolves as one of its volumes: the engine depends on
-    the spatial shape alone.
-
-    On the CPU, ``"auto"`` is the JAX package's rule on a CPU backend: dft
-    up to 256 per axis, fft above, never fused.  On a CUDA device it is
-    :func:`_cuda_auto`, the table measured on the H100: past Z = 736 or
-    X = 1816 fused only in the classes timed against fft there
-    (:func:`_fused_timed`; fft / fused 5.226 / 6.144 it/s at (256, 1024,
-    2048), 10.156 / 13.765 at (1024, 512, 512), NVIDIA H100 80GB HBM3 at
-    700 W).  Other names are returned as they are, or raise ``ValueError``
-    when unknown."""
-    if algorithm != "auto":
-        if algorithm not in ENGINES:
-            raise ValueError(f"unknown algorithm {algorithm!r}")
-        return algorithm
-    spatial = tuple(int(s) for s in spatial_shape[-3:])
-    dev = _auto_device(device)
-    if dev.type != "cuda":
-        return "dft" if max(spatial) <= 256 else "fft"
-    return _cuda_auto(spatial, dev, chunk)
-
-
-def _cuda_auto(spatial, device: torch.device, chunk: bool) -> str:
-    """``"auto"`` on a CUDA device, the table ``chip_smoke.py`` phase 22
-    measured on an NVIDIA H100 (``PERF.md`` §6): the fused engine where
-    every axis is at least 256, :func:`fused_eligible` holds and the shape
-    is of a class timed against fft (:func:`_fused_timed`), else fft.
-
-    It departs from the JAX package's rule (``rl.py:355-368``) in two rows,
-    each beyond the turn-to-turn spread: below 256 per axis fft beat dft by
-    3.6-3.9x (JAX picks dft), and at (32, 512, 512) by 1.18x over fused (JAX
-    picks fused: its rule looks at the longest axis).  dft lost every row,
-    so ``"auto"`` never picks it here; a streamed chunk takes fft.  A batch
-    takes what one of its volumes takes, where JAX never gives a batch the
-    fused engine (``rl.py:391``)."""
-    if not chunk and min(spatial) >= 256 and fused_eligible(spatial, device):
-        if _fused_timed(spatial):
-            return "fused"
-    return "fft"
-
-
-def _fused_timed(spatial) -> bool:
-    """Whether a fused-eligible (Z, Y, X) shape is of a class where fused
-    was timed against fft.
-
-    Up to Z = 736, Y = 3632 and X = 1816 the FFT stages run their widest
-    tiles (16 or 8 sequences), and fused beat fft at every row of 256 per
-    axis and up.  Past those lengths two rows were timed, 4 views, 10
-    iterations, NVIDIA H100 80GB HBM3 at 700 W, fft / fused in turns:
-    (256, 1024, 2048), x tile 8, 5.226 / 6.144 it/s (fused 1.18x, spread
-    1.0 %), and (1024, 512, 512), z tile 16, 10.156 / 13.765 (1.36x, spread
-    0.1 %).  So fused is kept there only where those rows vouch for it:
-    X and Y up to 3632, Z up to 1816 (the tiles of 8 and 16 timed), and
-    every length a product of 2, 3, 5 and 7 (no generic radix stage).
-    Narrower tiles and generic radices there were never timed end to end
-    against fft, and take fft as they did before fused served them; so do
-    the long axes past 14528 or with a prime factor over 1024, which the
-    fused passes serve through HBM (four-step, Bluestein) up to 2^25."""
-    Z, Y, X = spatial
-    if Z <= 736 and Y <= 3632 and X <= 1816:
-        return True
-    if Z > 1816 or Y > 3632 or X > 3632:
-        return False
-    return all(_largest_prime_factor(n) <= 7 for n in spatial)
-
-
-def fused_eligible(spatial_shape, device=None) -> bool:
-    """Whether ``algorithm="fused"`` can serve this (Z, Y, X) shape on
-    ``device`` (:func:`..ops.fused.fused_limit`): every axis a multiple of 8,
-    and on a CUDA device each axis at most 2^25, the kernels' limit."""
-    Z, Y, X = (int(s) for s in spatial_shape[-3:])
-    return fused_limit((Z, X, Y), device) is None
+# the JAX package's private name of :func:`.engines.select_update`
+_select_rl_update = select_update
 
 
 def _carry_enabled() -> bool:
@@ -193,39 +89,6 @@ def _carry_enabled() -> bool:
 # packed one, whose spectra are in the natural hermitian row order (the JAX
 # package's split-x mode, 'splitx', is not ported).
 FUSED_XMODE = "standard"
-
-
-def _check_adjoint(kernel1: torch.Tensor) -> None:
-    # The true adjoint kernel has center k-1-(k//2), which equals the k//2
-    # floor-center convention only for odd dims.
-    if any(int(d) % 2 == 0 for d in kernel1.shape[-3:]):
-        raise ValueError(
-            "adjoint_kernel2 requires odd kernel1 dims; got "
-            f"{tuple(kernel1.shape[-3:])}"
-        )
-
-
-def prepare_spectra(kernels: torch.Tensor, spatial_shape: Sequence[int]) -> torch.Tensor:
-    """Wrap + forward-FFT a (V, kz, ky, kx) kernel stack (the reference's
-    per-view setup loop, ``src/multiviewnative.cpp:146-174``), one view at a
-    time so every slice has the memory order rfft3 gives a volume."""
-    spatial = as_shape(spatial_shape)
-    return stack_spectra([rfft3(wrap_kernel(k, spatial)) for k in kernels])
-
-
-def prepare_spectra_fused(kernels: torch.Tensor, spatial_shape: Sequence[int]):
-    """The (V, Kxp, Z, Y) re/im pair of a (V, kz, ky, kx) kernel stack's
-    fused spectra, the whole stack forwarded at once
-    (:func:`..ops.fused.kernel_stack_spectrum_fused`)."""
-    return kernel_stack_spectrum_fused(kernels, as_shape(spatial_shape))
-
-
-def prepare_spectra_split(kernels: torch.Tensor, spatial_shape: Sequence[int]):
-    """The (re, im) pair of a (V, kz, ky, kx) kernel stack's spectra in the
-    :func:`..core.dft.dft3` layout (JAX ``rl.py:261-268``)."""
-    spatial = as_shape(spatial_shape)
-    wrapped = torch.stack([wrap_kernel(k.to(torch.float32), spatial) for k in kernels])
-    return dft3(wrapped, make_plan(spatial, kernels.device))
 
 
 def rl_view_step_fused(
@@ -273,7 +136,7 @@ def rl_view_step(
     integral = convolve_spectrum(psi, k1_hat)
     integral = quotient(view, integral, out=integral)
     integral = convolve_spectrum(integral, k2_hat, conj_k=conj_k2)
-    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
+    return apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 def rl_view_step_dft(
@@ -292,7 +155,7 @@ def rl_view_step_dft(
     integral = dft_convolve_spectrum(psi, *k1_split)
     integral = quotient(view, integral, out=integral)
     integral = dft_convolve_spectrum(integral, *k2_split)
-    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
+    return apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 def rl_view_step_direct(
@@ -312,7 +175,7 @@ def rl_view_step_direct(
     integral = direct_convolve3d(psi, kernel1, mode="circular")
     integral = quotient(view, integral, out=integral)
     integral = direct_convolve3d(integral, kernel2, mode="circular")
-    return _apply_update(update_fn, psi, integral, weights, lam, min_value, out)
+    return apply_update(update_fn, psi, integral, weights, lam, min_value, out)
 
 
 class PreparedSpectra:
@@ -336,28 +199,10 @@ class PreparedSpectra:
 # that a caller can wrap it from outside (the benchmark's forwarding range)
 @spanned("lmvn.forward")
 def _forward_spectra(engine: str, data: MultiViewData, spatial, adjoint_kernel2: bool):
-    """(k1, k2, conj_k2) of an engine: complex spectra for fft, (re, im)
-    pairs for fused and dft, the kernels themselves for direct.  With the
-    adjoint, fft and fused conjugate k1 on the fly (k2 is k1); dft takes k1
-    with its imaginary part negated, and direct the flipped kernel1, as the
-    JAX package does."""
-    if engine == "direct":
-        k2 = torch.flip(data.kernel1, dims=(-3, -2, -1)) if adjoint_kernel2 else data.kernel2
-        return data.kernel1, k2, False
-    if engine == "dft":
-        k1 = prepare_spectra_split(data.kernel1, spatial)
-        if adjoint_kernel2:
-            return k1, (k1[0], -k1[1]), False
-        return k1, prepare_spectra_split(data.kernel2, spatial), False
-    if engine == "fused":
-        check_transposed_shape((spatial[0], spatial[2], spatial[1]), data.views.device)
-        prepare = prepare_spectra_fused
-    else:
-        prepare = prepare_spectra
-    k1 = prepare(data.kernel1, spatial)
-    if adjoint_kernel2:
-        return k1, k1, True
-    return k1, prepare(data.kernel2, spatial), False
+    """(k1, k2, conj_k2) of an engine, each kernel stack forwarded whole
+    (:func:`.engines.forward`)."""
+    return forward(engine, data.kernel1, data.kernel2, spatial, data.views.device,
+                   adjoint_kernel2)
 
 
 def prepare_workspace(
@@ -371,7 +216,7 @@ def prepare_workspace(
     no spectra to prepare and is refused (ValueError), as in JAX."""
     spatial = as_shape(spatial_shape)
     if adjoint_kernel2:
-        _check_adjoint(data.kernel1)
+        check_adjoint(data.kernel1)
     algorithm = resolve_algorithm(algorithm, spatial, data.views.device)
     if algorithm == "direct":
         raise ValueError(f"prepare_workspace supports fft/dft/fused, not {algorithm!r}")
@@ -429,15 +274,13 @@ def deconvolve(
     On the fused engine, the sequential order runs the carried chain when
     :func:`_carry_enabled` says so (``LMVN_FUSED_CARRY=1``).
 
-    ``adjoint_kernel2=True`` declares kernel2 == flip(kernel1): kernel2
-    spectra are the conjugate of kernel1's, applied on the fly (K3 or K6)
-    without a second spectrum stack on the fft and fused engines, with a
-    negated imaginary part on dft and as the flipped kernel1 on direct;
-    data.kernel2 is ignored.  Weights may be (V, Z, Y, X) stacks or (V,)
+    ``adjoint_kernel2=True`` declares kernel2 == flip(kernel1) and ignores
+    data.kernel2: each engine has kernel2's operand from kernel1's
+    (:data:`.engines.TABLE`).  Weights may be (V, Z, Y, X) stacks or (V,)
     scalars.
 
     ``elementwise``: ``"jnp"`` or ``"pallas"``, both K1 here
-    (:func:`_select_rl_update`); another value raises ``ValueError``.
+    (:func:`.engines.select_update`); another value raises ``ValueError``.
 
     ``prepared`` (from :func:`prepare_workspace`) skips the per-call kernel
     forwarding; ``algorithm`` and ``adjoint_kernel2`` were fixed when it was
@@ -471,7 +314,7 @@ def deconvolve(
     per-sweep sqrt(mean((psi_i - psi_{i-1})^2)) over the whole batch,
     shaped (num_iterations,).
     """
-    _select_rl_update(elementwise)
+    select_update(elementwise)
     spatial = as_shape(psi.shape[-3:])
     if psi.ndim < 3:
         raise ValueError(f"psi must be (*B, Z, Y, X), got shape {tuple(psi.shape)}")
@@ -487,7 +330,7 @@ def deconvolve(
         k1, k2, conj_k2 = prepared.k1, prepared.k2, prepared.conj_k2
     else:
         if adjoint_kernel2:
-            _check_adjoint(data.kernel1)
+            check_adjoint(data.kernel1)
         # a batch resolves as one of its volumes
         engine = resolve_algorithm(algorithm, spatial, psi.device)
         k1, k2, conj_k2 = _forward_spectra(engine, data, spatial, adjoint_kernel2)
@@ -583,6 +426,14 @@ def _deltas(msqs: list, like: torch.Tensor) -> torch.Tensor:
     if not msqs or not msqs[0]:
         return like.new_zeros((0,))
     return torch.sqrt(torch.stack([torch.stack(m) for m in msqs]).mean(0))
+
+
+def working_volumes(engine: str, batch: int = 1) -> int:
+    """The f32 volumes of psi and its temporaries :func:`deconvolve` holds
+    for a psi of ``batch`` volumes: about 8 a volume, or on the fused engine,
+    one entry at a time (:func:`_deconvolve_fused`), one entry's 8 and the
+    input and output of each further entry."""
+    return 8 + 2 * (batch - 1) if engine == "fused" else 8 * batch
 
 
 def _deconvolve_fused(psi, data, k1, k2, conj_k2, num_iterations, lam, min_value, view_order,

@@ -14,7 +14,7 @@ Each chunk is extended by its kernel's halos, wrapped at the volume's ends
 in-core sequential order's, to the rounding of transforms at another
 extent.  ``algorithm`` ('fft' | 'dft' | 'direct' | 'auto') is honoured as
 on the in-core rung; 'auto' resolves per extended chunk
-(:func:`.rl.resolve_algorithm` with ``chunk=True``: never fused).
+(:func:`.engines.resolve_algorithm` with ``chunk=True``: never fused).
 
 On a CUDA device the host arrays are pinned once per call (psi, the
 quotient, and views and per-voxel weights not pinned already), each chunk
@@ -33,14 +33,10 @@ from typing import Sequence
 
 import torch
 
-from ..core.convolve import convolve_spectrum, direct_convolve3d
-from ..core.dft import dft_convolve_spectrum, kernel_spectrum_split
-from ..core.fft import rfft3
 from ..core.shapes import halo_widths
-from ..core.wrap import wrap_kernel
 from ..ops.elementwise import quotient as quotient_kernel, rl_update
+from .engines import TABLE, resolve_algorithm, select_update
 from .interleaved import _host, _pinned, chunk_bounds
-from .rl import _select_rl_update, resolve_algorithm
 
 # chunk working sets on the device at once: one computing, one arriving
 INFLIGHT = 2
@@ -96,18 +92,11 @@ def _convolver(kernel: torch.Tensor, ext_shape, algo: str, dev: torch.device, ca
     key = (id(kernel), algo, tuple(ext_shape))
     fn = cache.get(key)
     if fn is None:
-        k = kernel.to(dev)
-        if algo == "fft":
-            k_hat = rfft3(wrap_kernel(k, ext_shape))
-            fn = lambda x: convolve_spectrum(x, k_hat)
-        elif algo == "dft":
-            k_re, k_im = kernel_spectrum_split(k, ext_shape)
-            fn = lambda x: dft_convolve_spectrum(x, k_re, k_im)
-        elif algo == "direct":
-            fn = lambda x: direct_convolve3d(x, k, mode="circular")
-        else:
+        if algo not in ("fft", "dft", "direct"):
             raise ValueError(f"the streamed rung supports fft/dft/direct, not {algo!r}")
-        cache[key] = fn
+        e = TABLE[algo]
+        (op,) = e.views([kernel.to(dev)], ext_shape)
+        fn = cache[key] = lambda x: e.convolve(x, op)
     return fn
 
 
@@ -194,7 +183,7 @@ def deconvolve_streamed(
 
     The math is :func:`.rl.deconvolve` in the sequential order.  Returns the
     final psi as a float32 CPU tensor (the JAX rung returns numpy)."""
-    _select_rl_update(elementwise)
+    select_update(elementwise)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("deconvolve_streamed: device='cuda' but CUDA is not available")

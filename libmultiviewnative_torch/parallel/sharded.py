@@ -32,7 +32,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.shapes import halo_widths
-from ..deconv.rl import _apply_update, _fused_timed, _select_rl_update, rl_view_step_fused
+from ..deconv.engines import apply_update, fused_timed, select_update
+from ..deconv.rl import rl_view_step_fused
 from ..deconv.workspace import MultiViewData, check_simultaneous_weights
 from ..ops.elementwise import quotient, rl_update
 from ..ops.fused import check_transposed_shape, fused_limit, kernel_spectrum_fused
@@ -286,13 +287,13 @@ def _mesh_algorithm(algorithm: str, spatial, mesh: Mesh, ext_max: int, halo: int
     """The engine of a mesh request.  'auto': on a CUDA cell the port's
     H100 rule at the local extent (fused where eligible, ``ext_max`` is at
     least 256 and the local shape is of a class timed against fft,
-    :func:`..deconv.rl._fused_timed`, else fft, never dft); on the CPU
+    :func:`..deconv.engines.fused_timed`, else fft, never dft); on the CPU
     JAX's rule (``sharded.py:309-319``)."""
     if algorithm != "auto":
         return algorithm
     fused = ext_max >= 256 and sharded_fused_eligible(spatial, mesh, halo)
     if mesh.devices.flat[0].type == "cuda":
-        timed = fused and _fused_timed(_fused_local_shape(spatial, mesh, halo))
+        timed = fused and fused_timed(_fused_local_shape(spatial, mesh, halo))
         return "fused" if timed else "fft"
     if fused:
         return "fused"
@@ -329,7 +330,7 @@ def _local_view_sweep(psi, views, kernel1, kernel2, weights, lam, min_value, lo1
             quotient(views[c][l], integral[c], out=integral[c])
         integral = conv(integral, _at(kernel2, l), lo2, hi2, mesh)
         for c, p in psi.items():
-            new = _apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value, integral[c])
+            new = apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value, integral[c])
             delta[c] += new - p
     return _blend(psi, delta, mesh)
 
@@ -343,8 +344,8 @@ def _fused_zblock_step(psi_t, views_t, k1, k2, weights, l, lam, min_value, lo1, 
     for c in psi_t:
         quotient(views_t[c][l], blurred[c], out=blurred[c])
     integral = convolve_zblock_fused(blurred, _at(k2, l), lo2, hi2, mesh)
-    return {c: _apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value,
-                             p if in_place else integral[c])
+    return {c: apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value,
+                            p if in_place else integral[c])
             for c, p in psi_t.items()}
 
 
@@ -381,7 +382,7 @@ def _local_view_sweep_sequential(psi, views, kernel1, kernel2, weights, lam, min
             quotient(views[c][l], integral[c], out=integral[c])
         integral = conv(integral, _at(kernel2, l), lo2, hi2, mesh)
         for c, p in psi.items():
-            psi[c] = _apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value, p)
+            psi[c] = apply_update(update_fn, p, integral[c], weights[c][l], lam, min_value, p)
     return psi
 
 
@@ -514,7 +515,7 @@ def deconvolve_sharded(
         ze = bz if full_volume else max(zblock_fused_extent(bz, lo1, hi1),
                                         zblock_fused_extent(bz, lo2, hi2))
         check_transposed_shape((ze, X, Y), mesh.devices.flat[0])
-    update_fn = _select_rl_update(elementwise)
+    update_fn = select_update(elementwise)
 
     plain = not isinstance(psi, MeshTensor)
     out_device = psi.device if plain else None

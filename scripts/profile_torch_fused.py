@@ -91,10 +91,8 @@ def main():
                 return _fn(*a, **k)
 
         setattr(fu, name, wrapped)
-    owner, prep = (
-        (il, il.engine_spectra) if args.interleaved
-        else (rl, rl.prepare_spectra_fused if args.algorithm == "fused" else rl.prepare_spectra)
-    )
+    # the kernels' forwarding: the interleaved rung's, or deconvolve's
+    owner, prep = (il, il.forward) if args.interleaved else (rl, rl._forward_spectra)
 
     @functools.wraps(prep)
     def prep_wrapped(*a, **k):

@@ -21,7 +21,8 @@ import jax.numpy as jnp
 
 from libmultiviewnative_tpu.deconv import dispatch as jdispatch
 from libmultiviewnative_tpu.deconv.workspace import MultiViewData as JaxData
-from libmultiviewnative_torch.deconv import dispatch, rl, streamed
+from libmultiviewnative_torch.deconv import dispatch, engines, interleaved, rl, streamed
+from libmultiviewnative_torch.deconv.workspace import MultiViewData
 from libmultiviewnative_torch.interop import multiview_data_from_numpy
 from libmultiviewnative_torch.utils.synthetic import gaussian_kernel
 
@@ -122,9 +123,9 @@ LONG_AXES = [(64, 512, 16384), (64, 512, 8248), (256, 256, 16384), (256, 256, 82
 def test_auto_keeps_fft_at_the_long_axes(shape):
     """The fused engine serves a long axis on the card (``fused_eligible``),
     and ``auto`` still takes fft there: no such class was timed against fft
-    (``_fused_timed``)."""
+    (``engines.fused_timed``)."""
     assert rl.fused_eligible(shape, torch.device("cuda"))
-    assert not rl._fused_timed(shape)
+    assert not engines.fused_timed(shape)
     assert rl.resolve_algorithm("auto", shape, "cuda") == "fft"
     assert rl.resolve_algorithm("auto", shape, "cuda", chunk=True) == "fft"
 
@@ -438,3 +439,162 @@ def test_each_entry_point_refuses_an_unknown_elementwise():
     with pytest.raises(ValueError, match="unknown elementwise"):
         jdispatch.deconvolve_auto(jnp.asarray(psi0.numpy()), JaxData(
             *(jnp.asarray(a) for a in (views, k1, k2, w))), 1, elementwise="xla")
+
+
+# ---- the ladder's counts in bytes, held as literals: a change to an
+# engine's storage count (deconv/engines.py spectrum_volumes) moves the
+# rung a large request takes.  The benchmark's three configurations (4
+# views 256³ with 21³/25³ kernels and per-voxel weights, as one stack, a
+# batch of 4 with per-entry views and an adjoint; 4 views 512³ adjoint with
+# scalar weights; 6 views 300 x 1024 x 1024), and (128, 512, 512), where
+# dft takes its full-spectrum plan ----
+
+LADDER_CASES = {
+    # name: (views, (Z, Y, X), kernel1 edge, kernel2 edge, weights, batch, adjoint)
+    "v4_256": (4, (256,) * 3, 21, 25, "voxel", 1, False),
+    "v4_256_batch4": (4, (256,) * 3, 21, 25, "voxel", 4, False),
+    "v4_256_adjoint": (4, (256,) * 3, 21, 21, "voxel", 1, True),
+    "v4_512_adjoint": (4, (512,) * 3, 21, 21, "view", 1, True),
+    "v6_300x1024": (6, (300, 1024, 1024), 21, 25, "voxel", 1, False),
+    "v4_128x512x512": (4, (128, 512, 512), 21, 25, "voxel", 1, False),
+}
+
+# "<case>-<device>-<algorithm>": (estimate_workspace_bytes with the case's
+# batch, estimate_interleaved_bytes, _zonly_cell_bytes on 2 cells, and
+# deconvolve_auto's in-core estimate, the adjoint's discount included)
+LADDER_BYTES = {
+    "v4_256-cpu-fft": (1610612736, 939524096, 856036192, 1610612736),
+    "v4_256-cpu-dft": (1610612736, 939524096, 856036192, 1610612736),
+    "v4_256-cpu-fused": (2147483648, 1476395008, 1174803296, 2147483648),
+    "v4_256-cpu-direct": (1073741824, 939524096, 537269088, 1073741824),
+    "v4_256-cpu-auto": (1610612736, 939524096, 856036192, 1610612736),
+    "v4_256-cuda-fft": (1610612736, 939524096, 856036192, 1610612736),
+    "v4_256-cuda-dft": (1610612736, 939524096, 856036192, 1610612736),
+    "v4_256-cuda-fused": (2147483648, 1476395008, 1174803296, 2147483648),
+    "v4_256-cuda-direct": (1073741824, 1476395008, 537269088, 1073741824),
+    "v4_256-cuda-auto": (2147483648, 1476395008, 1174803296, 2147483648),
+    "v4_256_batch4-cpu-fft": (4026531840, 939524096, 1258689376, 4026531840),
+    "v4_256_batch4-cpu-dft": (4026531840, 939524096, 1258689376, 4026531840),
+    "v4_256_batch4-cpu-fused": (3355443200, 1476395008, 1577456480, 3355443200),
+    "v4_256_batch4-cpu-direct": (3489660928, 939524096, 939922272, 3489660928),
+    "v4_256_batch4-cpu-auto": (4026531840, 939524096, 1258689376, 4026531840),
+    "v4_256_batch4-cuda-fft": (4026531840, 939524096, 1258689376, 4026531840),
+    "v4_256_batch4-cuda-dft": (4026531840, 939524096, 1258689376, 4026531840),
+    "v4_256_batch4-cuda-fused": (3355443200, 1476395008, 1577456480, 3355443200),
+    "v4_256_batch4-cuda-direct": (3489660928, 1476395008, 939922272, 3489660928),
+    "v4_256_batch4-cuda-auto": (3355443200, 1476395008, 1577456480, 3355443200),
+    "v4_256_adjoint-cpu-fft": (1610612736, 939524096, 847545760, 1610612736),
+    "v4_256_adjoint-cpu-dft": (1610612736, 939524096, 847545760, 1610612736),
+    "v4_256_adjoint-cpu-fused": (2147483648, 1476395008, 1174701472, 1879048192),
+    "v4_256_adjoint-cpu-direct": (1073741824, 939524096, 537167264, 1073741824),
+    "v4_256_adjoint-cpu-auto": (1610612736, 939524096, 847545760, 1610612736),
+    "v4_256_adjoint-cuda-fft": (1610612736, 939524096, 847545760, 1610612736),
+    "v4_256_adjoint-cuda-dft": (1610612736, 939524096, 847545760, 1610612736),
+    "v4_256_adjoint-cuda-fused": (2147483648, 1476395008, 1174701472, 1879048192),
+    "v4_256_adjoint-cuda-direct": (1073741824, 1476395008, 537167264, 1073741824),
+    "v4_256_adjoint-cuda-auto": (2147483648, 1476395008, 1174701472, 1879048192),
+    "v4_512_adjoint-cpu-fft": (10737418256, 7516192768, 5536777640, 10737418256),
+    "v4_512_adjoint-cpu-dft": (15032385552, 11811160064, 7852033448, 12884901904),
+    "v4_512_adjoint-cpu-fused": (15032385552, 11811160064, 7919142312, 12884901904),
+    "v4_512_adjoint-cpu-direct": (6442450960, 7516192768, 3221521832, 6442450960),
+    "v4_512_adjoint-cpu-auto": (10737418256, 7516192768, 5536777640, 10737418256),
+    "v4_512_adjoint-cuda-fft": (10737418256, 7516192768, 5536777640, 10737418256),
+    "v4_512_adjoint-cuda-dft": (15032385552, 11811160064, 7852033448, 12884901904),
+    "v4_512_adjoint-cuda-fused": (15032385552, 11811160064, 7919142312, 12884901904),
+    "v4_512_adjoint-cuda-direct": (6442450960, 11811160064, 3221521832, 6442450960),
+    "v4_512_adjoint-cuda-auto": (15032385552, 11811160064, 7919142312, 12884901904),
+    "v6_300x1024-cpu-fft": (40265318400, 22649241600, 21341216016, 40265318400),
+    "v6_300x1024-cpu-dft": (55364812800, 37748736000, 30098922768, 55364812800),
+    "v6_300x1024-cpu-fused": (55364812800, 37748736000, 30300249360, 55364812800),
+    "v6_300x1024-cpu-direct": (25165824000, 22649241600, 12583509264, 25165824000),
+    "v6_300x1024-cpu-auto": (40265318400, 22649241600, 21341216016, 40265318400),
+    "v6_300x1024-cuda-fft": (40265318400, 22649241600, 21341216016, 40265318400),
+    "v6_300x1024-cuda-dft": (55364812800, 37748736000, 30098922768, 55364812800),
+    "v6_300x1024-cuda-fused": (55364812800, 37748736000, 30300249360, 55364812800),
+    "v6_300x1024-cuda-direct": (25165824000, 22649241600, 12583509264, 25165824000),
+    "v6_300x1024-cuda-auto": (40265318400, 22649241600, 21341216016, 40265318400),
+    "v4_128x512x512-cpu-fft": (3221225472, 1879048192, 1812337504, 3221225472),
+    "v4_128x512x512-cpu-dft": (4294967296, 2952790016, 2550535008, 4294967296),
+    "v4_128x512x512-cpu-fused": (4294967296, 2952790016, 2550535008, 4294967296),
+    "v4_128x512x512-cpu-direct": (2147483648, 1879048192, 1074140000, 2147483648),
+    "v4_128x512x512-cpu-auto": (3221225472, 1879048192, 1812337504, 3221225472),
+    "v4_128x512x512-cuda-fft": (3221225472, 1879048192, 1812337504, 3221225472),
+    "v4_128x512x512-cuda-dft": (4294967296, 2952790016, 2550535008, 4294967296),
+    "v4_128x512x512-cuda-fused": (4294967296, 2952790016, 2550535008, 4294967296),
+    "v4_128x512x512-cuda-direct": (2147483648, 1879048192, 1074140000, 2147483648),
+    "v4_128x512x512-cuda-auto": (3221225472, 1879048192, 1812337504, 3221225472),
+}
+
+
+def _meta_case(name):
+    V, shape, e1, e2, w, batch, adjoint = LADDER_CASES[name]
+    meta = dict(device="meta", dtype=torch.float32)
+    views = torch.empty((V,) + ((batch,) if batch > 1 else ()) + shape, **meta)
+    weights = torch.empty((V,) + shape if w == "voxel" else (V,), **meta)
+    data = MultiViewData(views, torch.empty((V,) + (e1,) * 3, **meta),
+                         torch.empty((V,) + (e2,) * 3, **meta), weights)
+    psi = torch.empty(((batch,) if batch > 1 else ()) + shape, **meta)
+    return data, psi, batch, adjoint
+
+
+class _OffCore(Exception):
+    pass
+
+
+def _off_core(data):
+    raise _OffCore
+
+
+@pytest.mark.parametrize("key", sorted(LADDER_BYTES))
+def test_ladder_counts_the_bytes_it_counted(monkeypatch, key):
+    """Each estimate of the ladder, on meta tensors of the case's shapes,
+    on the CPU and on a card (the CUDA rule needs none).  deconvolve_auto's
+    own in-core estimate is read at its edge: with the cap at it plus one
+    byte the call takes the in-core rung, with the cap at it another."""
+    name, dev, algorithm = key.split("-")
+    data, psi, batch, adjoint = _meta_case(name)
+    device = torch.device(dev)
+    ws, il, cell, in_core = LADDER_BYTES[key]
+    assert dispatch.estimate_workspace_bytes(data, algorithm, device, batch=batch) == ws
+    assert dispatch.estimate_interleaved_bytes(data, algorithm, device) == il
+    assert dispatch._zonly_cell_bytes(data, algorithm, 2, device) == cell
+
+    real = dispatch.resolve_algorithm
+    monkeypatch.setattr(dispatch, "resolve_algorithm",
+                        lambda a, s, d=None, chunk=False: real(a, s, device, chunk))
+    ran = []
+    monkeypatch.setattr(dispatch, "deconvolve", lambda p, *a, **k: ran.append(k) or p)
+    monkeypatch.setattr(dispatch, "_host_views", _off_core)
+    for cap, took in ((in_core + 1, True), (in_core, False)):
+        monkeypatch.setattr(dispatch, "device_capacity_bytes", lambda device=None, c=cap: c)
+        ran.clear()
+        try:
+            dispatch.deconvolve_auto(psi, data, 1, algorithm=algorithm, headroom=1.0,
+                                     adjoint_kernel2=adjoint, device="meta")
+        except (_OffCore, ValueError):
+            pass
+        assert bool(ran) == took, (cap, took)
+
+
+@pytest.mark.parametrize("rung", ["in-core", "interleaved"])
+@pytest.mark.parametrize("algorithm", ["auto", "fft", "dft"])
+def test_deconvolve_auto_resolves_the_engine_once(monkeypatch, rung, algorithm):
+    """The ladder resolves the request once and hands the resolved engine
+    to the rung it takes: every other resolution in the call is of that
+    engine's name, which returns it as it is."""
+    _, data, psi0 = _both(_arrays())
+    _capacity(monkeypatch, _rung_cap(data, rung, algorithm))
+    engine = engines.resolve_algorithm(algorithm, SHAPE, "cpu")
+    calls = []
+    for module in (engines, dispatch, rl, interleaved, streamed):
+        real = module.resolve_algorithm
+
+        def counted(a, *args, _real=real, **kw):
+            calls.append(a)
+            return _real(a, *args, **kw)
+
+        monkeypatch.setattr(module, "resolve_algorithm", counted)
+    dispatch.deconvolve_auto(torch.from_numpy(psi0), data, 1, algorithm=algorithm, chunk_z=8,
+                             device="cpu")
+    # the ladder's, then the interleaved estimate's and the rung's own
+    assert calls == [algorithm] + [engine] * (1 if rung == "in-core" else 2)

@@ -215,10 +215,11 @@ def test_cpu_path_counts_no_launch():
 @pytest.mark.parametrize("kshapes", [[(5, 5, 5)] * 3, [(5, 5, 5), (3, 7, 5), (5, 5, 5)]],
                          ids=["one-shape", "two-shapes"])
 def test_interleaved_forwards_each_stack_once(monkeypatch, kshapes):
-    """The interleaved rung's fused spectra: one forwarding of each kernel
-    stack (of the views whose kernels share a shape), each view's spectrum
-    bitwise its own kernel_spectrum_fused."""
-    from libmultiviewnative_torch.deconv import interleaved as il
+    """The interleaved rung's fused spectra (the engine table's forwarding
+    one operand a view): one forwarding of each kernel stack (of the views
+    whose kernels share a shape), each view's spectrum bitwise its own
+    kernel_spectrum_fused."""
+    from libmultiviewnative_torch.deconv import engines
 
     calls = []
 
@@ -226,17 +227,78 @@ def test_interleaved_forwards_each_stack_once(monkeypatch, kshapes):
         calls.append(tuple(kernels.shape))
         return fu.kernel_stack_spectrum_fused(kernels, shape)
 
-    monkeypatch.setattr(il, "kernel_stack_spectrum_fused", spy)
+    monkeypatch.setattr(engines, "kernel_stack_spectrum_fused", spy)
     g = np.random.default_rng(4)
     k1 = [g.random(k).astype(np.float32) for k in kshapes]
     k2 = [np.flip(k).copy() for k in k1]
-    ops1, ops2, _ = il.engine_spectra("fused", k1, k2, SHAPE, "cpu")
+    t1, t2 = ([torch.from_numpy(k) for k in ks] for ks in (k1, k2))
+    ops1, ops2, _ = engines.forward("fused", t1, t2, SHAPE, "cpu", per_view=True)
     stacks = [(kshapes.count(k),) + k for k in dict.fromkeys(kshapes)]
     assert calls == stacks * 2  # kernel1's stacks, then kernel2's
     for ops, ks in ((ops1, k1), (ops2, k2)):
         for op, k in zip(ops, ks, strict=True):
             own = fu.kernel_spectrum_fused(torch.from_numpy(k), SHAPE)
             assert all(torch.equal(a, b) for a, b in zip(op, own))
+
+
+# ---------------------------------------------------------------- the engine table
+# deconv/engines.py forwards every engine's kernels, as a stack for the
+# in-core rung and one operand a kernel for the off-core rungs, and counts
+# the storage the ladder's estimates read
+
+
+def _f32_volumes(op, shape) -> float:
+    """The float32 volumes of ``shape`` an operand's tensors hold."""
+    tensors = op if isinstance(op, (tuple, list)) else (op,)
+    return sum(t.numel() * t.element_size() for t in tensors) / 4 / float(np.prod(shape))
+
+
+@pytest.mark.parametrize("engine,shape", [("fft", SHAPE), ("dft", SHAPE), ("dft", (8, 8, 264)),
+                                          ("fused", SHAPE), ("direct", SHAPE)], ids=str)
+def test_table_counts_the_operands_it_forwards(engine, shape):
+    """``spectrum_volumes`` against the operands ``forward`` makes, in f32
+    volumes a view: a half-spectrum about 1, a full pair 2, a kernel 0, and
+    the fused pair, counted 2 as the JAX package counts it, 2 (X/2 + 8) / X
+    (1.5 at X = 32).  Under the adjoint, what kernel2's operand adds
+    is at most what the count adds for it, and on dft exactly it (the
+    negated imaginary part)."""
+    from libmultiviewnative_torch.deconv import engines
+
+    V = 2
+    k1, k2 = _stack((5, 5, 3), views=V), _stack((3, 5, 5), seed=1, views=V)
+    op1, op2, conj = engines.forward(engine, k1, k2, shape, "cpu")
+    got = (_f32_volumes(op1, shape) + _f32_volumes(op2, shape)) / V
+    count = engines.spectrum_volumes(engine, shape)
+    assert not conj and got <= count + 0.5
+    kernel_pair = 2 * (2 * (shape[2] / 2 + 8) / shape[2])  # kernel1's and kernel2's
+    assert round(got) == count if engine != "fused" else got == kernel_pair
+    a1, a2, conj = engines.forward(engine, k1, None, shape, "cpu", adjoint=True)
+    assert conj == (engine in ("fft", "fused"))
+    own = {t.data_ptr() for t in (a1 if isinstance(a1, tuple) else (a1,))}
+    added = [t for t in (a2 if isinstance(a2, tuple) else (a2,)) if t.data_ptr() not in own]
+    extra = round(_f32_volumes(tuple(added), shape) / V)
+    counted = engines.spectrum_volumes(engine, shape, adjoint=True) - round(_f32_volumes(a1, shape) / V)
+    assert extra <= counted and (engine != "dft" or extra == counted)
+
+
+@pytest.mark.parametrize("engine", ["fft", "dft", "fused", "direct"])
+def test_table_forwards_a_stack_as_its_kernels(engine):
+    """Each view of a forwarded stack against its kernel forwarded alone:
+    bitwise, but for dft, whose stack runs one batched product (1e-6 of
+    max)."""
+    from libmultiviewnative_torch.deconv import engines
+
+    ks = _stack((5, 5, 3), views=3)
+    stacked, _, _ = engines.forward(engine, ks, ks, SHAPE, "cpu")
+    alone, _, _ = engines.forward(engine, list(ks), list(ks), SHAPE, "cpu", per_view=True)
+    for v, op in enumerate(alone):
+        parts = zip(op, stacked) if isinstance(op, tuple) else [(op, stacked)]
+        for got, stack in parts:
+            want = stack[v]
+            if engine == "dft":
+                assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+            else:
+                assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------- the CUDA branch

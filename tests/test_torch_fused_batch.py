@@ -113,7 +113,7 @@ def test_ladder_keeps_a_fused_batch_in_core_where_it_fits(monkeypatch, capsys):
     monkeypatch.setenv("LMVN_TRACE", "1")
     psi0 = torch.empty((nb,) + shape, **meta)
     assert dispatch.deconvolve_auto(psi0, data, 1, device="meta", **KW) is not None
-    assert len(ran) == 1 and ran[0]["algorithm"] == "auto"
+    assert len(ran) == 1 and ran[0]["algorithm"] == "fused"  # resolved once, by the ladder
     assert f"in-core on one device (est {est >> 20} MiB" in capsys.readouterr().out
 
 

@@ -116,6 +116,7 @@ def test_driver_under_the_cuda_fft_layout(monkeypatch, view_order):
     ones are contiguous).  The same layout on the CPU gives bitwise the same
     result: the kernel spectra are stacked in it and K3 meets x̂ in it."""
     from libmultiviewnative_torch.core import convolve, fft
+    from libmultiviewnative_torch.deconv import engines
 
     args = _inputs()
     kw = dict(num_iterations=2, lam=0.006, min_value=1e-4, view_order=view_order)
@@ -126,7 +127,7 @@ def test_driver_under_the_cuda_fft_layout(monkeypatch, view_order):
         return out.permute(2, 0, 1).contiguous().permute(1, 2, 0) if out.ndim == 3 else out
 
     monkeypatch.setattr(convolve, "rfft3", cuda_like_rfft3)
-    monkeypatch.setattr(rl, "rfft3", cuda_like_rfft3)
+    monkeypatch.setattr(engines, "rfft3", cuda_like_rfft3)  # the kernels' forwarding
     data = multiview_data_from_numpy(*args[1:], device="cpu")
     assert not rl.prepare_spectra(data.kernel1, SHAPE)[0].is_contiguous()
     np.testing.assert_array_equal(_port(*args, **kw), want)

@@ -25,12 +25,8 @@ import torch
 
 from lmvnbench import inputs, reference
 from libmultiviewnative_torch.deconv import dispatch
-from libmultiviewnative_torch.deconv.rl import (
-    _cuda_auto,
-    deconvolve,
-    fused_eligible,
-    resolve_algorithm,
-)
+from libmultiviewnative_torch.deconv.engines import _cuda_auto
+from libmultiviewnative_torch.deconv.rl import deconvolve, fused_eligible, resolve_algorithm
 from libmultiviewnative_torch.deconv.workspace import MultiViewData
 
 torch.set_num_threads(1)
