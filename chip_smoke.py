@@ -21,7 +21,8 @@ Phases, each raising on failure (there is no CPU fallback):
 4. golden: the golden pack (tests/data/golden_mv6.npz) at 2 and 5
    iterations under the gates of tests/test_golden_regression.py;
 5. headline: 4 views at 256³ (bench.py's config 1) through ``deconvolve``
-   on the fft engine, with the launch counts of one call (40/40/80), it/s and
+   on the fft engine, with the launch counts of one call (K1/K2 40/40 and 80
+   z passes, phase 32's route; K3 0), it/s and
    the slope;
 6. prepared: the same data through prepare_workspace + deconvolve_prepared;
 7. 512³: 4 views with adjoint_kernel2 and scalar weights, fft engine;
@@ -98,7 +99,7 @@ Phases, each raising on failure (there is no CPU fallback):
     the CPU path (1e-4);
 25. the front ends, on phase 5's configuration as host numpy arrays:
     ``api.deconvolve_flat`` against ``deconvolve`` on data already on the
-    card (1e-6 of max, bitwise expected; K1/K2/K3 40/40/80), both timed
+    card (1e-6 of max, bitwise expected; K1/K2 40/40, 80 z passes), both timed
     with the upload and the download apart; the single-step helpers
     (``quotient_flat`` bitwise, ``final_values_flat`` at λ 0 and 0.006,
     ``convolution3d``, ``iterate_fft_*``) against their plain versions on
@@ -106,8 +107,8 @@ Phases, each raising on failure (there is no CPU fallback):
     process through ctypes, every GPU-named symbol bitwise its flat
     counterpart, the device queries (the card's name and memory,
     capability 9.0, one device, no error recorded); the C host smoke with
-    ``--gpu`` (where the interpreter has a shared libpython), its K1-K3
-    launches counted at its interpreter's exit;
+    ``--gpu`` (where the interpreter has a shared libpython), its K1, K2 and
+    z-pass launches counted at its interpreter's exit;
     ``deconvolve_checkpointed`` on the fused engine, resumed from psi_4,
     and ``deconvolve_resilient`` through one injected failure, against the
     uninterrupted run; ``debug_context`` raising on K2's 0·(1/0); and the
@@ -134,7 +135,8 @@ Phases, each raising on failure (there is no CPU fallback):
     and weights) in one ``deconvolve(algorithm="auto")`` call, which runs
     fft; each entry against the single-volume fft call on it (1e-6 of
     max|psi|, bitwise expected: the batch is transformed one entry at a
-    time), the launches of one call (K1/K2/K3 40/40/80, as for one volume),
+    time), the launches of one call (K1/K2 40/40 as for one volume, and one
+    z pass a product and entry, 320),
     volumes/s against 4 single calls on fft and on fused in turns, and the
     peak memory; then 2 volumes at 64³ with (V, B, Z, Y, X) views on fft
     (both orders), dft and direct, ``deconvolve_auto`` (in-core, by its
@@ -202,7 +204,15 @@ Phases, each raising on failure (there is no CPU fallback):
     the einsum chain under bf16 storage, the whole forwarding within 1e-6 of
     max of the einsum chain of each view (the parent's path) and timed
     against it, and the launches of one stack (a gather, one K4, one
-    contraction).
+    contraction);
+32. the fft engine's hand route (``ops/z_convolve.py``: cuFFT on x and y,
+    ``z_convolve`` for the z FFT, the product, the inverse z FFT and 1/N) at
+    256³, 512³ (``conj_k``), (300, 1024, 1024) and small odd shapes: the
+    route within 1e-5 of max of its plain version (the same decomposition in
+    ``torch.fft``) and of the 3D route (rfftn, K3, irfftn), the kernel alone
+    within 1e-5 of max of the plain z step, timed against its byte bound and
+    that step, the route timed against the 3D route, each entry of a batch
+    bitwise its single call, and one call's launches (one z pass, no K3).
 
 Every kernel's record carries its bound: the larger of the bytes its
 function must move (each input read once, each output written once; a
@@ -234,6 +244,7 @@ MIN_VALUE = 1e-4
 ITERS = 10
 HEADLINE_N = 256  # bench.py's config 1
 BIG_N = 512  # bench.py's config 2
+V6_SHAPE = (300, 1024, 1024)  # BASELINE.json configs[4], the light-sheet north star
 CROSS_N = 64
 TIMED_LAUNCHES = 10  # per turn; two turns each of kernel and plain version
 THIN_SHAPE = (32, 512, 512)  # both bench kernels take the dense forwarding
@@ -265,8 +276,13 @@ FORWARD_KERNELS = ("spectrum_gather", "spectrum_zsparse", "spectrum_zsparse_bf16
 SOURCES.update({name: "libmultiviewnative_torch/ops/csrc/spectrum.cu" for name in FORWARD_KERNELS})
 REPLACES.update({name: "libmultiviewnative_tpu/ops/pallas/fused_dft2.py:1642"
                  for name in FORWARD_KERNELS})
-KERNEL_NAMES = (("rl_update", "quotient", "spectral_multiply") + FUSED_PASSES + BF16_PASSES
-                + FORWARD_KERNELS)
+# the fft engine's z pass (phase 32): the z FFT, K3's product, the inverse z
+# FFT and 1/N between cuFFT's x and y axes, where the JAX package's fft
+# engine runs XLA's 3D FFT around spectral_multiply_pallas
+SOURCES["z_convolve"] = "libmultiviewnative_torch/ops/csrc/z_convolve.cu"
+REPLACES["z_convolve"] = REPLACES["spectral_multiply"]
+KERNEL_NAMES = (("rl_update", "quotient", "spectral_multiply", "z_convolve") + FUSED_PASSES
+                + BF16_PASSES + FORWARD_KERNELS)
 # a kernel agrees with its plain version when max|kernel - plain| is within
 # this share of max|plain|: -fmad=false gives the plain versions' rounding,
 # so K1 is expected bitwise (K2 is held to 0); PyTorch's own complex
@@ -762,8 +778,6 @@ def phase_headline(torch, dev, rng, launches_out):
     from libmultiviewnative_torch.deconv.rl import (
         deconvolve, deconvolve_prepared, prepare_workspace,
     )
-    from libmultiviewnative_torch.ops import elementwise as ew
-
     log(f"# phase 5: headline, 4 views at {HEADLINE_N}^3, 10 iterations, algorithm='fft'")
     shape = (HEADLINE_N,) * 3
     data, psi0 = headline_data(torch, dev, rng)
@@ -772,14 +786,14 @@ def phase_headline(torch, dev, rng, launches_out):
         return deconvolve(psi0, data, n, lam=LAM, min_value=MIN_VALUE, algorithm="fft")
 
     torch.cuda.synchronize()
-    ew.reset_launches()
+    reset_counts()
     out = run_n(ITERS)
     torch.cuda.synchronize()
-    launches_out.update(ew.launches)
-    want = {"rl_update": V * ITERS, "quotient": V * ITERS, "spectral_multiply": 2 * V * ITERS}
-    log(f"launches in one call: {dict(launches_out)} (expected {want})")
-    if launches_out != want:
-        raise AssertionError(f"the main path did not run through the kernels: {launches_out}")
+    counts = read_counts()
+    expect_counts(counts, {"rl_update": V * ITERS, "quotient": V * ITERS,
+                           **convolves(HEADLINE_N, 2 * V * ITERS)}, "headline on fft")
+    launches_out.update({k: counts[k] for k in ("rl_update", "quotient", "spectral_multiply",
+                                                "z_convolve")})
     check_output(torch, out, shape, "headline")
     value, slope = rate(torch, run_n, reps=4)
     log(f"headline 4view {HEADLINE_N}^3: {value!r} it/s, slope {slope!r} it/s")
@@ -940,16 +954,35 @@ def phase_fused_kernels(torch, dev, records):
 
 
 def reset_counts():
-    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu, z_convolve as zc
 
     ew.reset_launches()
     fu.reset_launches()
+    zc.reset_launches()
 
 
 def read_counts():
-    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu
+    from libmultiviewnative_torch.ops import elementwise as ew, fused as fu, z_convolve as zc
 
-    return {**ew.launches, **fu.launches}
+    return {**ew.launches, **fu.launches, **zc.launches}
+
+
+def convolves(z, n):
+    """The launches of ``n`` fft-engine convolutions of volumes ``z`` deep
+    (nothing requiring grad): one z pass each where the hand route serves
+    the depth (``ops/z_convolve.py`` ``z_length_ok``), else one K3 each."""
+    from libmultiviewnative_torch.ops.z_convolve import z_length_ok
+
+    return {"z_convolve" if z_length_ok(z) else "spectral_multiply": n}
+
+
+def summed(*counts):
+    """Launch counts added name by name."""
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def expect_counts(counts, want, what):
@@ -1378,7 +1411,7 @@ def phase_interleaved(torch, dev, launches_out):
         n_chunks = len(bounds)
         want = {"quotient": 3 * V * n_chunks, "rl_update": 3 * V * n_chunks}
         if engine == "fft":
-            want["spectral_multiply"] = 2 * 3 * V
+            want.update(convolves(BIG_N, 2 * 3 * V))
         else:
             want.update(pass_a=2 * 3 * V + 2, pass_b=2 * 3 * V, pass_c=2 * 3 * V,
                         **forwarded(2))
@@ -1524,10 +1557,13 @@ def phase_grad(torch, dev):
         return ((out - t(views[0])) ** 2).mean(), (lam, w)
 
     for what, make, forward_want in (
+        # psi records no graph here: both convolutions take the hand route
         ("rl_view_step conj_k2 d/dlam, d/dw (voxel)", lam_w_step,
-         {"spectral_multiply": 2, "quotient": 1, "rl_update": 1}),
+         {**convolves(GRAD_N, 2), "quotient": 1, "rl_update": 1}),
+        # the first view step's two convolutions record nothing (psi0 and its
+        # quotient); every one after K1's update of psi does, on the 3D route
         ("deconvolve fft 2 it d/dlam, d/dw (V,)", lam_w_deconvolve,
-         {"spectral_multiply": 8, "quotient": 4, "rl_update": 4}),
+         summed(convolves(GRAD_N, 2), {"spectral_multiply": 6, "quotient": 4, "rl_update": 4})),
     ):
         loss, leaves = make("cpu")
         loss.backward()
@@ -1948,16 +1984,25 @@ def same_or_close(what, got, want, tol=TOLERANCE):
         raise AssertionError(f"{what}: {diff:.3e} beyond {tol:g}")
 
 
-def plain_view_step(psi, view, k1_hat, k2_hat, w, lam):
-    """One RL view step from the kernels' plain versions (rfft, the complex
-    ``*``, irfft, ``view * (1/integral)``, the plain update)."""
+def plain_convolve(x, k_hat):
+    """The plain version of the fft engine's convolution on the route the
+    card takes for ``x``: the hand route's decomposition in ``torch.fft``
+    where it serves the depth, else rfft, the complex ``*``, irfft."""
     from libmultiviewnative_torch.core.fft import irfft3, rfft3
+    from libmultiviewnative_torch.ops import elementwise as ew, z_convolve as zc
+
+    if zc.takes_z_pass(x, k_hat):
+        return zc.z_pass_convolve_plain(x, k_hat)
+    return irfft3(ew.spectral_multiply_plain(rfft3(x), k_hat), x.shape)
+
+
+def plain_view_step(psi, view, k1_hat, k2_hat, w, lam):
+    """One RL view step from the kernels' plain versions (the convolutions
+    of :func:`plain_convolve`, ``view * (1/integral)``, the plain update)."""
     from libmultiviewnative_torch.ops import elementwise as ew
 
-    shape = psi.shape
-    integral = irfft3(ew.spectral_multiply_plain(rfft3(psi), k1_hat), shape)
-    integral = ew.quotient_plain(view, integral)
-    integral = irfft3(ew.spectral_multiply_plain(rfft3(integral), k2_hat), shape)
+    integral = ew.quotient_plain(view, plain_convolve(psi, k1_hat))
+    integral = plain_convolve(integral, k2_hat)
     return ew.rl_update_plain(psi, integral, w, lam, MIN_VALUE)
 
 
@@ -1981,7 +2026,8 @@ def phase_front_ends(torch, dev):
     t_phase = time.perf_counter()
     shape = (HEADLINE_N,) * 3
     psi0, views, k1s, k2s, weights = front_end_data(np.random.default_rng(25))
-    want_fft = {"rl_update": V * ITERS, "quotient": V * ITERS, "spectral_multiply": 2 * V * ITERS}
+    want_fft = {"rl_update": V * ITERS, "quotient": V * ITERS,
+                **convolves(HEADLINE_N, 2 * V * ITERS)}
 
     # a. flat API against deconvolve on data already on the card
     def flat():
@@ -2027,9 +2073,8 @@ def phase_front_ends(torch, dev):
     k_hat = rfft3(wrap_kernel(t(k1s[0]), shape))
     reset_counts()
     conv = api.convolution3d(views[0], k1s[0])
-    expect_counts(read_counts(), {"spectral_multiply": 1}, "convolution3d")
-    same_or_close("convolution3d vs plain", conv,
-                  irfft3(ew.spectral_multiply_plain(rfft3(t(views[0])), k_hat), shape).cpu())
+    expect_counts(read_counts(), convolves(HEADLINE_N, 1), "convolution3d")
+    same_or_close("convolution3d vs plain", conv, plain_convolve(t(views[0]), k_hat).cpu())
     flip = np.flip(k1s[0]).copy()
     k2_hat = rfft3(wrap_kernel(t(flip), shape))
     ones = np.ones(shape, np.float32)
@@ -2042,8 +2087,8 @@ def phase_front_ends(torch, dev):
                                                    MIN_VALUE)
         else:
             steps[name] = api.iterate_fft_plain(views[0], views[0], k1s[0], flip, ones, MIN_VALUE)
-        expect_counts(read_counts(), {"rl_update": 1, "quotient": 1, "spectral_multiply": 2},
-                      name)
+        expect_counts(read_counts(), {"rl_update": 1, "quotient": 1,
+                                      **convolves(HEADLINE_N, 2)}, name)
         same_or_close(f"{name} vs plain", steps[name], plain_view_step(
             t(views[0]), t(views[0]), k_hat, k2_hat, t(ones), lam).cpu())
 
@@ -2181,8 +2226,11 @@ import atexit, importlib.machinery, importlib.util, os, sys
 
 
 def _report():
-    ew = sys.modules.get("libmultiviewnative_torch.ops.elementwise")
-    print("kernel launches", dict(ew.launches) if ew else {}, flush=True)
+    counts = {}
+    for name in ("elementwise", "z_convolve"):
+        mod = sys.modules.get("libmultiviewnative_torch.ops." + name)
+        counts.update(mod.launches if mod else {})
+    print("kernel launches", counts, flush=True)
 
 
 atexit.register(_report)
@@ -2196,8 +2244,9 @@ if _spec is not None:
 
 def phase_c_host(native_build):
     """abi_smoke --gpu in a subprocess: it must exit 0, print OK, finite=1
-    and changed=1, and its interpreter must have launched K1-K3 (2 views x 2
-    iterations, and one convolution)."""
+    and changed=1, and its interpreter must have launched K1, K2 and the
+    fft engine's convolutions (2 views x 2 iterations, and one convolution),
+    at 8³ on the hand route."""
     import ast
     import tempfile
 
@@ -2218,7 +2267,7 @@ def phase_c_host(native_build):
         raise AssertionError(f"C host smoke failed: rc {res.returncode}\n{res.stderr[-3000:]}")
     counts = [ast.literal_eval(line.split("kernel launches", 1)[1].strip())
               for line in res.stdout.splitlines() if line.startswith("kernel launches")]
-    want = {"rl_update": 4, "quotient": 4, "spectral_multiply": 9}
+    want = {"rl_update": 4, "quotient": 4, "spectral_multiply": 0, **convolves(8, 9)}
     if counts != [want]:
         raise AssertionError(f"C host: kernel launches {counts}, expected [{want}]")
 
@@ -2246,9 +2295,11 @@ def card_line():
     return smi.stdout.strip().splitlines()[0]
 
 
-def mesh_counts(engine, full_volume, zp, views, iters):
+def mesh_counts(engine, full_volume, zp, views, iters, depths=(0, 0)):
     """The kernel launches of one mesh call: per cell and view step, two
-    z-block convolves (fft: K3 twice; fused: K4, K6, K7 each), K2 and K1;
+    z-block convolves (fft: :func:`convolves` at the halo-extended
+    ``depths`` of kernel1's and kernel2's blocks; fused: K4, K6, K7 each), K2
+    and K1;
     with one z block on the fused engine, the fused step (K4, K6, K8, K6,
     K9).  Every cell holds a z block of each of its views, so a call makes
     zp·V view steps an iteration.  The fused spectra: one z-sparse forwarding
@@ -2256,7 +2307,8 @@ def mesh_counts(engine, full_volume, zp, views, iters):
     device."""
     steps = zp * views * iters
     if engine == "fft":
-        return {"rl_update": steps, "quotient": steps, "spectral_multiply": 2 * steps}
+        return summed({"rl_update": steps, "quotient": steps},
+                      *(convolves(z, steps) for z in depths))
     if full_volume:
         return {"pass_a": steps + 2 * views, "pass_b": 2 * steps, "pass_cqa": steps,
                 "pass_cu": steps, **forwarded(2 * views)}
@@ -2323,7 +2375,7 @@ def phase_mesh(torch, dev, rng):
     cases = {
         "fft": (lambda: convolve_spectrum(x, rfft3(wrap_kernel(k, shape))),
                 lambda b: halo.convolve_zblock(b, halo.zblock_kernel_spectrum(k, local), lo, hi,
-                                               mesh), x, {"spectral_multiply": 4}),
+                                               mesh), x, convolves(local[0] + lo + hi, 4)),
         "dft": (lambda: dft_convolve_spectrum(x, *kernel_spectrum_split(k, shape)),
                 lambda b: halo.convolve_zblock_dft(b, halo.zblock_kernel_spectrum_split(k, local),
                                                    lo, hi, mesh), x, {}),
@@ -2363,7 +2415,10 @@ def phase_mesh(torch, dev, rng):
             psi_s, data_s, iters, m, lam=lam, min_value=MIN_VALUE, algorithm=engine,
             view_order=order))
         counts = {key: c for key, c in read_counts().items() if c}
-        want = mesh_counts(engine, zp == 1, zp, data.num_views, iters)
+        bz = int(psi0.shape[-3]) // zp
+        depths = [bz + sum(h[0] for h in halo_widths(tuple(k.shape[-3:])))
+                  for k in (data.kernel1, data.kernel2)]
+        want = mesh_counts(engine, zp == 1, zp, data.num_views, iters, depths)
         log(f"mesh {vp}x{zp} {engine:5s} {order}: {secs:.3f} s for {iters} iterations,"
             f" launches {counts}")
         if counts != want:
@@ -2526,8 +2581,10 @@ def phase_batched(torch, dev, rng):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    # one K1 and K2 launch a view step for the batch; each entry convolved
+    # alone, its own z pass a product
     expect_counts(counts, {"rl_update": V * ITERS, "quotient": V * ITERS,
-                           "spectral_multiply": 2 * V * ITERS},
+                           **convolves(HEADLINE_N, BATCH * 2 * V * ITERS)},
                   f"deconvolve of {BATCH} volumes at {HEADLINE_N}^3")
     result = {"launches": counts, "peak_gib_above_inputs": peak}
     result["worst_entry"] = hold_batch(torch, f"batch of {BATCH} at {HEADLINE_N}^3", out,
@@ -2587,11 +2644,13 @@ def phase_batched(torch, dev, rng):
         reset_counts()
         out = rl.deconvolve(psi0, data, BATCH_ITERS, algorithm=engine, view_order=order, **kw)
         torch.cuda.synchronize()
-        # one launch of K1 and K2 a view step, of K3 a product, for the batch;
-        # the simultaneous order takes a batch one view at a time (2V K3)
+        # one launch of K1 and K2 a view step for the batch; on fft each
+        # entry's own z pass a product (the simultaneous order takes a batch
+        # one view at a time, 2V products)
         steps = V * BATCH_ITERS
         expect_counts(read_counts(), {"rl_update": steps, "quotient": steps,
-                                      "spectral_multiply": 2 * steps if engine == "fft" else 0},
+                                      **(convolves(BATCH_N, 2 * steps * BATCH_SMALL)
+                                         if engine == "fft" else {})},
                       f"{engine} {order}, {BATCH_SMALL} x {BATCH_N}^3, (V, B, Z, Y, X) views")
         refs = [rl.deconvolve(psi0[b], one[b], BATCH_ITERS, algorithm=engine, view_order=order,
                               **kw) for b in range(BATCH_SMALL)]
@@ -3768,6 +3827,96 @@ def forward_folding(torch, dev):
             raise AssertionError(f"forwarding {label} off the einsum chain")
 
 
+def phase_z_pass(torch, dev, records):
+    """32: the fft engine's hand route and its kernel against their plain
+    versions, the route against the 3D route, timed."""
+    from libmultiviewnative_torch.core import convolve as cv
+    from libmultiviewnative_torch.core.fft import rfft3
+    from libmultiviewnative_torch.core.wrap import wrap_kernel
+    from libmultiviewnative_torch.ops import z_convolve as zc
+
+    log("# phase 32: the fft engine's z pass (cuFFT on x and y, z_convolve) against its plain"
+        " versions and the 3D route")
+    k1, _ = bench_kernels()
+    psf = torch.from_numpy(k1[0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    # (shape, conj_k, timed): the main path's shapes timed, small odd ones held
+    for shape, conj, timed in (((HEADLINE_N,) * 3, False, True), ((BIG_N,) * 3, True, True),
+                               (V6_SHAPE, False, True), ((12, 9, 7), True, False),
+                               ((280, 40, 33), False, False)):
+        Z, Y, X = shape
+        x = torch.rand(shape, generator=gen, device=dev) * 100.0
+        k = rfft3(wrap_kernel(psf, shape))
+        label = f"{shape} conj={conj}"
+        if not zc.takes_z_pass(x, k):
+            raise AssertionError(f"z pass {label}: the route does not serve the shape")
+        got = zc.z_pass_convolve(x, k, conj)
+        for what, ref in (("its plain version", zc.z_pass_convolve_plain(x, k, conj)),
+                          ("the 3D route", cv._fft3_convolve(x, k, conj))):
+            err, scale = compare(torch, f"z pass route {label}", got, ref)
+            log(f"z pass route {label}: against {what} max|diff|/max {err / scale:.3e}"
+                f" (tol {FUSED_TOLERANCE:g})")
+            if not err <= FUSED_TOLERANCE * scale:
+                raise AssertionError(f"z pass route {label} off {what}")
+        del got, ref
+        # the kernel alone, on a half spectrum in the engine's (X//2+1, Z, Y) order
+        kx = X // 2 + 1
+        spec0 = torch.empty_strided((Z, Y, kx), (Y, 1, Z * Y), dtype=torch.complex64, device=dev)
+        spec0.copy_(torch.fft.rfft2(x))
+        spec = spec0.clone()
+        want = zc.z_convolve_plain(spec0, k, conj, Z * Y * X)
+        got = zc.z_convolve(spec, k, conj, shape)
+        err, scale = compare(torch, f"z_convolve {label}", got, want)
+        log(f"z_convolve {label}: against the plain z step max|diff|/max {err / scale:.3e}"
+            f" (tol {FUSED_TOLERANCE:g})")
+        if not err <= FUSED_TOLERANCE * scale:
+            raise AssertionError(f"z_convolve {label} off its plain version")
+        rec = records.setdefault("z_convolve", {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del got, want
+        if not timed:
+            continue
+        # applied in place again and again: the kernel spectrum of a PSF keeps
+        # every value bounded
+        samples = {"kernel": [], "plain": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            fn = ((lambda: zc.z_convolve(spec, k, conj, shape)) if turn == "kernel"
+                  else (lambda: zc.z_convolve_plain(spec0, k, conj, Z * Y * X)))
+            samples[turn] += event_times_ms(torch, fn)
+        ms, plain_ms = (statistics.median(samples[t]) for t in ("kernel", "plain"))
+        nbytes = 24 * Z * Y * kx
+        ops = Y * kx * (2 * 5 * Z * math.log2(Z) + 6 * Z)  # two z FFTs and the product
+        keep_timing(records, "z_convolve", Z, (ms, plain_ms, plain_ms), nbytes, ops,
+                    key=None if Z in (HEADLINE_N, BIG_N) else "x".join(map(str, shape)))
+        routes = {"hand": [], "3d": []}
+        for turn in ("3d", "hand", "hand", "3d"):
+            fn = ((lambda: zc.z_pass_convolve(x, k, conj)) if turn == "hand"
+                  else (lambda: cv._fft3_convolve(x, k, conj)))
+            routes[turn] += event_times_ms(torch, fn)
+        hand, cube = (statistics.median(routes[t]) for t in ("hand", "3d"))
+        log(f"z pass {label}: one convolution on the hand route {hand:.4f} ms, on the 3D route"
+            f" {cube:.4f} ms ({cube / hand:.2f}x; medians of 20 CUDA-event calls)")
+        del spec, spec0, x, k
+        torch.cuda.empty_cache()
+    # a batch: each entry its own convolution, bitwise its single call
+    shape = (300, 64, 48)
+    xb = torch.rand((3,) + shape, generator=gen, device=dev)
+    k = rfft3(wrap_kernel(psf, shape))
+    reset_counts()
+    cv.reset_routes()
+    got = cv.convolve_spectrum(xb, k, conj_k=True)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), {"z_convolve": 3}, f"a batch of 3 at {shape}")
+    if cv.routes != {"z_pass": 3, "fft3": 0}:
+        raise AssertionError(f"a batch of 3 at {shape}: routes {cv.routes}")
+    same = all(bool(torch.equal(got[b], cv.convolve_spectrum(xb[b], k, conj_k=True)))
+               for b in range(3))
+    log(f"z pass a batch of 3 at {shape}: each entry bitwise its single call: {same}")
+    if not same:
+        raise AssertionError("z pass: a batch entry differs from its single call")
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3776,6 +3925,7 @@ def main():
     phase_build()
     records = phase_kernels(torch, dev)
     torch.cuda.empty_cache()
+    phase_z_pass(torch, dev, records)
     phase_golden(torch, dev)
     rng = np.random.default_rng(0)
     launches = {}

@@ -4,7 +4,9 @@ Counterpart of ``libmultiviewnative_tpu/core/convolve.py`` (the reference's
 ``cpu_convolve``, ``inc/cpu_convolve.h:26-304``):
 
   * ``half_inplace(forwarded_kernel)`` → :func:`convolve_spectrum`
-    (rfft, pointwise multiply through the K3 kernel, irfft: the RL hot path),
+    (the RL hot path: on the card, cuFFT on x and y and one hand-written z
+    pass, ``ops/z_convolve.py``; else rfft, pointwise multiply through the K3
+    kernel, irfft),
   * ``inplace()`` → :func:`fft_convolve3d` (``circular`` = no_padd,
     ``linear`` = zero_padd).
 
@@ -16,15 +18,40 @@ trailing three are (z, y, x).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ..ops.elementwise import layout_like, spectral_multiply
+from ..ops.z_convolve import takes_z_pass, z_pass_convolve
 from ..utils.precision import fp32_convs
-from ..utils.trace import spanned
+from ..utils.trace import spanned, trace_print
 from .fft import irfft3, rfft3, stack_spectra
 from .shapes import as_shape, halo_widths, zero_pad_extents, zero_pad_offsets
 from .wrap import crop_at_offsets, embed_at_offsets, wrap_kernel  # noqa: F401 (re-exported, as in JAX)
+
+
+# convolutions by route, one a volume of output, since reset_routes():
+# "z_pass", cuFFT on x and y and the hand-written z pass; "fft3", the 3D
+# transform (cuFFT on the card, pocketfft on the CPU) and K3
+routes = {"z_pass": 0, "fft3": 0}
+_routes_seen = set()
+
+
+def reset_routes() -> None:
+    for name in routes:
+        routes[name] = 0
+
+
+def _count(route: str, shape, n: int) -> None:
+    """Count ``n`` convolutions on ``route``; under ``LMVN_TRACE`` one line
+    the first time a (Z, Y, X) shape takes each route."""
+    routes[route] += n
+    key = (route, tuple(int(s) for s in shape))
+    if key not in _routes_seen:
+        _routes_seen.add(key)
+        trace_print(f"convolve_spectrum: {key[1]} on the {route} route")
 
 
 @spanned("lmvn.engine.convolve_spectrum")
@@ -37,14 +64,31 @@ def convolve_spectrum(
     (flipped) kernel for odd kernel dims, without a second spectrum.
     Either operand may carry leading batch axes the other lacks.
 
+    Two routes, by what the operands show (``ops/z_convolve.py``
+    :func:`takes_z_pass`): on the card, one volume (or each entry of a
+    batch) against one kernel spectrum, with a z length of radices 2-8 and
+    nothing requiring grad, runs cuFFT on x and y and one hand-written z pass
+    (the product and 1/N in it); everything else runs the 3D transform, K3
+    and the inverse.  :data:`routes` counts both.
+
     A batch of volumes against one spectrum is transformed one entry at a
     time, so that each entry's result is bitwise that of a call on the
     entry alone (cuFFT's batched plans round otherwise: 1.5e-6 of max|psi|
-    after 10 RL iterations at 256³ on an H100, ``scripts/measure_batched.py``),
-    and the product is one K3 launch for the batch.
+    after 10 RL iterations at 256³ on an H100, ``scripts/measure_batched.py``);
+    on the 3D route the product is one K3 launch for the batch.
     """
     if x.ndim > kernel_hat.ndim == 3:
         return _convolve_entries(x, kernel_hat, conj_k)
+    if takes_z_pass(x, kernel_hat):
+        _count("z_pass", x.shape[-3:], 1)
+        return z_pass_convolve(x, kernel_hat, conj_k)
+    return _fft3_convolve(x, kernel_hat, conj_k)
+
+
+def _fft3_convolve(x: torch.Tensor, kernel_hat: torch.Tensor, conj_k: bool = False) -> torch.Tensor:
+    """The 3D route of :func:`convolve_spectrum`: rfft3, K3, irfft3."""
+    volumes = math.prod(torch.broadcast_shapes(x.shape[:-3], kernel_hat.shape[:-3]))
+    _count("fft3", x.shape[-3:], volumes)
     x_hat = rfft3(x)
     if kernel_hat.ndim > x_hat.ndim and not conj_k:
         # one x against a stack of kernels: the product commutes, and the
@@ -58,11 +102,19 @@ def convolve_spectrum(
 
 
 def _convolve_entries(x: torch.Tensor, kernel_hat: torch.Tensor, conj_k: bool) -> torch.Tensor:
-    """:func:`convolve_spectrum` of a batch ``x`` against one spectrum: the
-    entries' spectra stacked in ``kernel_hat``'s memory order, one K3 launch
-    over them, and an inverse transform per entry."""
+    """:func:`convolve_spectrum` of a batch ``x`` against one spectrum,
+    entry by entry: on the hand route each entry's whole convolution; on the
+    3D route the entries' spectra stacked in ``kernel_hat``'s memory order,
+    one K3 launch over them, and an inverse transform per entry."""
     spatial = tuple(x.shape[-3:])
     entries = x.reshape((-1,) + spatial)
+    if takes_z_pass(x, kernel_hat):
+        _count("z_pass", spatial, len(entries))
+        out = torch.empty((len(entries),) + spatial, dtype=x.dtype, device=x.device)
+        for e, o in zip(entries, out):
+            z_pass_convolve(e, kernel_hat, conj_k, out=o)
+        return out.reshape(x.shape)
+    _count("fft3", spatial, len(entries))
     x_hat = layout_like(stack_spectra([rfft3(e) for e in entries]), kernel_hat)
     prod = spectral_multiply(x_hat, kernel_hat, conj_k=conj_k, out=x_hat)
     return torch.stack([irfft3(p, spatial) for p in prod]).reshape(x.shape)

@@ -7,7 +7,8 @@ the sources, the headers and the flags.  Each unit is compiled by its own
 ``nvcc`` process, all started together, and the objects are then linked:
 ``elementwise.cu``, ``fused.cu`` (the passes' entries, no kernels),
 ``fft_long.cu`` (the long axes' gathers, scatters and chirp launches),
-``spectrum.cu`` (the z-sparse forwarding's gather and contraction) and
+``spectrum.cu`` (the z-sparse forwarding's gather and contraction),
+``z_convolve.cu`` (the fft engine's z pass) and
 ``fft_tiles.cu`` once per tile width of the FFT stages (``-DLMVN_TILE``),
 each holding that width's 13 stage kernels and 2 column FFTs: 15.6-17.5 s
 on an H100 host with 8 cores before the long axes, where one ``nvcc`` over
@@ -39,7 +40,8 @@ _HEADERS = ("fft_long.cuh", "fft_stage.cuh", "rl_update.cuh")
 _TILES = (16, 8, 4, 2)
 # (source, flags, object stem) of each unit
 _UNITS = (("elementwise.cu", (), "elementwise"), ("fused.cu", (), "fused"),
-          ("fft_long.cu", (), "fft_long"), ("spectrum.cu", (), "spectrum")) + tuple(
+          ("fft_long.cu", (), "fft_long"), ("spectrum.cu", (), "spectrum"),
+          ("z_convolve.cu", (), "z_convolve")) + tuple(
     ("fft_tiles.cu", (f"-DLMVN_TILE={p}",), f"fft_tiles{p}") for p in _TILES
 )
 _SOURCES = tuple(dict.fromkeys(source for source, _, _ in _UNITS))
@@ -97,6 +99,11 @@ _SIGNATURES = {
     ),
     # device, o_re, o_im, u_re, u_im, t, V, Kx, Kxp, Z, Y, Zs, kz, stream
     "lmvn_fused_spectrum_zsparse": (ctypes.c_int, _P, _P, _P, _P, _P) + (ctypes.c_int,) * 7 + (_P,),
+    # device, s, kernel spectrum, its z, y and k strides, conj_k, the z
+    # plan (LmvnFft*), Y, Kx, scale, stream
+    "lmvn_z_convolve": (ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_float, _P),
 }
 # each fused pass's bf16-spectrum twin takes the arguments of its f32 entry
 _SIGNATURES.update({
