@@ -81,9 +81,7 @@ def main(argv=None) -> int:
         emit("program", r)
     from libmultiviewnative_torch.deconv.rl import resolve_algorithm
 
-    batch = manifest.traffic(manifest.cell(args.workload)["traffic"])["batch"]
-    fused = resolve_algorithm("auto", cfg["shape"], torch.device(args.device),
-                              chunk=batch > 1) == "fused"
+    fused = resolve_algorithm("auto", cfg["shape"], torch.device(args.device)) == "fused"
     for s in controls:
         if fused:
             with env_set("LMVN_FUSED_SPEC_BF16", "1"):

@@ -119,7 +119,8 @@ def host_report(say) -> None:
 def check_results(cfg: dict, loop, kept: dict, seed: int, device, say) -> dict:
     """Compare each kept result, stack by stack, with the float64 reference
     run on inputs made again from the seed.  The number compared is the
-    widest gap ``max|psi - ref| / max|ref|`` over the kept stacks."""
+    widest gap ``max|psi - ref| / max|ref|`` over the kept stacks; each
+    stack's gap is logged with the seconds its check took."""
     import torch
 
     k1, k2 = make_kernels(cfg, device)
@@ -131,17 +132,21 @@ def check_results(cfg: dict, loop, kept: dict, seed: int, device, say) -> dict:
             if res is None:
                 worst = math.inf
                 continue
+            t0 = time.perf_counter()
             views = stack_views(cfg, seed, t, device)
             psi0 = torch.empty(tuple(cfg["shape"]), dtype=torch.float32, device=device)
             psi0.fill_(start_value(views))
             ref = reference.deconvolve(psi0, views, k1, k2, w, cfg["iterations"], cfg["lam"],
                                        cfg["min_value"], cfg["adjoint_kernel2"])
+            del views, psi0
             got = res[b] if loop.batch > 1 else res
-            err = float((got.to(torch.float64) - ref).abs().max() / ref.abs().max())
+            gap = torch.sub(got, ref).abs_()  # got widened inside the op: no float64 copy
+            err = float(gap.max() / ref.abs().max())
             worst = max(worst, err if math.isfinite(err) else math.inf)
             compared += 1
-            say(f"check request {k} time point {t}: max|psi - ref| / max|ref| = {err!r}")
-            del views, psi0, ref, got
+            say(f"check request {k} time point {t}: max|psi - ref| / max|ref| = {err!r} "
+                f"({time.perf_counter() - t0:.3f} s)")
+            del ref, got, gap
     return {"psi_err": worst, "compared": compared}
 
 
@@ -182,7 +187,7 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float, trace: bo
     t_inputs = time.perf_counter()
     solve = solve or program_solver(cfg, dev)
     B = loop.batch
-    engine = rl.resolve_algorithm("auto", cfg["shape"], dev, chunk=B > 1)
+    engine = rl.resolve_algorithm("auto", cfg["shape"], dev)
     _, data0 = loop.request(0)
     est = dispatch.estimate_workspace_bytes(data0, "auto", dev, batch=B)
     cap = int(0.9 * dispatch.device_capacity_bytes(dev))

@@ -92,3 +92,35 @@ def test_no_card_fails_the_run(tmp_path):
                          cwd=tmp_path, env=env, timeout=300)
     assert out.returncode != 0
     assert not out.stdout.strip().startswith("{")
+
+
+def test_batch_cell_reads_the_fused_engine():
+    """``v4_256_batch4`` runs on the fused engine (``auto`` gives a batch
+    the engine of one volume): the fused engine's device time is read
+    there, cuFFT's only in the 6-view cell, where the fft engine runs."""
+    m = Manifest(ROOT)
+    names = {x["name"] for x in m.metrics("per_layer", "v4_256_batch4")}
+    assert "fused_ms_per_stack" in names and "cufft_ms_per_stack" not in names
+    cufft = [x for x in m.data["per_layer"] if x["name"] == "cufft_ms_per_stack"]
+    assert cufft[0]["workloads"] == ["v6_300x1024_timelapse"]
+
+
+def test_the_log_names_the_engine_of_one_volume(tiny_root, monkeypatch):
+    """The engine the log names for a batched cell is ``auto``'s for one of
+    its volumes, asked as the program asks it (no streamed chunk)."""
+    from libmultiviewnative_torch.deconv import rl
+
+    asked = []
+    resolve = rl.resolve_algorithm
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs)
+        return resolve(*args, **kwargs)
+
+    monkeypatch.setattr(rl, "resolve_algorithm", spy)
+    log = io.StringIO()
+    run_cell(Manifest(tiny_root), "tiny_v4_256_pervoxel.tiny_batch2", 2**31 + 9, 0.1, False,
+             device="cpu", out=log)
+    assert asked and not any(k.get("chunk") for k in asked)
+    engine = resolve("auto", (32, 32, 32), "cpu")
+    assert f"# auto engine: {engine};" in log.getvalue()
